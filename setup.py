@@ -15,8 +15,11 @@ setup(
         "sequences (structure-prior guided temporal attention), built on "
         "JAX/Flax/Pallas"
     ),
-    packages=find_packages(include=["sgtapose_tpu", "sgtapose_tpu.*"]),
-    package_data={"sgtapose_tpu.native": ["*.cpp"]},
+    # sgtapose_tpu_torch: the PyTorch/CUDA port (imports torch, not jax);
+    # its CUDA kernels are built from csrc/*.cu by nvcc at first use on a GPU
+    packages=find_packages(include=["sgtapose_tpu", "sgtapose_tpu.*",
+                                    "sgtapose_tpu_torch", "sgtapose_tpu_torch.*"]),
+    package_data={"sgtapose_tpu.native": ["*.cpp"], "sgtapose_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

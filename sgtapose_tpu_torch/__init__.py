@@ -1,0 +1,39 @@
+"""sgtapose_tpu_torch — PyTorch/CUDA port of the sgtapose_tpu streaming
+detector for NVIDIA Hopper (H100).
+
+The JAX package `sgtapose_tpu` is the reference; this package imports none of
+it (nor jax/flax) and keeps its own copy of what it needs. Layout mirrors the
+JAX package:
+
+  config.py   model/inference dataclasses (same defaults as the reference)
+  core/       geometry, masked EPnP + LM PnP solver
+  models/     DLA-34 trunk, DCNv2 decoder, windowed cross-attention, SGTAPose
+  ops/        hand-written CUDA kernels (csrc/*.cu), their builder and
+              launch counters
+  decode/     peak finding + sub-pixel decode
+  infer/      exact streaming video detector
+  data/       synthetic sequences
+  utils/      flax-variable loader
+
+Public entry points run on the card (device="cuda") unless the caller asks
+for the CPU; they raise when CUDA is missing instead of falling back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for an entry point; raises if CUDA is asked for but
+    unavailable (no silent fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "sgtapose_tpu_torch: device='cuda' requested but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain PyTorch path on the CPU"
+        )
+    return dev

@@ -1,0 +1,118 @@
+"""Modulated deformable convolution (DCNv2), NHWC.
+
+Counterpart of `sgtapose_tpu/models/deform_conv.py` (`deform_sample_batch`,
+`DeformConv2d`). A 3x3 offset/mask conv gives 27 channels: for row-major tap
+k, channels (2k, 2k+1) are the (dy, dx) offsets and channel 18+k the mask
+logit. The 9 taps are sampled bilinearly at (p + tap + offset) with zero
+padding, scaled by sigmoid(mask), and contracted with the kernel weights in
+one (9*C_in -> C_out) product whose input is tap-major (index k*C + c).
+
+The sampling is the CUDA kernel `csrc/deform_sample.cu` on the card; its
+plain PyTorch version below (a mirror of the JAX `_sample_pieces`) serves CPU
+tensors. The contraction is a plain matrix product, as JAX leaves it to XLA.
+Forward only (the JAX custom VJP `_dsb_bwd` belongs to the training slice).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from sgtapose_tpu_torch.ops import build
+
+KERNEL = "deform_sample"
+
+
+def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """feat (B,H,W,C), offsets (B,H,W,18) as (dy, dx) per tap, masks (B,H,W,9)
+    already sigmoided -> (B,H,W,9*C). Zero padding outside the map."""
+    B, H, W, C = feat.shape
+    dev = feat.device
+    gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None, None]
+    gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :, None]
+    taps = torch.arange(9, device=dev)
+    ky = (taps // 3 - 1).to(torch.float32)[None, None, :]
+    kx = (taps % 3 - 1).to(torch.float32)[None, None, :]
+
+    off = offsets.reshape(B, H, W, 9, 2)
+    y = (gy + ky)[None] + off[..., 0]  # (B,H,W,9)
+    x = (gx + kx)[None] + off[..., 1]
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    fy = y - y0
+    fx = x - x0
+    y0i = y0.to(torch.int64)
+    x0i = x0.to(torch.int64)
+
+    flat = feat.reshape(B, H * W, C)
+    out = None
+    for dy, dx, wy, wx in ((0, 0, 1 - fy, 1 - fx), (0, 1, 1 - fy, fx),
+                           (1, 0, fy, 1 - fx), (1, 1, fy, fx)):
+        yi = y0i + dy
+        xi = x0i + dx
+        valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).to(torch.float32)
+        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        vals = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C)).reshape(B, H, W, 9, C)
+        term = vals * (wy * wx * valid)[..., None]
+        out = term if out is None else out + term
+    return (out * masks[..., None]).reshape(B, H, W, 9 * C)
+
+
+def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA sampling kernel on the current stream (CUDA tensors)."""
+    if feat.dim() != 4:
+        raise ValueError(f"feat must be (B,H,W,C), got {tuple(feat.shape)}")
+    B, H, W, C = feat.shape
+    if tuple(offsets.shape) != (B, H, W, 18) or tuple(masks.shape) != (B, H, W, 9):
+        raise ValueError(
+            f"offsets/masks must be (B,H,W,18)/(B,H,W,9) for feat {tuple(feat.shape)}, "
+            f"got {tuple(offsets.shape)}/{tuple(masks.shape)}")
+    for name, t in (("feat", feat), ("offsets", offsets), ("masks", masks)):
+        if t.device.type != "cuda" or t.device != feat.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {feat.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((B, H, W, 9 * C), dtype=torch.float32, device=feat.device)
+    fn = build.kernel_fn(KERNEL)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feat.data_ptr(), offsets.data_ptr(), masks.data_ptr(), out.data_ptr(),
+                 B, H, W, C, stream)
+    build.check(KERNEL, err)
+    build.count_launch(KERNEL)
+    return out
+
+
+def deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """9-tap modulated deformable sampling (see module docstring). CUDA
+    tensors go through the kernel (or raise); CPU tensors take the plain
+    version."""
+    if feat.device.type == "cpu":
+        return plain_deform_sample(feat, offsets, masks)
+    return deform_sample_cuda(feat, offsets, masks)
+
+
+class DeformConv2d(nn.Module):
+    """DCNv2: 3x3 modulated deformable conv, stride 1, pad 1, one group.
+
+    Takes and returns NCHW tensors (channels_last memory keeps the NHWC view
+    the sampler needs free of copies). `conv_offset_mask` starts at zero, so
+    the initial op is a plain 3x3 conv with 0.5 masks, as in the JAX module.
+    """
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv_offset_mask = nn.Conv2d(in_features, 27, 3, padding=1)
+        nn.init.zeros_(self.conv_offset_mask.weight)
+        nn.init.zeros_(self.conv_offset_mask.bias)
+        # the (9*C_in -> O) contraction; input index k*C_in + c
+        self.kernel = nn.Linear(9 * in_features, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # (B,H,W,27)
+        offsets = om[..., :18].contiguous()
+        masks = torch.sigmoid(om[..., 18:27]).contiguous()
+        flat = deform_sample(x.permute(0, 2, 3, 1).contiguous(), offsets, masks)
+        return self.kernel(flat).permute(0, 3, 1, 2)
