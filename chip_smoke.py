@@ -6,29 +6,41 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi) and the float32 settings
      (TF32 off for cuDNN convolutions and matmuls: this slice runs float32);
-  2. build both CUDA kernels from sgtapose_tpu_torch/csrc (nvcc, sm_90a);
+  2. build every CUDA kernel from sgtapose_tpu_torch/csrc (one nvcc per
+     source, all started together, sm_90a);
   3. the biased-attention kernel against its plain PyTorch version at the
-     flagship shapes plus a ragged n, with kernel / plain / library
-     (F.scaled_dot_product_attention, a yardstick the port never calls) times;
-  4. the DCN sampling kernel against its plain version at every decoder shape;
-  5. one full-width SGTAPose forward (480x480, DCN decoder, seeded weights
+     flagship shapes plus a ragged n, with kernel (cold, and warm: 3
+     back-to-back launches without an L2 flush, as the 3 tied layers run;
+     clean: the flush read back, so no dirty lines are left to write back) /
+     plain / library (F.scaled_dot_product_attention, a yardstick the port
+     never calls) times;
+  4. the DCN sampling kernel (off the detector path since the fused kernel;
+     kept for the training slice) against its plain version at every decoder
+     shape;
+  5. the fused DCN kernel against its plain version at the 4 decoder input
+     shapes with each of their output widths, and one ragged shape, with
+     kernel / unfused pair (the sampler, then torch.addmm with TF32 off) /
+     plain times;
+  6. one full-width SGTAPose forward (480x480, DCN decoder, seeded weights
      with the zero-initialised parameters perturbed) on the card and on the
      CPU (plain versions), heads compared;
-  6. the flagship streaming detector on a 16-frame synthetic 640x360 video,
+  7. the flagship streaming detector on a 16-frame synthetic 640x360 video,
      teacher-forced then closed-loop: kernel launch counts per frame from the
      wrappers' counters (reset just before each run), finite outputs of the
      expected shapes, per-stage times (CUDA events around each stage, so a
      stage's time includes the host's launch gaps inside it), fps, and from
-     torch.profiler over 2 frames the CUDA launches per stage and the device
-     kernel time per frame (busy share against the unprofiled frame time);
-  7. a `{"kernels": [...]}` line, the card line, and last the device line
+     torch.profiler over 2 frames the CUDA launches per stage, the device
+     kernel time per frame (busy share against the unprofiled frame time)
+     and the device time per frame of each hand-written kernel;
+  8. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 Kernel times are CUDA-event times of single launches with the 50 MB L2
 flushed before each (the detector reads each weight once per frame); the
 per-kernel entries of the kernels line are per-frame sums over the shapes one
-frame launches. Bounds: bytes over 3.35 TB/s and operations over the
-float32 rate (67 TFLOP/s), the larger of the two (H100 SXM data sheet).
+frame launches. Bounds (H100 SXM data sheet): the larger of bytes over
+3.35 TB/s and operations over the rate of the instructions used, 67 TFLOP/s
+for float32 FMAs, 165 TFLOP/s (495 / 3) for 3xTF32 on the tensor cores.
 Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -44,15 +56,25 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32X3_OPS_PER_S = 495e12 / 3
 T_FRAMES = 16
 ATTN_TOL = 2e-4  # the JAX package's Pallas-vs-XLA bar
 DCN_TOL = 1e-5  # same float32 arithmetic; only FMA contraction may differ
+# fused DCN vs plain, relative to max(1, max|ref|): a 9C-long sum in another
+# order, plus 3xTF32's dropped lo*lo term (~2^-22 of each product)
+DCN_CONV_REL_TOL = 1e-4
 FORWARD_REL_TOL = 1e-4  # card vs CPU heads, relative to max(1, max|CPU head|)
+# (H, C_in, C_out, nodes per frame) of the 16 decoder DCN nodes at 480x480
+DCN_NODES = [(15, 512, 256, 1), (30, 256, 256, 1), (30, 256, 128, 2), (30, 256, 64, 1),
+             (60, 128, 128, 2), (60, 128, 64, 4), (120, 64, 64, 5)]
+# device function of each kernel, as the profiler names it
+DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "deform_conv_kernel",
+                "deform_sample": "deform_sample_kernel"}
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -98,16 +120,22 @@ def main() -> int:
     report["build_seconds"] = build.BUILD_INFO["seconds"]
 
     flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
+    flush_sum = torch.empty(1, dtype=torch.float32, device=dev)
 
-    def cold_ms(fn, iters=20, warmup=3):
+    def cold_ms(fn, iters=20, warmup=3, clean=False):
         """Mean CUDA-event time of one call, L2 flushed before each. A ~1 ms
         device sleep ahead of the start event lets the host enqueue the whole
-        call first, so the events bracket device work, not launch overhead."""
+        call first, so the events bracket device work, not launch overhead.
+        The flush writes 128 MB, which leaves the L2 full of dirty lines that
+        a streaming kernel must also write back; `clean` reads the buffer
+        back first, so the L2 holds clean lines only."""
         for _ in range(warmup):
             fn()
         total = 0.0
         for _ in range(iters):
             flush.zero_()
+            if clean:
+                torch.sum(flush, dim=0, keepdim=True, out=flush_sum)
             torch.cuda._sleep(2_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -116,6 +144,24 @@ def main() -> int:
             e.record()
             e.synchronize()
             total += s.elapsed_time(e)
+        return total / iters
+
+    def warm_ms(fn, reps=3, iters=20):
+        """Mean time of one call within `reps` back-to-back calls after one
+        L2 flush: later calls find their inputs in L2."""
+        fn()
+        total = 0.0
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(reps):
+                fn()
+            e.record()
+            e.synchronize()
+            total += s.elapsed_time(e) / reps
         return total / iters
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -142,8 +188,11 @@ def main() -> int:
             raise AssertionError(f"attention kernel n={n} d={d}: max abs err {err} > {ATTN_TOL}")
         n_bytes = 4 * (4 * h * n * d + h * n * n)
         b_ms, b_by = bound_ms(n_bytes, h * n * n * (4 * d + 4))
-        row = dict(n=n, d=d, launches_per_frame=per_frame, max_abs_err=err,
+        row = dict(n=n, d=d, per_frame=per_frame, max_abs_err=err,
                    ms=cold_ms(lambda: attention_kernel.biased_attention_cuda(q, k, v, bias)),
+                   warm_ms=warm_ms(lambda: attention_kernel.biased_attention_cuda(q, k, v, bias)),
+                   clean_ms=cold_ms(lambda: attention_kernel.biased_attention_cuda(q, k, v, bias),
+                                    clean=True),
                    plain_ms=cold_ms(lambda: attention_kernel.plain_biased_attention(q, k, v, bias)),
                    library_ms=cold_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
                    bound_ms=b_ms, bound_by=b_by)
@@ -152,10 +201,12 @@ def main() -> int:
 
     # ---- 4. DCN sampling kernel vs plain ----------------------------------
     # (H, C_in) of the 16 decoder DCN nodes at 480x480 and how many per frame
-    res = cfg.model.output_res[0]
-    dcn_shapes = [(res // 8, 512, 1), (res // 4, 256, 4), (res // 2, 128, 6), (res, 64, 5)]
+    # (the sampler alone is no longer launched on the detector path)
+    dcn_shapes = {}
+    for H, C, _, nodes in DCN_NODES:
+        dcn_shapes[(H, C)] = dcn_shapes.get((H, C), 0) + nodes
     dcn_rows = []
-    for H, C, per_frame in dcn_shapes:
+    for (H, C), per_frame in dcn_shapes.items():
         feat = torch.randn(1, H, H, C, generator=gen, device=dev)
         offsets = torch.rand(1, H, H, 18, generator=gen, device=dev) * 6 - 3
         masks = torch.rand(1, H, H, 9, generator=gen, device=dev)
@@ -167,19 +218,57 @@ def main() -> int:
             raise AssertionError(f"DCN kernel H={H} C={C}: max abs err {err} > {DCN_TOL}")
         n_bytes = 4 * H * H * (C + 18 + 9 + 9 * C)
         b_ms, b_by = bound_ms(n_bytes, H * H * 9 * C * 9)
-        row = dict(H=H, W=H, C=C, launches_per_frame=per_frame, max_abs_err=err,
+        row = dict(H=H, W=H, C=C, per_frame=per_frame, max_abs_err=err,
                    ms=cold_ms(lambda: deform_conv.deform_sample_cuda(feat, offsets, masks)),
                    plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample(feat, offsets, masks)),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
         dcn_rows.append(row)
         print("deform_sample " + json.dumps(row))
-    if sum(r[2] for r in dcn_shapes) != 16:
-        raise AssertionError("the decoder runs 16 DCN nodes per frame")
     report["attention_shapes"] = attn_rows
     report["deform_sample_shapes"] = dcn_rows
 
-    # ---- 5. full-width forward: card vs CPU -------------------------------
+    # ---- 5. fused DCN kernel vs plain -------------------------------------
+    conv_rows = []
+    for H, C, O, per_frame in DCN_NODES + [(9, 6, 5, 0)]:  # + a ragged shape, off the path
+        W = H + 2 if per_frame == 0 else H
+        x = torch.randn(1, H, W, C, generator=gen, device=dev)
+        om = torch.cat([torch.rand(1, H, W, 18, generator=gen, device=dev) * 6 - 3,
+                        2 * torch.randn(1, H, W, 9, generator=gen, device=dev)], dim=-1)
+        weight = torch.randn(O, 9 * C, generator=gen, device=dev) / math.sqrt(9 * C)
+        bias_o = torch.randn(O, generator=gen, device=dev)
+        out = deform_conv.deform_conv_cuda(x, om, weight, bias_o)
+        torch.cuda.synchronize()
+        ref = deform_conv.plain_deform_conv(x, om, weight, bias_o)
+        err = (out - ref).abs().max().item()
+        bar = DCN_CONV_REL_TOL * max(1.0, ref.abs().max().item())
+        if not math.isfinite(err) or err > bar:
+            raise AssertionError(f"deform_conv H={H} W={W} C={C} O={O}: max abs err {err} > {bar}")
+        offsets = om[..., :18].contiguous()
+        masks = torch.sigmoid(om[..., 18:]).contiguous()
+
+        def pair():
+            flat = deform_conv.deform_sample_cuda(x, offsets, masks)
+            return torch.addmm(bias_o, flat.view(-1, 9 * C), weight.t())
+
+        M = H * W
+        b_ms, b_by = bound_ms(4 * (M * C + M * 27 + O * 9 * C + O + M * O), 2 * M * O * 9 * C,
+                              TF32X3_OPS_PER_S)
+        row = dict(H=H, W=W, C=C, O=O, per_frame=per_frame, max_abs_err=err, bar=bar,
+                   ms=cold_ms(lambda: deform_conv.deform_conv_cuda(x, om, weight, bias_o)),
+                   pair_ms=cold_ms(pair),
+                   plain_ms=cold_ms(lambda: deform_conv.plain_deform_conv(x, om, weight, bias_o)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        conv_rows.append(row)
+        print("deform_conv " + json.dumps(row))
+    report["deform_conv_shapes"] = conv_rows
+
+    # ---- 6. full-width forward: card vs CPU -------------------------------
     model_cpu = create_model(cfg.model, device="cpu", seed=0)
+    nodes = sorted((m.kernel.in_features // 9, m.kernel.out_features) for m in model_cpu.modules()
+                   if isinstance(m, deform_conv.DeformConv2d))
+    expect_nodes = sorted((C, O) for _, C, O, n in DCN_NODES for _ in range(n))
+    if nodes != expect_nodes:
+        raise AssertionError(f"decoder DCN nodes (C_in, C_out) {nodes}, expected {expect_nodes}")
     perturb_zero_init(model_cpu, torch.Generator().manual_seed(1))
     model = copy.deepcopy(model_cpu).to(dev)
     H, W = cfg.model.input_res
@@ -208,13 +297,14 @@ def main() -> int:
         fwd[key] = {"max_abs_err": err, "max_abs_cpu": b.abs().max().item()}
         if err > FORWARD_REL_TOL * scale:
             raise AssertionError(f"forward {key}: card vs CPU max abs err {err} > {FORWARD_REL_TOL} x {scale}")
-    if fwd_counts != {"biased_attention": 3 * n_layers, "deform_sample": 16}:
-        raise AssertionError(f"forward launch counts {fwd_counts}")
+    per_frame_launches = {"biased_attention": 3 * n_layers, "deform_conv": 16, "deform_sample": 0}
+    if fwd_counts != per_frame_launches:
+        raise AssertionError(f"forward launch counts {fwd_counts}, expected {per_frame_launches}")
     print("forward 480x480 dcn card vs cpu: " + json.dumps(fwd))
     report["forward"] = fwd
     del model_cpu
 
-    # ---- 6. the streaming detector on the card ----------------------------
+    # ---- 7. the streaming detector on the card ----------------------------
     projs, raw, _ = synthetic.make_sequence(torch.Generator().manual_seed(3), T_FRAMES, device=dev)
     images, _, _ = det_lib.preprocess_frames(raw, cfg)
     x3d = synthetic.skeleton(dev)[None].expand(T_FRAMES, -1, -1).contiguous()
@@ -239,7 +329,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = build.launch_counts()
-        expect = {"biased_attention": 3 * n_layers * T_FRAMES, "deform_sample": 16 * T_FRAMES}
+        expect = {name: n * T_FRAMES for name, n in per_frame_launches.items()}
         if counts != expect:
             raise AssertionError(f"{name}: launch counts {counts}, expected {expect}")
         if main_counts is None:
@@ -259,31 +349,45 @@ def main() -> int:
     print("detector profiled frames: " + json.dumps(runs["profiled_frame"]))
     report["detector"] = runs
 
-    # ---- 7. kernels line ---------------------------------------------------
+    # ---- 8. kernels line ---------------------------------------------------
     def per_frame(rows, key):
-        vals = [r[key] for r in rows if r["launches_per_frame"]]
+        """Sum over the shapes one frame runs (for the sampler: the shapes
+        of the 16 DCN nodes it served before the fused kernel)."""
+        vals = [r[key] for r in rows if r["per_frame"]]
         if any(v is None for v in vals):
             return None
-        return sum(r[key] * r["launches_per_frame"] for r in rows if r["launches_per_frame"])
+        return sum(r[key] * r["per_frame"] for r in rows if r["per_frame"])
 
+    rates = {"biased_attention": "67 TFLOP/s float32 FMA", "deform_sample": "67 TFLOP/s float32 FMA",
+             "deform_conv": "165 TFLOP/s 3xTF32 (495 / 3)"}
     kernels = []
     for name, rows, source, replaces in (
         ("biased_attention", attn_rows, "sgtapose_tpu_torch/csrc/biased_attention.cu",
          "sgtapose_tpu/ops/attention_kernel.py:108"),
+        ("deform_conv", conv_rows, "sgtapose_tpu_torch/csrc/deform_conv.cu",
+         "sgtapose_tpu/models/deform_conv.py:329"),
         ("deform_sample", dcn_rows, "sgtapose_tpu_torch/csrc/deform_sample.cu",
          "sgtapose_tpu/models/deform_conv.py:104"),
     ):
-        bounds = [r["bound_by"] for r in rows if r["launches_per_frame"]]
-        kernels.append({
+        bounds = [r["bound_by"] for r in rows if r["per_frame"]]
+        bound_by = max(set(bounds), key=bounds.count)
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_counts[name],
             "launches_per_frame": main_counts[name] // T_FRAMES,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": per_frame(rows, "ms"), "plain_ms": per_frame(rows, "plain_ms"),
-            "bound_ms": per_frame(rows, "bound_ms"),
-            "bound_by": max(set(bounds), key=bounds.count),
+            "bound_ms": per_frame(rows, "bound_ms"), "bound_by": bound_by,
+            "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else rates[name],
             "library_ms": per_frame(rows, "library_ms"),
-        })
+            "profiled_ms_per_frame": prof["kernel_ms_per_frame"][name],
+        }
+        if name == "biased_attention":
+            entry["warm_ms"] = per_frame(rows, "warm_ms")
+            entry["clean_ms"] = per_frame(rows, "clean_ms")
+        if name == "deform_conv":
+            entry["pair_ms"] = per_frame(rows, "pair_ms")
+        kernels.append(entry)
     report["kernels"] = kernels
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -393,10 +497,13 @@ def profile_frame(detector, video, torch):
         n = sum(1 for e in launches if lo <= e.time_range.start <= hi)
         per_stage[st.name] = per_stage.get(st.name, 0) + n / frames
     # device kernels run on one stream, so their durations do not overlap
-    device_us = sum(e.time_range.elapsed_us() for e in events
-                    if e.device_type == DeviceType.CUDA and e.name not in
-                    ("pnp", "render", "trunk", "fuse", "decode"))
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in
+              ("pnp", "render", "trunk", "fuse", "decode")]
+    device_us = sum(e.time_range.elapsed_us() for e in device)
+    kernel_ms = {name: sum(e.time_range.elapsed_us() for e in device if fn in e.name) / 1e3 / frames
+                 for name, fn in DEVICE_NAMES.items()}
     return {"frames": frames, "launches_per_frame_by_stage": per_stage,
+            "kernel_ms_per_frame": kernel_ms,
             "launches_per_frame": len(launches) / frames,
             "device_kernel_ms_per_frame": device_us / 1e3 / frames,
             "profiled_wall_ms_per_frame": wall_ms / frames}

@@ -7,9 +7,13 @@ logit. The 9 taps are sampled bilinearly at (p + tap + offset) with zero
 padding, scaled by sigmoid(mask), and contracted with the kernel weights in
 one (9*C_in -> C_out) product whose input is tap-major (index k*C + c).
 
-The sampling is the CUDA kernel `csrc/deform_sample.cu` on the card; its
-plain PyTorch version below (a mirror of the JAX `_sample_pieces`) serves CPU
-tensors. The contraction is a plain matrix product, as JAX leaves it to XLA.
+On the card `DeformConv2d` runs one fused kernel, `csrc/deform_conv.cu`
+(sampling, contraction and bias as an implicit GEMM on the tensor cores:
+wgmma in 3xTF32); CPU tensors take its plain version `plain_deform_conv`.
+The sampler alone, `csrc/deform_sample.cu`, stays for the training slice's
+weight gradient, which needs the sampled columns; the detector does not
+launch it. Its plain version (a mirror of the JAX `_sample_pieces`) serves
+CPU tensors.
 Forward only (the JAX custom VJP `_dsb_bwd` belongs to the training slice).
 """
 
@@ -21,6 +25,7 @@ import torch.nn as nn
 from sgtapose_tpu_torch.ops import build
 
 KERNEL = "deform_sample"
+CONV_KERNEL = "deform_conv"
 
 
 def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -94,11 +99,62 @@ def deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor
     return deform_sample_cuda(feat, offsets, masks)
 
 
+def plain_deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """x (B,H,W,C), om (B,H,W,27) the raw offset/mask conv output, weight
+    (O, 9C) with input index k*C + c, bias (O,) -> (B,H,W,O)."""
+    flat = plain_deform_sample(x, om[..., :18], torch.sigmoid(om[..., 18:27]))
+    return torch.nn.functional.linear(flat, weight, bias)
+
+
+def deform_conv_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """Launch the fused DCN kernel on the current stream (CUDA tensors)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B,H,W,C), got {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    if weight.dim() != 2 or weight.shape[1] != 9 * C:
+        raise ValueError(f"weight must be (O, 9*C) = (O, {9 * C}), got {tuple(weight.shape)}")
+    O = weight.shape[0]
+    if tuple(om.shape) != (B, H, W, 27) or tuple(bias.shape) != (O,):
+        raise ValueError(f"om/bias must be (B,H,W,27)/(O,) for x {tuple(x.shape)} and O={O}, "
+                         f"got {tuple(om.shape)}/{tuple(bias.shape)}")
+    for name, t in (("x", x), ("om", om), ("weight", weight), ("bias", bias)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    M = B * H * W
+    if M * max(C, 27) >= 2 ** 31 or M * O >= 2 ** 31:
+        raise ValueError(f"x {tuple(x.shape)} with O={O} exceeds the kernel's 32-bit offsets")
+    out = torch.empty((B, H, W, O), dtype=torch.float32, device=x.device)
+    fn = build.kernel_fn(CONV_KERNEL)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), om.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 B, H, W, C, O, stream)
+    build.check(CONV_KERNEL, err)
+    build.count_launch(CONV_KERNEL)
+    return out
+
+
+def deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """Modulated deformable conv from the offset/mask conv's raw output (see
+    `plain_deform_conv`). CUDA tensors go through the fused kernel (or
+    raise); CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return plain_deform_conv(x, om, weight, bias)
+    return deform_conv_cuda(x, om, weight, bias)
+
+
 class DeformConv2d(nn.Module):
     """DCNv2: 3x3 modulated deformable conv, stride 1, pad 1, one group.
 
-    Takes and returns NCHW tensors (channels_last memory keeps the NHWC view
-    the sampler needs free of copies). `conv_offset_mask` starts at zero, so
+    Takes and returns NCHW tensors (channels_last memory keeps the NHWC views
+    the fused kernel reads and writes free of copies). `conv_offset_mask` starts at zero, so
     the initial op is a plain 3x3 conv with 0.5 masks, as in the JAX module.
     """
 
@@ -111,8 +167,6 @@ class DeformConv2d(nn.Module):
         self.kernel = nn.Linear(9 * in_features, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # (B,H,W,27)
-        offsets = om[..., :18].contiguous()
-        masks = torch.sigmoid(om[..., 18:27]).contiguous()
-        flat = deform_sample(x.permute(0, 2, 3, 1).contiguous(), offsets, masks)
-        return self.kernel(flat).permute(0, 3, 1, 2)
+        om = self.conv_offset_mask(x).permute(0, 2, 3, 1).contiguous()  # (B,H,W,27)
+        out = deform_conv(x.permute(0, 2, 3, 1).contiguous(), om, self.kernel.weight, self.kernel.bias)
+        return out.permute(0, 3, 1, 2)

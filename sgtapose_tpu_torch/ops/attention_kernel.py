@@ -17,6 +17,17 @@ from sgtapose_tpu_torch.ops import build
 
 KERNEL = "biased_attention"
 SUPPORTED_HEAD_DIMS = (4, 8, 16, 32)
+# the kernel's layout (csrc/biased_attention.cu): blocks of 8 warps, one
+# warp (ROW_LANES lanes) per query row, a 2-stage ring of bias spans
+ROW_LANES, _ROWS, _STAGES = 32, 8, 2
+_SMEM_LIMIT = 227 * 1024
+
+
+def kernel_smem_bytes(n: int, d: int) -> int:
+    """Shared memory the kernel needs: K and V of one head, and the ring of
+    bias spans of 8 rows each (plus up to 3 floats of line offset)."""
+    stage = 4 * ((_ROWS * n + 6) // 4)
+    return 4 * (2 * n * d + _STAGES * stage)
 
 
 def plain_biased_attention(q, k, v, bias):
@@ -25,6 +36,23 @@ def plain_biased_attention(q, k, v, bias):
     energy = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(d)
     p = torch.softmax(energy + bias, dim=-1)
     return torch.einsum("bhij,bhjd->bhid", p, v)
+
+
+def split_lane_attention(q, k, v, bias):
+    """The kernel's arithmetic in plain PyTorch: the logits, the row max,
+    then keys split strided over 32 lanes (lane t takes keys t, t+32, ...),
+    each lane's sums of p = 2^(s log2 e - max log2 e) and of p v, and the
+    lanes' sums added. Same function as `plain_biased_attention`; it shows
+    the split-and-merge is exact."""
+    d, n = q.shape[-1], q.shape[-2]
+    lanes = ROW_LANES
+    log2e = 1.0 / math.log(2.0)
+    s = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(d) + bias
+    p = torch.exp2(s * log2e - s.amax(dim=-1, keepdim=True) * log2e)
+    owner = torch.nn.functional.one_hot(torch.arange(n, device=q.device) % lanes, lanes).to(q.dtype)
+    lane_l = torch.einsum("bhij,jg->bhig", p, owner)
+    lane_acc = torch.einsum("bhij,jg,bhjd->bhigd", p, owner, v)
+    return lane_acc.sum(dim=-2) / lane_l.sum(dim=-1, keepdim=True)
 
 
 def _check(q, k, v, bias):
@@ -42,6 +70,9 @@ def _check(q, k, v, bias):
             raise ValueError(f"{name} must be contiguous")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported by the CUDA kernel {SUPPORTED_HEAD_DIMS}")
+    if kernel_smem_bytes(n, d) > _SMEM_LIMIT:
+        raise ValueError(f"n={n}, d={d} needs {kernel_smem_bytes(n, d)} B of shared memory, "
+                         f"more than the kernel's {_SMEM_LIMIT}")
 
 
 def biased_attention_cuda(q, k, v, bias):
@@ -49,6 +80,8 @@ def biased_attention_cuda(q, k, v, bias):
     _check(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_cuda needs CUDA tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as float4)")
     B, h, n, d = q.shape
     out = torch.empty_like(q)
     fn = build.kernel_fn(KERNEL)

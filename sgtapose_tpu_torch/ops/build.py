@@ -33,6 +33,7 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
+    "deform_conv": "deform_conv.cu",
 }
 
 NVCC_FLAGS = (
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "biased_attention": ("biased_attention_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # feat, offsets, masks, out, B, H, W, C, stream
     "deform_sample": ("deform_sample_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # x, om, weight, bias, out, B, H, W, C, O, stream
+    "deform_conv": ("deform_conv_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from sgtapose_tpu.models import attention as jattn
+from sgtapose_tpu.ops.attention_kernel import _xla_attention
 from sgtapose_tpu.ops.attention_kernel import fused_biased_attention as jax_fused
 from sgtapose_tpu_torch.models import attention as tattn
 from sgtapose_tpu_torch.ops import attention_kernel as tkern
@@ -34,6 +35,28 @@ def test_plain_attention_matches_pallas_interpret(n, d):
     ref = np.asarray(jax_fused(q, k, v, bias, True))
     port = tkern.fused_biased_attention(_t(q), _t(k), _t(v), _t(bias))
     np.testing.assert_allclose(port.numpy(), ref, atol=2e-4)
+
+
+@pytest.mark.parametrize("n,d", [(1, 4), (33, 8), (100, 16), (343, 4)])
+def test_kernel_split_and_merge_matches_jax(n, d):
+    """The CUDA kernel's arithmetic (log2-unit logits, row max, keys split
+    over the 32 lanes of a warp and the lanes' sums added) against the Pallas
+    kernel in interpret mode and the XLA formulation, at ragged n (fewer keys
+    than lanes, and not a multiple of 32)."""
+    rs = np.random.RandomState(100 + n)
+    q, k, v = (rs.randn(2, 8, n, d).astype(np.float32) for _ in range(3))
+    bias = (0.1 * rs.randn(8, n, n)).astype(np.float32)
+    port = tkern.split_lane_attention(_t(q), _t(k), _t(v), _t(bias)).numpy()
+    np.testing.assert_allclose(port, np.asarray(jax_fused(q, k, v, bias, True)), atol=2e-4)
+    np.testing.assert_allclose(port, np.asarray(_xla_attention(q, k, v, bias)), atol=2e-4)
+
+
+def test_kernel_layout_fits_the_flagship_shapes():
+    for n, d in ((1183, 4), (343, 8), (63, 16)):
+        assert tkern.kernel_smem_bytes(n, d) <= 227 * 1024
+    with pytest.raises(ValueError):  # K/V of one head no longer fit
+        q = torch.zeros(1, 8, 1183, 32)
+        tkern.biased_attention_cuda(q, q, q, torch.zeros(8, 1183, 1183))
 
 
 def test_attention_wrapper_rejects_bad_inputs():

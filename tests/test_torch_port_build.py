@@ -1,0 +1,45 @@
+"""The port's kernel registry: every CUDA source under
+sgtapose_tpu_torch/csrc is built and bound by ops/build.py, its C entry point
+is the one the binding names, and every kernel's module keeps a plain
+PyTorch version beside its CUDA wrapper (the CPU path and the card's
+reference)."""
+
+import importlib
+import re
+
+import pytest
+
+from sgtapose_tpu_torch.ops import build
+
+# kernel -> (module, plain version, CUDA wrapper)
+KERNEL_MODULES = {
+    "biased_attention": ("sgtapose_tpu_torch.ops.attention_kernel", "plain_biased_attention",
+                         "biased_attention_cuda"),
+    "deform_sample": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample",
+                      "deform_sample_cuda"),
+    "deform_conv": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv",
+                    "deform_conv_cuda"),
+}
+
+
+def test_every_source_is_registered():
+    sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
+    assert sorted(build.KERNEL_SOURCES.values()) == sources
+    assert set(build._SIGNATURES) == set(build.KERNEL_SOURCES) == set(build.launch_counts())
+
+
+@pytest.mark.parametrize("name", sorted(build.KERNEL_SOURCES))
+def test_entry_point_matches_source(name):
+    src = (build.CSRC / build.KERNEL_SOURCES[name]).read_text()
+    fn_name, argtypes = build._SIGNATURES[name]
+    m = re.search(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert m and m.group(1) == fn_name
+    assert len(m.group(2).split(",")) == len(argtypes)
+
+
+@pytest.mark.parametrize("name", sorted(build.KERNEL_SOURCES))
+def test_every_kernel_has_its_plain_version(name):
+    module, plain, wrapper = KERNEL_MODULES[name]
+    mod = importlib.import_module(module)
+    assert callable(getattr(mod, plain)) and callable(getattr(mod, wrapper))
+    assert name in (getattr(mod, "KERNEL", None), getattr(mod, "CONV_KERNEL", None))

@@ -2,8 +2,8 @@
 DeformConv2d module) against the JAX package on the same numpy inputs.
 
 Bars: the sampling <= 1e-5 (the same float32 arithmetic per output; only
-FMA contraction may differ); DeformConv2d <= 1e-4 against flax (adds a 3x3
-and a 9C-wide contraction summed in another order).
+FMA contraction may differ); DeformConv2d and plain_deform_conv <= 1e-4
+against flax (adds a 3x3 and a 9C-wide contraction summed in another order).
 """
 
 import jax
@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from sgtapose_tpu.models.deform_conv import DeformConv2d as JaxDeformConv2d
+from flax import linen as fnn
+
 from sgtapose_tpu.models.deform_conv import deform_sample_batch
 from sgtapose_tpu_torch.models import deform_conv as tdcn
 from sgtapose_tpu_torch.utils.weights import load_flax_variables
@@ -54,3 +56,53 @@ def test_deform_conv2d_matches_flax():
     with torch.no_grad():
         port = port_mod(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(port, ref, atol=1e-4)
+
+
+def _wide_offset_variables(flax_mod, x, seed):
+    """Flax DeformConv2d variables whose offsets reach ~3 px (samples leave
+    the map) and whose mask logits are far from 0."""
+    variables = perturb(flax_mod.init(jax.random.PRNGKey(seed), jnp.asarray(x)), seed=seed)
+    rs = np.random.RandomState(seed)
+    om = dict(variables["params"]["conv_offset_mask"])
+    om["kernel"] = 3.0 * om["kernel"]
+    om["bias"] = rs.uniform(-3, 3, om["bias"].shape).astype(np.float32)
+    params = dict(variables["params"], conv_offset_mask=om)
+    return dict(variables, params=params)
+
+
+@pytest.mark.parametrize("B,H,W,C,O", [(1, 9, 11, 6, 5), (2, 8, 8, 16, 24)])
+def test_plain_deform_conv_and_module_match_flax(B, H, W, C, O):
+    """plain_deform_conv (the fused kernel's plain version) from the raw
+    offset/mask conv output, and the CPU DeformConv2d, against flax
+    DeformConv2d.apply on the same numpy weights and inputs."""
+    rs = np.random.RandomState(B * 100 + C)
+    x = rs.randn(B, H, W, C).astype(np.float32)
+    flax_mod = JaxDeformConv2d(O)
+    variables = _wide_offset_variables(flax_mod, x, seed=B + C)
+    ref = np.asarray(flax_mod.apply(variables, jnp.asarray(x)))
+
+    p = variables["params"]
+    om = np.asarray(fnn.Conv(27, (3, 3), padding=1).apply({"params": p["conv_offset_mask"]}, jnp.asarray(x)))
+    off = om[..., :18]
+    assert np.abs(off).max() > 2.0 and np.abs(om[..., 18:]).min() < np.abs(om[..., 18:]).max()
+    weight = np.asarray(p["kernel"]["kernel"])[0, 0].T  # (O, 9C)
+    plain = tdcn.plain_deform_conv(_t(x), _t(om), _t(weight), _t(p["kernel"]["bias"])).numpy()
+    assert plain.shape == (B, H, W, O)
+    np.testing.assert_allclose(plain, ref, atol=1e-4)
+
+    port_mod = tdcn.DeformConv2d(C, O)
+    load_flax_variables(port_mod, variables)
+    with torch.no_grad():
+        port = port_mod(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(port, ref, atol=1e-4)
+
+
+def test_deform_conv_cuda_rejects_bad_inputs():
+    x = torch.zeros(1, 4, 4, 8)
+    om = torch.zeros(1, 4, 4, 27)
+    with pytest.raises(ValueError):  # CPU tensors
+        tdcn.deform_conv_cuda(x, om, torch.zeros(5, 72), torch.zeros(5))
+    with pytest.raises(ValueError):  # weight is not (O, 9C)
+        tdcn.deform_conv_cuda(x, om, torch.zeros(5, 64), torch.zeros(5))
+    with pytest.raises(ValueError):  # om is not (B,H,W,27)
+        tdcn.deform_conv_cuda(x, om[..., :18], torch.zeros(5, 72), torch.zeros(5))
