@@ -6,14 +6,20 @@ it (nor jax/flax) and keeps its own copy of what it needs. Layout mirrors the
 JAX package:
 
   config.py   model/inference dataclasses (same defaults as the reference)
-  core/       geometry, masked EPnP + LM PnP solver
+  core/       geometry, masked EPnP + LM PnP solver (batched over videos or
+              frames), the eval harness's weighted refinement
   models/     DLA-34 trunk, DCNv2 decoder, windowed cross-attention, SGTAPose
-  ops/        hand-written CUDA kernels (csrc/*.cu), their builder and
-              launch counters
-  decode/     peak finding + sub-pixel decode
-  infer/      exact streaming video detector
+  ops/        hand-written CUDA kernels (csrc/*.cu, float32 and bf16): the
+              nvcc build, the ctypes bindings and the launch counters
+  decode/     peak finding + sub-pixel decode (batched over videos)
+  infer/      streaming video detectors: exact, feature-cache, batched
+  eval/       metrics, set-level analysis, the synthetic-video harness
   data/       synthetic sequences
-  utils/      flax-variable loader
+  utils/      flax-variable loader, bf16 serving (precision.py)
+
+A bf16 model (`utils.precision.bf16_inference_model`) serves as the JAX
+package's `bf16_inference_variables` + `make_bf16_apply` do: bf16 weights and
+activations through the network, float32 for decode and geometry.
 
 Public entry points run on the card (device="cuda") unless the caller asks
 for the CPU; they raise when CUDA is missing instead of falling back.

@@ -1,7 +1,8 @@
 """Core geometry: affine transforms, image warps, Gaussian heatmap rendering,
 quaternions, camera projection — the torch counterpart of
-`sgtapose_tpu/core/geometry.py`, batched-free and on whatever device the
-inputs lie.
+`sgtapose_tpu/core/geometry.py`, on whatever device the inputs lie. Point
+sets and heatmap renders take any leading batch dims (the batched video
+detector renders all its videos' priors in one call).
 
 Conventions: quaternions are (w, x, y, z); image coordinates are (x, y) with
 x along width; heatmaps are (H, W); images are HWC.
@@ -89,20 +90,20 @@ def affine_points(pts: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
 def affine_transform_and_clip(
     pts: torch.Tensor, M: torch.Tensor, width, height, raw_width, raw_height
 ) -> torch.Tensor:
-    """Transform (N,2) points, clip into [0, w-1]x[0, h-1]; points whose RAW
-    coordinates fall outside the raw frame become (0, 0), which the renderer
-    then skips."""
+    """Transform (..., N, 2) points, clip into [0, w-1]x[0, h-1]; points whose
+    RAW coordinates fall outside the raw frame become (0, 0), which the
+    renderer then skips."""
     new = affine_points(pts, M)
     new = torch.stack(
-        [new[:, 0].clamp(0.0, width - 1.0), new[:, 1].clamp(0.0, height - 1.0)], dim=1
+        [new[..., 0].clamp(0.0, width - 1.0), new[..., 1].clamp(0.0, height - 1.0)], dim=-1
     )
     in_raw = (
-        (pts[:, 0] >= 0.0)
-        & (pts[:, 0] < raw_width)
-        & (pts[:, 1] >= 0.0)
-        & (pts[:, 1] < raw_height)
+        (pts[..., 0] >= 0.0)
+        & (pts[..., 0] < raw_width)
+        & (pts[..., 1] >= 0.0)
+        & (pts[..., 1] < raw_height)
     )
-    return torch.where(in_raw[:, None], new, torch.zeros_like(new))
+    return torch.where(in_raw[..., None], new, torch.zeros_like(new))
 
 
 def warp_affine(image: torch.Tensor, M: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -168,12 +169,12 @@ def render_gaussian_heatmap(
 
     x, y = int(center) (truncation toward zero); a splat is drawn only if its
     whole (2r+1)^2 window fits inside the map; scaled by `confidences`.
-    centers: (K, 2) (x, y); confidences: (K,). Returns (H, W), or (K, H, W)
-    with per_class=True.
+    centers: (..., K, 2) (x, y); confidences: (..., K). Returns (..., H, W),
+    or (..., K, H, W) with per_class=True.
     """
     dev = centers.device
-    cx = torch.trunc(centers[:, 0]).to(torch.int32)
-    cy = torch.trunc(centers[:, 1]).to(torch.int32)
+    cx = torch.trunc(centers[..., 0]).to(torch.int32)
+    cy = torch.trunc(centers[..., 1]).to(torch.int32)
     drawable = (
         (cx - radius >= 0)
         & (cx + radius + 1 < width)
@@ -182,31 +183,32 @@ def render_gaussian_heatmap(
     )
     conf = confidences * drawable.to(confidences.dtype)
 
-    gy = torch.arange(height, dtype=torch.int32, device=dev)[None, :, None]
-    gx = torch.arange(width, dtype=torch.int32, device=dev)[None, None, :]
-    dy = (gy - cy[:, None, None]).to(torch.float32)
-    dx = (gx - cx[:, None, None]).to(torch.float32)
+    gy = torch.arange(height, dtype=torch.int32, device=dev)[:, None]
+    gx = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    dy = (gy - cy[..., None, None]).to(torch.float32)  # (..., K, H, W)
+    dx = (gx - cx[..., None, None]).to(torch.float32)
     window = (dx.abs() <= radius) & (dy.abs() <= radius)
     if subpixel:
-        dx = dx - (centers[:, 0] - cx.to(torch.float32))[:, None, None]
-        dy = dy - (centers[:, 1] - cy.to(torch.float32))[:, None, None]
+        dx = dx - (centers[..., 0] - cx.to(torch.float32))[..., None, None]
+        dy = dy - (centers[..., 1] - cy.to(torch.float32))[..., None, None]
     g = torch.exp(-(dx ** 2 + dy ** 2) / (2.0 * sigma * sigma))
-    g = torch.where(window, g, torch.zeros((), device=dev)) * conf[:, None, None]
+    g = torch.where(window, g, torch.zeros((), device=dev)) * conf[..., None, None]
     if per_class:
         return g
-    return g.amax(dim=0)
+    return g.amax(dim=-3)
 
 
 def render_prior_heatmap(
     kp_projs_raw, trans_input, input_w, input_h, raw_width, raw_height,
     confidences=None, radius: int = 4, sigma: float = 2.0,
 ) -> torch.Tensor:
-    """Noise-free prior heatmap (H_in, W_in) at network-input resolution."""
+    """Noise-free prior heatmap (..., H_in, W_in) at network-input resolution
+    from (..., K, 2) raw keypoints."""
     pts = affine_transform_and_clip(
         kp_projs_raw, trans_input, input_w, input_h, raw_width, raw_height
     )
     if confidences is None:
-        confidences = torch.ones(pts.shape[0], dtype=torch.float32, device=pts.device)
+        confidences = torch.ones(pts.shape[:-1], dtype=torch.float32, device=pts.device)
     return render_gaussian_heatmap(pts, confidences, input_h, input_w, radius, sigma)
 
 
@@ -214,12 +216,13 @@ def render_prior_heatmap_cls(
     kp_projs_raw, trans_output, output_w, output_h, raw_width, raw_height,
     confidences=None,
 ) -> torch.Tensor:
-    """Per-class prior heatmaps (K, H_out, W_out) at output resolution."""
+    """Per-class prior heatmaps (..., K, H_out, W_out) at output resolution
+    from (..., K, 2) raw keypoints."""
     pts = affine_transform_and_clip(
         kp_projs_raw, trans_output, output_w, output_h, raw_width, raw_height
     )
     if confidences is None:
-        confidences = torch.ones(pts.shape[0], dtype=torch.float32, device=pts.device)
+        confidences = torch.ones(pts.shape[:-1], dtype=torch.float32, device=pts.device)
     return render_gaussian_heatmap(
         pts, confidences, output_h, output_w, radius=4, sigma=2.0, per_class=True
     )
@@ -283,6 +286,28 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     best = q_abs.argmax(dim=-1)
     q = torch.gather(cand, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (..., 4) wxyz quaternions."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def rotate_point_by_quat(pt: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) points by (..., 4) quaternions as q p q*."""
+    p = torch.cat([torch.zeros_like(pt[..., :1]), pt], dim=-1)
+    qc = q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return quat_multiply(quat_multiply(q, p), qc)[..., 1:]
 
 
 def project_points(x3d: torch.Tensor, R: torch.Tensor, t: torch.Tensor, K: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Masked EPnP + Levenberg-Marquardt PnP, the torch counterpart of
-`sgtapose_tpu/core/pnp.py` (solve_pnp, pnp_reprojection_prior and the
-helpers they run).
+`sgtapose_tpu/core/pnp.py` (solve_pnp, pnp_reprojection_prior, register_gn
+and the helpers they run).
 
 The JAX solver is written with `lax.while_loop`, `lax.cond`, `fori_loop` and
 `jax.jacfwd`. Here:
@@ -14,6 +14,12 @@ The JAX solver is written with `lax.while_loop`, `lax.cond`, `fori_loop` and
     `torch.linalg.eigh`/`svd` (their inputs are sanitised first so a
     non-finite matrix poisons the result with NaN, as in JAX, instead of
     raising).
+
+Batches (`pnp_reprojection_prior_batch` for the videos of the batched
+detector, the eval harness's per-frame solves) are `torch.func.vmap` of the
+single solve, as the JAX package vmaps it: every operation of a batch of problems (each with its 3 LM
+starts) is one launch, so the launches per solve do not grow with the batch.
+Each problem keeps its own semantics (mask, warm start, stopping point).
 
 Eigen/singular vector signs differ between backends; the poses and
 reprojections they lead to do not.
@@ -469,3 +475,80 @@ def pnp_reprojection_prior(
     R = geometry.quat_to_matrix(res.quat)
     next_est = geometry.project_points(next_x3d, R, res.trans, K)
     return res.success, next_est, res
+
+
+def pnp_reprojection_prior_batch(
+    prev_x3d, prev_x2d, next_x3d, K, valid=None, init=None,
+) -> Tuple[torch.Tensor, torch.Tensor, PnPResult]:
+    """`pnp_reprojection_prior` over a leading batch dim of every argument but
+    K (init: a tuple of batched (quat, trans, use_init)), as one batched solve.
+    Returns (success (V,), next_2d_est (V,N,2), PnPResult of (V,...) fields)."""
+    if valid is None:
+        valid = torch.ones(prev_x3d.shape[:2], dtype=torch.bool, device=prev_x3d.device)
+    if init is None:
+        return torch.func.vmap(lambda a, b, c, v: pnp_reprojection_prior(a, b, c, K, v))(
+            prev_x3d, prev_x2d, next_x3d, valid)
+    return torch.func.vmap(
+        lambda a, b, c, v, q0, t0, u: pnp_reprojection_prior(a, b, c, K, v, init=(q0, t0, u)))(
+        prev_x3d, prev_x2d, next_x3d, valid, *init)
+
+
+# -----------------------------------------------------------------------------
+# Reference-parity weighted GN refiner (the eval harness's --rf refinement)
+# -----------------------------------------------------------------------------
+
+
+def _squared_residuals(params, x3d, x2d, K, weights):
+    """Per-row SQUARED weighted reprojection errors plus a 2e8-weighted squared
+    unit-quaternion constraint, the point rotated as q p q*. Returns (2N + 1,)."""
+    q = params[:4]
+    t = params[4:]
+    fx, cx = K[0, 0], K[0, 2]
+    fy, cy = K[1, 1], K[1, 2]
+    cam = geometry.rotate_point_by_quat(x3d, q.expand(x3d.shape[0], 4)) + t
+    u = (fx * cam[:, 0] + cx * cam[:, 2]) / cam[:, 2]
+    v = (fy * cam[:, 1] + cy * cam[:, 2]) / cam[:, 2]
+    rx = weights[:, 0] ** 2 * (x2d[:, 0] - u) ** 2
+    ry = weights[:, 1] ** 2 * (x2d[:, 1] - v) ** 2
+    sq = (q * q).sum()
+    # tensor constants: forward-mode AD of a 0-dim tensor combined with a
+    # Python scalar gives float64 tangents on torch 2.13 (as in quat_to_matrix)
+    qn = sq - torch.ones_like(sq)
+    constraint = torch.full_like(sq, 2e8) * qn * qn
+    return torch.cat([torch.stack([rx, ry], dim=1).reshape(-1), constraint[None]])
+
+
+def register_gn(x2d, x3d, quat_init, trans_init, weights, K,
+                max_iters: int = 200) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gauss-Newton on the SQUARED residuals with adaptive Levenberg damping
+    and step acceptance, the JAX `register_gn` (its docstring gives the
+    reference and the deviation): value <- value - (J^T J + lam diag) ^-1 J^T f
+    until sum|delta| <= 1e-4 or `max_iters`. The JAX while-loop becomes
+    `max_iters` fixed iterations that freeze the state once it would stop.
+    weights: (N, 2). Under `torch.func.vmap` each problem stops on its own."""
+    params = torch.cat([quat_init, trans_init]).to(torch.float32)
+    dev = params.device
+
+    def f_fn(p):
+        return _squared_residuals(p, x3d, x2d, K, weights)
+
+    jac_fn = torch.func.jacfwd(f_fn)
+    lam = torch.full((), 1e-4, device=dev)
+    delta_sum = torch.full((), 700.0, device=dev)
+    for _ in range(max_iters):
+        active = delta_sum > 1e-4
+        f = f_fn(params)
+        J = jac_fn(params)
+        JtJ = J.T @ J
+        H = JtJ + torch.diag(lam * (torch.diagonal(JtJ) + 1e-4))
+        delta = _solve(H, (J.T @ f)[:, None])[:, 0]
+        new_params = params - delta
+        new_f = f_fn(new_params)
+        ok = torch.isfinite(new_params).all() & ((new_f * new_f).sum() < (f * f).sum())
+        params = torch.where(active & ok, new_params, params)
+        new_lam = torch.where(ok, lam * 0.33, lam * 4.0).clamp(1e-8, 1e10)
+        new_sum = torch.where(ok, delta.abs().sum(), torch.ones((), device=dev))
+        new_sum = torch.where(new_lam >= 1e10, torch.zeros((), device=dev), new_sum)
+        lam = torch.where(active, new_lam, lam)
+        delta_sum = torch.where(active, new_sum, delta_sum)
+    return params[:4], params[4:]

@@ -1,34 +1,51 @@
-// Biased attention forward: out = softmax(q k^T / sqrt(d) + bias) v.
+// Biased attention forward: out = softmax(q k^T / sqrt(d) + bias) v, one
+// design in two instantiations: float32 (biased_attention_fwd) and bf16
+// serving (biased_attention_bf16_fwd).
 //
 // Replaces the Pallas TPU kernel sgtapose_tpu/ops/attention_kernel.py:55-116
 // (_fwd_kernel, called from _fwd at :108, reached by fused_biased_attention
 // at :131-138): same function, float32 arithmetic, no logits in device memory.
 //
-// Shapes: q, k, v, out are (B, heads, n, d) contiguous float32; bias is a
-// learned (heads, n, n) float32 tensor shared across the batch. On the
-// flagship model (n, d) is (1183, 4), (343, 8) and (63, 16).
+// Shapes: q, k, v are (B, heads, n, d) contiguous; bias is a learned
+// (heads, n, n) tensor shared across the batch; out is (B, heads, n, d)
+// float32. On the flagship model (n, d) is (1183, 4), (343, 8) and (63, 16).
+//   * float32: q, k, v and bias float32.
+//   * bf16 serving: the arithmetic of the JAX package's DEFAULT (einsum)
+//     attention under bf16 (sgtapose_tpu/models/attention.py:175-180), which
+//     the detector runs (fused_attention=False). k, v and the bias (pos_embed)
+//     are bf16. On the first of the 3 tied layers q is bf16 and einsum(q, k)
+//     returns bf16, so the q.k logit is rounded to bf16 before the scale; on
+//     the later layers q comes from a float32 LayerNorm and nothing is
+//     rounded. Dividing by the float32 sqrt(d) makes the logits float32; the
+//     bias add, the softmax and p.v run in float32 and the output is float32.
+//     bf16 -> float32 is a 16-bit shift, done as elements are read.
 //
 // What bounds it on an H100: bytes. d <= 16, so the products are ~0.18 GFLOP
 // at level 0 (0.003 ms at 67 TFLOP/s); the work is reading the bias once
-// (8 * 1183^2 * 4 B = 44.8 MB at level 0, 13.4 us at 3.35 TB/s). No tensor
-// cores: at d = 4..16 a product tile would be a few percent full, and the
-// FMAs are not what takes the time. The design keeps the bias stream busy:
+// (8 * 1183^2 elements: 44.8 MB float32, 13.4 us at 3.35 TB/s; 22.4 MB bf16,
+// 6.7 us). No tensor cores: at d = 4..16 a product tile would be a few percent
+// full, and the FMAs are not what takes the time. The design keeps the bias
+// stream busy:
 //   * work items are (batch, head, tile of RS query rows); one tile's bias
 //     rows are one contiguous span, copied to shared memory with 16-byte
 //     cp.async from its 16-byte-aligned start (the span of a 1183-wide row
-//     starts anywhere, so the offset is carried into the index math; a 2-D
-//     tensor map cannot describe rows of 4732 B);
+//     starts anywhere, so the byte offset is carried into the index math; a
+//     2-D tensor map cannot describe rows of 4732 B);
 //   * a persistent grid (as many blocks as fit on the 132 SMs: 2 per SM at
-//     level 0, 113.6 KB each) walks contiguous runs of items through a
-//     2-stage ring per block, so one span per block (~38 KB at level 0, 76 KB
-//     per SM) is in flight while the other is computed; K and V of the
-//     item's (batch, head) are loaded into shared memory only when it
-//     changes, by cp.async in a group ahead of the next item's bias span, and
-//     each thread's next query row is loaded one item ahead;
+//     level 0 in float32, 113.6 KB each) walks contiguous runs of items
+//     through a 2-stage ring per block, so one span per block (~38 KB at
+//     level 0 in float32) is in flight while the other is computed; K and V
+//     of the item's (batch, head) are copied to shared memory the same way
+//     (a bf16 block of n*d at d = 4 is not a whole number of lines) only when
+//     it changes, by cp.async in a group ahead of the next item's bias span,
+//     and each thread's next query row is loaded one item ahead;
 //   * a row's whole bias is in shared memory, so its softmax takes two passes
-//     over it: pass 1 writes the logits over the bias and takes the row max;
-//     pass 2 sums p = 2^(s log2 e - max log2 e) (one FMA and one MUFU.EX2)
-//     and p v. One exponential per element and no rescaling;
+//     over it: pass 1 takes the row max of the logits (in float32 it writes
+//     them over the bias; a bf16 span cannot hold float32 logits in place, so
+//     bf16 recomputes them in pass 2: d <= 16 FMAs from shared memory cost
+//     less than a float32 row buffer's traffic); pass 2 sums
+//     p = 2^(s log2 e - max log2 e) (one FMA and one MUFU.EX2) and p v. One
+//     exponential per element and no rescaling;
 //   * the 32 lanes of a warp share a row, lane t taking keys t, t+32, ...;
 //     their partial sums (all relative to the same max) are added with
 //     shuffles. A block finishes each of its 8 rows in one round of loads;
@@ -38,11 +55,13 @@
 //   * the ragged n edge is masked in the kernel: nothing is padded.
 // What still holds level 0 above its bound (PERF.md): the start-up of each
 // launch (K/V and first span, 4-5 items a block), and the two passes'
-// shared-memory traffic, ~44 B per (row, key), most of it K and V as float4.
+// shared-memory traffic, ~44 B per (row, key) in float32, most of it K and V.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -54,7 +73,7 @@ constexpr int RS = kWarps;  // rows per work item: one per warp
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void cp_async16(float* smem, const void* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
@@ -68,29 +87,42 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// A global load the compiler may not sink to its use (the next item's query
+// Global loads the compiler may not sink to their use (the next item's query
 // row is loaded one item ahead, and must stay ahead).
-__device__ __forceinline__ float4 ld_nc4(const float* p) {
-  float4 v;
-  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+__device__ __forceinline__ uint4 ld_nc_u4(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
 }
 
-// Float offset of p inside its 16-byte line.
-__device__ __forceinline__ int line_offset(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) & 15) >> 2);
+__device__ __forceinline__ uint2 ld_nc_u2(const void* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
 }
 
-// Copy the floats [start, end) to dst + line_offset(start), in whole 16-byte
-// lines. The lines at both ends hold valid floats, so no read leaves the
+// Byte offset of p inside its 16-byte line.
+__device__ __forceinline__ int line_offset(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Copy the bytes [start, end) to dst + line_offset(start), in whole 16-byte
+// lines. The lines at both ends hold valid elements, so no read leaves the
 // allocation's pages.
-__device__ __forceinline__ void issue_span(float* dst, const float* start, const float* end) {
+__device__ __forceinline__ void issue_span(unsigned char* dst, const void* start, const void* end) {
   const char* a0 = reinterpret_cast<const char*>(reinterpret_cast<uintptr_t>(start) & ~(uintptr_t)15);
   const int lines = (int)((reinterpret_cast<const char*>(end) - a0 + 15) >> 4);
-  for (int c = threadIdx.x; c < lines; c += kThreads) cp_async16(dst + 4 * c, a0 + 16 * c);
+  for (int c = threadIdx.x; c < lines; c += kThreads) cp_async16(dst + 16 * c, a0 + 16 * c);
 }
+
+// bytes of a span of `elems` elements of `size` bytes copied in whole lines
+// from any element-aligned start: up to 16 - size bytes of line offset
+int span_bytes(long long elems, int size) { return (int)(16 * ((size * elems + 16 - size + 15) / 16)); }
+
+// float32 -> bf16 -> float32, round to nearest even
+__device__ __forceinline__ float round_bf16(float x) { return bf16f(to_bf16(x)); }
 
 // 2^x for x <= 0: one MUFU.EX2 (results below 2^-126 flush to 0, which a
 // softmax weight relative to its row max can ignore)
@@ -100,30 +132,65 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-template <int D>
-__device__ __forceinline__ float dot(const float (&qr)[D], const float* kj) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 x = reinterpret_cast<const float4*>(kj)[c];
-    s = fmaf(qr[4 * c], x.x, s);
-    s = fmaf(qr[4 * c + 1], x.y, s);
-    s = fmaf(qr[4 * c + 2], x.z, s);
-    s = fmaf(qr[4 * c + 3], x.w, s);
+// the floats of a 16-byte word: 4 float32 or 8 bf16
+template <typename T>
+__device__ __forceinline__ void unpack16(uint4 u, float* r) {
+  if constexpr (sizeof(T) == 4) {
+    r[0] = __uint_as_float(u.x); r[1] = __uint_as_float(u.y);
+    r[2] = __uint_as_float(u.z); r[3] = __uint_as_float(u.w);
+  } else {
+    r[0] = bf_lo(u.x); r[1] = bf_hi(u.x); r[2] = bf_lo(u.y); r[3] = bf_hi(u.y);
+    r[4] = bf_lo(u.z); r[5] = bf_hi(u.z); r[6] = bf_lo(u.w); r[7] = bf_hi(u.w);
   }
-  return s;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    biased_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ bias,
-                            float* __restrict__ out, int heads, int n, int tiles, int items,
-                            float scale, int stage_floats) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;               // [n][D]
-  float* vs = smem + n * D;       // [n][D]
-  float* ring = smem + 2 * n * D;  // kStages x stage_floats
+// The D elements of T at p as floats: a row is whole 16-byte words, or 8
+// bytes (D = 4 bf16). GLOBAL: p is in device memory, loaded with ld_nc.
+template <int D, typename T, bool GLOBAL>
+__device__ __forceinline__ void load_row(const unsigned char* p, float (&r)[D]) {
+  if constexpr (D * sizeof(T) < 16) {
+    uint2 u;
+    if constexpr (GLOBAL) u = ld_nc_u2(p);
+    else u = *reinterpret_cast<const uint2*>(p);
+    r[0] = bf_lo(u.x); r[1] = bf_hi(u.x); r[2] = bf_lo(u.y); r[3] = bf_hi(u.y);
+  } else {
+    constexpr int per = 16 / sizeof(T);
+#pragma unroll
+    for (int c = 0; c < D / per; ++c) {
+      uint4 u;
+      if constexpr (GLOBAL) u = ld_nc_u4(p + 16 * c);
+      else u = reinterpret_cast<const uint4*>(p)[c];
+      unpack16<T>(u, r + per * c);
+    }
+  }
+}
+
+// q.k / sqrt(d) + b; with ROUND (bf16 q and k) the dot is rounded to bf16
+template <int D, typename T, bool ROUND>
+__device__ __forceinline__ float logit(const float (&qr)[D], const unsigned char* kj, float scale,
+                                       float b) {
+  float kr[D];
+  load_row<D, T, false>(kj, kr);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; ++c) s = fmaf(qr[c], kr[c], s);
+  if (ROUND) s = round_bf16(s);  // einsum of two bf16 operands returns bf16
+  return fmaf(s, scale, b);
+}
+
+// T: element of k, v and bias (float, or bf16 as uint16_t); TQ: of q
+template <int D, typename T, typename TQ>
+__device__ __forceinline__ void attention_body(const TQ* __restrict__ q, const T* __restrict__ k,
+                                               const T* __restrict__ v, const T* __restrict__ bias,
+                                               float* __restrict__ out, int heads, int n, int tiles,
+                                               int items, float scale, int stage_bytes, int kv_bytes) {
+  constexpr bool kInPlace = sizeof(T) == 4;  // pass 1 writes the logits over the bias
+  constexpr bool kRound = sizeof(T) == 2 && sizeof(TQ) == 2;
+  constexpr int kRow = D * sizeof(T);  // bytes of a K or V row
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ks = smem;  // [n][D] at the K/V block's line offset
+  unsigned char* vs = smem + kv_bytes;
+  unsigned char* ring = smem + 2 * kv_bytes;  // kStages x stage_bytes
 
   const int per = items / gridDim.x, extra = items % gridDim.x;
   const int it0 = blockIdx.x * per + min((int)blockIdx.x, extra);
@@ -136,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
   auto issue = [&](int t, int slot) {
     if (t < it1) {
       const int h = (t / tiles) % heads, r0 = (t % tiles) * RS, r1 = min(r0 + RS, n);
-      issue_span(ring + slot * stage_floats, span_start(t), bias + ((size_t)h * n + r1) * n);
+      issue_span(ring + slot * stage_bytes, span_start(t), bias + ((size_t)h * n + r1) * n);
     }
     cp_async_commit();  // an empty group keeps the count uniform
   };
@@ -145,20 +212,12 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
   // this warp's query row of item t, loaded one item ahead
   auto load_q = [&](int t, float (&dst)[D]) {
-    const int row = min((t % tiles) * RS + warp, n - 1);
-    const float* qi = q + ((size_t)(t / tiles) * n + row) * D;
-#pragma unroll
-    for (int c = 0; c < D / 4; ++c) {
-      const float4 x = ld_nc4(qi + 4 * c);
-      dst[4 * c] = x.x;
-      dst[4 * c + 1] = x.y;
-      dst[4 * c + 2] = x.z;
-      dst[4 * c + 3] = x.w;
-    }
+    const size_t row = (size_t)(t / tiles) * n + min((t % tiles) * RS + warp, n - 1);
+    load_row<D, TQ, true>(reinterpret_cast<const unsigned char*>(q + row * D), dst);
   };
   float qr[D], qn[D];
   if (it0 < it1) load_q(it0, qn);
-  int kv_bh = -1;
+  int kv_bh = -1, kv_off = 0;
   for (int t = it0; t < it1; ++t) {
     const int local = t - it0;
 #pragma unroll
@@ -167,28 +226,30 @@ __global__ void __launch_bounds__(kThreads)
     const int bh = t / tiles;
     const int i = (t % tiles) * RS + warp;  // this warp's row
     if (bh != kv_bh) {  // the same for the whole block
-      const float* kg = k + (size_t)bh * n * D;
-      const float* vg = v + (size_t)bh * n * D;
-      for (int e = threadIdx.x; e < n * D / 4; e += kThreads) {
-        cp_async16(ks + 4 * e, kg + 4 * e);
-        cp_async16(vs + 4 * e, vg + 4 * e);
-      }
+      const T* kg = k + (size_t)bh * n * D;
+      const T* vg = v + (size_t)bh * n * D;
+      issue_span(ks, kg, kg + (size_t)n * D);
+      issue_span(vs, vg, vg + (size_t)n * D);
       cp_async_commit();
       kv_bh = bh;
+      kv_off = line_offset(kg);  // k and v share it: both bases are 16-byte aligned
     }
     issue(t + 1, (local + 1) % kStages);
     cp_async_wait<1>();
     __syncthreads();
 
-    float* sb = ring + (local % kStages) * stage_floats + line_offset(span_start(t)) + warp * n;
+    T* sb = reinterpret_cast<T*>(ring + (local % kStages) * stage_bytes + line_offset(span_start(t))) +
+            warp * n;
+    const unsigned char* kb = ks + kv_off;
+    const unsigned char* vb = vs + kv_off;
     const int jend = i < n ? n : 0;  // a warp past n computes nothing and stores nothing
 
-    // pass 1: logits over the bias, and the row max
+    // pass 1: the row max of the logits (float32: written over the bias)
     float m = -INFINITY;
 #pragma unroll 4
     for (int j = lt; j < jend; j += 32) {
-      const float s = fmaf(dot<D>(qr, ks + j * D), scale, sb[j]);
-      sb[j] = s;
+      const float s = logit<D, T, kRound>(qr, kb + j * kRow, scale, to_float(sb[j]));
+      if constexpr (kInPlace) sb[j] = s;
       m = fmaxf(m, s);
     }
 #pragma unroll
@@ -201,17 +262,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < D; ++c) acc[c] = 0.f;
 #pragma unroll 4
     for (int j = lt; j < jend; j += 32) {
-      const float p = exp2_ftz(fmaf(sb[j], kLog2e, neg_m2));
+      float s;
+      if constexpr (kInPlace) s = sb[j];
+      else s = logit<D, T, kRound>(qr, kb + j * kRow, scale, to_float(sb[j]));
+      const float p = exp2_ftz(fmaf(s, kLog2e, neg_m2));
       l += p;
-      const float4* vj = reinterpret_cast<const float4*>(vs + j * D);
+      float vr[D];
+      load_row<D, T, false>(vb + j * kRow, vr);
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 x = vj[c];
-        acc[4 * c] = fmaf(p, x.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(p, x.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, x.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, x.w, acc[4 * c + 3]);
-      }
+      for (int c = 0; c < D; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -231,21 +290,38 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 }
 
-int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cached[dev] == 0) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
-  return cached[dev];
+// one kernel name per precision, as profilers list them
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    biased_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ bias,
+                            float* __restrict__ out, int heads, int n, int tiles, int items,
+                            float scale, int stage_bytes, int kv_bytes) {
+  attention_body<D, float, float>(q, k, v, bias, out, heads, n, tiles, items, scale, stage_bytes,
+                                  kv_bytes);
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* bias, float* out, int B,
-           int heads, int n, cudaStream_t stream) {
-  const int stage_floats = 4 * ((RS * n + 3 + 3) / 4);
-  const size_t smem = (2 * (size_t)n * D + (size_t)kStages * stage_floats) * sizeof(float);
+template <int D, typename TQ>
+__global__ void __launch_bounds__(kThreads)
+    biased_attention_bf16_kernel(const TQ* __restrict__ q, const uint16_t* __restrict__ k,
+                                 const uint16_t* __restrict__ v, const uint16_t* __restrict__ bias,
+                                 float* __restrict__ out, int heads, int n, int tiles, int items,
+                                 float scale, int stage_bytes, int kv_bytes) {
+  attention_body<D, uint16_t, TQ>(q, k, v, bias, out, heads, n, tiles, items, scale, stage_bytes,
+                                  kv_bytes);
+}
+
+template <int D, typename T, typename TQ>
+int launch(const TQ* q, const T* k, const T* v, const T* bias, float* out, int B, int heads, int n,
+           cudaStream_t stream) {
+  const int stage_bytes = span_bytes((long long)RS * n, sizeof(T));
+  const int kv_bytes = span_bytes((long long)n * D, sizeof(T));
+  const size_t smem = 2 * (size_t)kv_bytes + (size_t)kStages * stage_bytes;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kern = biased_attention_kernel<D>;
+  auto kern = [] {
+    if constexpr (sizeof(T) == 4) return biased_attention_kernel<D>;
+    else return biased_attention_bf16_kernel<D, TQ>;
+  }();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -261,30 +337,48 @@ int launch(const float* q, const float* k, const float* v, const float* bias, fl
   const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int grid = (int)(items < slots ? items : slots);
   kern<<<grid, kThreads, smem, stream>>>(q, k, v, bias, out, heads, n, tiles, (int)items,
-                                         1.f / sqrtf((float)D), stage_floats);
+                                         1.f / sqrtf((float)D), stage_bytes, kv_bytes);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename TQ>
+int fwd(const void* q, const void* k, const void* v, const void* bias, void* out, int B, int heads,
+        int n, int d, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  // q rows are read as 8- or 16-byte vectors; K/V spans start at the same
+  // line offset in shared memory as in device memory; the bias is read in
+  // elements
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(bias) & (sizeof(T) - 1)) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const TQ* qt = static_cast<const TQ*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* bt = static_cast<const T*>(bias);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 4: return launch<4, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 8: return launch<8, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 16: return launch<16, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 32: return launch<32, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// float32 q, k, v, bias
 extern "C" int biased_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                                     void* out, int B, int heads, int n, int d, void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* bf = static_cast<const float*>(bias);
-  float* of = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  // q/k/v rows are read as float4
-  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v)) & 15) != 0)
-    return (int)cudaErrorMisalignedAddress;
-  switch (d) {
-    case 4: return launch<4>(qf, kf, vf, bf, of, B, heads, n, s);
-    case 8: return launch<8>(qf, kf, vf, bf, of, B, heads, n, s);
-    case 16: return launch<16>(qf, kf, vf, bf, of, B, heads, n, s);
-    case 32: return launch<32>(qf, kf, vf, bf, of, B, heads, n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fwd<float, float>(q, k, v, bias, out, B, heads, n, d, stream);
+}
+
+// bf16 k, v, bias; q_bf16: 1 if q is bf16 (the logit is rounded to bf16), 0 if float32
+extern "C" int biased_attention_bf16_fwd(const void* q, const void* k, const void* v,
+                                         const void* bias, void* out, int B, int heads, int n,
+                                         int d, int q_bf16, void* stream) {
+  if (q_bf16) return fwd<uint16_t, uint16_t>(q, k, v, bias, out, B, heads, n, d, stream);
+  return fwd<uint16_t, float>(q, k, v, bias, out, B, heads, n, d, stream);
 }

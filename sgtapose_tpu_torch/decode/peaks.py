@@ -6,6 +6,9 @@ local maxima above a threshold on the blurred map, the top `max_peaks`
 candidates per class, 5x5 weighted-average sub-pixel refinement (+0.4395) on
 the original map, the 0.25 score-gap ambiguity rule, and the final coordinate
 from the reg head (or the other `coord_mode`s). Static shapes, no host sync.
+`decode_heatmaps_batch` decodes a leading batch of frames (one per video of
+the batched detector) in one pass (`torch.func.vmap`, as the JAX package
+vmaps its decode).
 
 Matching JAX exactly needs two non-obvious choices:
   * the symmetric pad repeats the edge sample ([1,0,|0,1,2,3|,3,2]), which
@@ -16,6 +19,7 @@ Matching JAX exactly needs two non-obvious choices:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -194,3 +198,10 @@ def decode_heatmaps(
     coords = torch.where(accept[:, None], coords, torch.full_like(coords, SENTINEL))
     return DecodedKeypoints(coords=coords, coords_int=torch.stack([ix, iy], dim=1),
                             scores=out_score, tracking=trk_at, valid=accept)
+
+
+def decode_heatmaps_batch(hm: torch.Tensor, reg: torch.Tensor, tracking: torch.Tensor,
+                          **kwargs) -> DecodedKeypoints:
+    """`decode_heatmaps` over a leading batch dim of hm (V, H, W, C), reg and
+    tracking (V, H, W, 2); every field gains the leading V."""
+    return torch.func.vmap(functools.partial(decode_heatmaps, **kwargs))(hm, reg, tracking)

@@ -6,6 +6,14 @@ frame's window tokens attend the previous frame's (learned (heads, n, n)
 position bias, through the biased-attention kernel); a 2-layer MLP merges the
 result, which is written back into the feature map. Feature maps are NHWC.
 
+Dtypes follow flax's promotion, so a bf16 model (`utils/precision.py`)
+computes as the JAX package's bf16 serving does: every Dense layer runs in the
+promoted dtype of its input and parameters (`dense`), so the attention's
+float32 output makes `fc`, the LayerNorms, the FFN and the tied layers after
+it float32 while their bf16 parameters are promoted; `CatLayer` runs in
+float32 on levels 0-2 (float32 attention output beside bf16 query tokens) and
+in bf16 on levels 3-5; the write-back casts to the feature map's dtype.
+
 Two places where the obvious torch call would not match JAX:
   * ties: `lax.top_k` returns the lowest index first among equal values (all
     priors are zero on a video's first frame); `torch.topk` does not promise
@@ -23,6 +31,22 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sgtapose_tpu_torch.ops.attention_kernel import fused_biased_attention
+
+
+def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`layer(x)` in the promoted dtype of x and the layer's parameters, as
+    flax's Dense computes (bf16 parameters against a float32 input run in
+    float32)."""
+    dt = torch.promote_types(x.dtype, layer.weight.dtype)
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """`norm(x)` in the promoted dtype of x and the norm's parameters."""
+    dt = torch.promote_types(x.dtype, norm.weight.dtype)
+    return F.layer_norm(x.to(dt), norm.normalized_shape, norm.weight.to(dt), norm.bias.to(dt),
+                        norm.eps)
 
 
 def topk_class_indices(hm_cls: torch.Tensor, k: int) -> torch.Tensor:
@@ -97,12 +121,13 @@ class MultiHeadCrossAttention(nn.Module):
         def heads(t):
             return t.reshape(B, N, h, d).transpose(1, 2).contiguous()
 
-        q, k, v = heads(self.w_q(query)), heads(self.w_k(key)), heads(self.w_v(value))
+        q = heads(dense(self.w_q, query))
+        k, v = heads(dense(self.w_k, key)), heads(dense(self.w_v, value))
         bias = self.pos_embed
         if bias is None:
-            bias = torch.zeros(h, N, N, dtype=q.dtype, device=q.device)
-        out = fused_biased_attention(q, k, v, bias)
-        return self.fc(out.transpose(1, 2).reshape(B, N, self.hid_dim))
+            bias = torch.zeros(h, N, N, dtype=k.dtype, device=k.device)
+        out = fused_biased_attention(q, k, v, bias)  # float32
+        return dense(self.fc, out.transpose(1, 2).reshape(B, N, self.hid_dim))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -123,9 +148,9 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, query, key, value):
         attn = self.cross_attn(query, key, value)
-        x = self.norm1(attn + self.dropout1(query))
-        y = self.dropout3(self.linear2(self.dropout2(F.relu(self.linear1(x)))))
-        return self.norm3(x + y)
+        x = layer_norm(self.norm1, attn + self.dropout1(query))
+        y = self.dropout3(dense(self.linear2, self.dropout2(F.relu(dense(self.linear1, x)))))
+        return layer_norm(self.norm3, x + y)
 
 
 class TransformerEncoder(nn.Module):
@@ -154,4 +179,4 @@ class CatLayer(nn.Module):
         self.fc2 = nn.Linear(4 * features, features)
 
     def forward(self, x):
-        return self.fc2(F.relu(self.fc1(x)))
+        return dense(self.fc2, F.relu(dense(self.fc1, x)))

@@ -7,9 +7,15 @@ logit. The 9 taps are sampled bilinearly at (p + tap + offset) with zero
 padding, scaled by sigmoid(mask), and contracted with the kernel weights in
 one (9*C_in -> C_out) product whose input is tap-major (index k*C + c).
 
-On the card `DeformConv2d` runs one fused kernel, `csrc/deform_conv.cu`
-(sampling, contraction and bias as an implicit GEMM on the tensor cores:
-wgmma in 3xTF32); CPU tensors take its plain version `plain_deform_conv`.
+On the card `DeformConv2d` runs one fused kernel (sampling, contraction and
+bias as an implicit GEMM on the tensor cores), `csrc/deform_conv.cu`, whose
+design has two instantiations chosen by dtype: float32 (wgmma in 3xTF32) and
+bf16 serving (wgmma bf16 with float32 accumulators); any other dtype raises. CPU tensors take the plain version
+`plain_deform_conv`, which follows each kernel's arithmetic. In bf16 the
+kernel forms each sampled element in float32 from the bf16 inputs and rounds
+it once to bf16, and rounds the float32 product plus bias once; the JAX
+module rounds after every corner product and sum, and adds a bf16 bias to a
+bf16 product (`sgtapose_tpu/models/deform_conv.py:92-99`).
 The sampler alone, `csrc/deform_sample.cu`, stays for the training slice's
 weight gradient, which needs the sampled columns; the detector does not
 launch it. Its plain version (a mirror of the JAX `_sample_pieces`) serves
@@ -26,6 +32,7 @@ from sgtapose_tpu_torch.ops import build
 
 KERNEL = "deform_sample"
 CONV_KERNEL = "deform_conv"
+CONV_KERNEL_BF16 = "deform_conv_bf16"
 
 
 def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -102,14 +109,25 @@ def deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor
 def plain_deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor) -> torch.Tensor:
     """x (B,H,W,C), om (B,H,W,27) the raw offset/mask conv output, weight
-    (O, 9C) with input index k*C + c, bias (O,) -> (B,H,W,O)."""
+    (O, 9C) with input index k*C + c, bias (O,) -> (B,H,W,O). bf16 inputs
+    follow the bf16 kernel: the sampled columns formed in float32 and rounded
+    once to bf16, the product and bias in float32, rounded once."""
+    if x.dtype == torch.bfloat16:
+        f32, bf16 = torch.float32, torch.bfloat16
+        flat = plain_deform_sample(x.to(f32), om[..., :18].to(f32),
+                                   torch.sigmoid(om[..., 18:27].to(f32))).to(bf16)
+        return torch.nn.functional.linear(flat.to(f32), weight.to(f32), bias.to(f32)).to(bf16)
     flat = plain_deform_sample(x, om[..., :18], torch.sigmoid(om[..., 18:27]))
     return torch.nn.functional.linear(flat, weight, bias)
 
 
 def deform_conv_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
-    """Launch the fused DCN kernel on the current stream (CUDA tensors)."""
+    """Launch the fused DCN kernel of x's dtype (float32 or bf16; all four
+    tensors share it) on the current stream (CUDA tensors)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bf16, got {x.dtype}")
+    name = CONV_KERNEL if x.dtype == torch.float32 else CONV_KERNEL_BF16
     if x.dim() != 4:
         raise ValueError(f"x must be (B,H,W,C), got {tuple(x.shape)}")
     B, H, W, C = x.shape
@@ -119,32 +137,35 @@ def deform_conv_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
     if tuple(om.shape) != (B, H, W, 27) or tuple(bias.shape) != (O,):
         raise ValueError(f"om/bias must be (B,H,W,27)/(O,) for x {tuple(x.shape)} and O={O}, "
                          f"got {tuple(om.shape)}/{tuple(bias.shape)}")
-    for name, t in (("x", x), ("om", om), ("weight", weight), ("bias", bias)):
+    for label, t in (("x", x), ("om", om), ("weight", weight), ("bias", bias)):
         if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+            raise ValueError(f"{label} must be a CUDA tensor on {x.device}, got {t.device}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"{label} must be {x.dtype} like x, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     M = B * H * W
     if M * max(C, 27) >= 2 ** 31 or M * O >= 2 ** 31:
         raise ValueError(f"x {tuple(x.shape)} with O={O} exceeds the kernel's 32-bit offsets")
-    out = torch.empty((B, H, W, O), dtype=torch.float32, device=x.device)
-    fn = build.kernel_fn(CONV_KERNEL)
+    out = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
+    fn = build.kernel_fn(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), om.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
                  B, H, W, C, O, stream)
-    build.check(CONV_KERNEL, err)
-    build.count_launch(CONV_KERNEL)
+    build.check(name, err)
+    build.count_launch(name)
     return out
 
 
 def deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Modulated deformable conv from the offset/mask conv's raw output (see
-    `plain_deform_conv`). CUDA tensors go through the fused kernel (or
-    raise); CPU tensors take the plain version."""
+    `plain_deform_conv`). CUDA tensors go through the fused kernel of their
+    dtype, float32 or bf16 (or raise); CPU tensors take the plain version.
+    Any other dtype raises on both."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"deform_conv runs float32 or bf16, got {x.dtype}")
     if x.device.type == "cpu":
         return plain_deform_conv(x, om, weight, bias)
     return deform_conv_cuda(x, om, weight, bias)

@@ -1,12 +1,14 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
-into its own shared library for `sm_90a` (Hopper), then loaded with `ctypes`.
-No PyTorch headers are involved, so a build takes seconds. Builds happen at
-first use, never at import (the CPU test suite imports every module), all
-sources at once with one `nvcc` process each, into
+Each `csrc/<name>.cu` exposes a plain C interface (one entry point per
+kernel; a source may hold the float32 and bf16 instantiations of one design)
+and is compiled by `nvcc` into its own shared library for `sm_90a` (Hopper),
+then loaded with `ctypes`. No PyTorch headers are involved, so a build takes
+seconds. Builds happen at first use, never at import (the CPU test suite
+imports every module), all sources at once with one `nvcc` process each, into
 `<checkout>/build/torch_kernels/<hash>/` — a directory `.gitignore` covers —
-keyed on a hash of the sources and flags, so an edited `.cu` rebuilds.
+keyed on a hash of the sources, the shared header and the flags, so an edited
+`.cu` or `.cuh` rebuilds.
 
 Launch counters: each kernel wrapper calls `count_launch(name)` exactly where
 it launches its kernel and nowhere else, so a run can show that the main path
@@ -29,11 +31,14 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 
-# kernel name -> source file under csrc/
+# kernel name -> source file under csrc/ (the bf16 kernels are the second
+# instantiation of their float32 kernel's design, in the same source)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
     "deform_conv": "deform_conv.cu",
+    "biased_attention_bf16": "biased_attention.cu",
+    "deform_conv_bf16": "deform_conv.cu",
 }
 
 NVCC_FLAGS = (
@@ -52,6 +57,10 @@ _SIGNATURES = {
     "deform_sample": ("deform_sample_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # x, om, weight, bias, out, B, H, W, C, O, stream
     "deform_conv": ("deform_conv_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # q, k, v, bias, out, B, heads, n, d, q_bf16, stream
+    "biased_attention_bf16": ("biased_attention_bf16_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, om, weight, bias, out, B, H, W, C, O, stream (all bf16)
+    "deform_conv_bf16": ("deform_conv_bf16_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -88,24 +97,27 @@ def _nvcc() -> str:
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(KERNEL_SOURCES):
-        h.update(name.encode())
-        h.update((CSRC / KERNEL_SOURCES[name]).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile every kernel that is not built yet (one nvcc per source, all
+    """Compile every source that is not built yet (one nvcc per source, all
     started together), load the libraries, and return them by kernel name.
-    Records the seconds taken and each compiler log in BUILD_INFO."""
+    Records the seconds taken and each compiler log (by source) in
+    BUILD_INFO."""
     with _LOCK:
         if len(_LIBS) == len(KERNEL_SOURCES):
             return _LIBS
         out_dir = _build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
+        stems = sorted({Path(src).stem for src in KERNEL_SOURCES.values()})
         procs = {}
-        for name, src in KERNEL_SOURCES.items():
+        for name in stems:
+            src = f"{name}.cu"
             lib = out_dir / f"lib{name}.so"
             if lib.exists():
                 continue
@@ -128,11 +140,12 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         BUILD_INFO["compiled"] = sorted(procs)
         BUILD_INFO["logs"] = {
             name: (out_dir / f"{name}.log").read_text()
-            for name in KERNEL_SOURCES
+            for name in stems
             if (out_dir / f"{name}.log").exists()
         }
-        for name in KERNEL_SOURCES:
-            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        libs = {name: ctypes.CDLL(str(out_dir / f"lib{name}.so")) for name in stems}
+        for name, src in KERNEL_SOURCES.items():
+            lib = libs[Path(src).stem]
             fn_name, argtypes = _SIGNATURES[name]
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes

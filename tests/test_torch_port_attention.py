@@ -54,6 +54,8 @@ def test_kernel_split_and_merge_matches_jax(n, d):
 def test_kernel_layout_fits_the_flagship_shapes():
     for n, d in ((1183, 4), (343, 8), (63, 16)):
         assert tkern.kernel_smem_bytes(n, d) <= 227 * 1024
+        # bf16: half the bytes of K, V and the bias ring
+        assert tkern.kernel_smem_bytes(n, d, 2) <= tkern.kernel_smem_bytes(n, d) // 2 + 64
     with pytest.raises(ValueError):  # K/V of one head no longer fit
         q = torch.zeros(1, 8, 1183, 32)
         tkern.biased_attention_cuda(q, q, q, torch.zeros(8, 1183, 1183))
@@ -65,6 +67,13 @@ def test_attention_wrapper_rejects_bad_inputs():
         tkern.biased_attention_cuda(q, q, q, torch.zeros(8, 10, 10))  # CPU tensors
     with pytest.raises(ValueError):
         tkern.biased_attention_cuda(q, q, q, torch.zeros(8, 10, 9))  # bias shape
+    kb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        tkern.biased_attention_bf16_cuda(kb, kb, kb, torch.zeros(8, 10, 10, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # float32 k/v are not the bf16 kernel's
+        tkern.biased_attention_bf16_cuda(kb, q, q, torch.zeros(8, 10, 10, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # a float32 bias is not the bf16 kernel's
+        tkern.biased_attention_bf16_cuda(kb, kb, kb, torch.zeros(8, 10, 10))
 
 
 def _flax_module_pair(flax_mod, port_mod, inputs, seed):
@@ -101,9 +110,14 @@ def test_tied_transformer_encoder_matches_flax():
     assert sum(1 for _ in port_mod.modules() if isinstance(_, tattn.TransformerEncoderLayer)) == 1
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k", [1, 3])
-@pytest.mark.parametrize("kind", ["zeros", "ties", "random"])
-def test_topk_class_indices_tie_order(k, kind):
+@pytest.mark.parametrize("kind", ["zeros", "ties", "random", "gaussian"])
+def test_topk_class_indices_tie_order(k, kind, dtype):
+    """bfloat16: bf16 serving ranks the class priors after make_bf16_apply
+    rounds them to 8 significant bits, so far more pixels tie (the gaussian
+    tails of a rendered prior, random maps); the tie order must still be
+    lax.top_k's."""
     rs = np.random.RandomState(2)
     hm = np.zeros((2, 12, 12, 7), np.float32)
     if kind == "ties":  # plateaus of equal maxima, as rendered priors have
@@ -111,8 +125,17 @@ def test_topk_class_indices_tie_order(k, kind):
         hm[:, 9, 1] = 1.0
     elif kind == "random":
         hm = rs.rand(2, 12, 12, 7).astype(np.float32)
-    ref = np.asarray(jattn.topk_class_indices(jnp.asarray(hm), k))
-    np.testing.assert_array_equal(tattn.topk_class_indices(_t(hm), k).numpy(), ref)
+    elif kind == "gaussian":  # rendered priors: peaks with sigma-2 tails
+        yy, xx = np.mgrid[:12, :12]
+        c = rs.rand(2, 7, 2) * 11
+        hm = np.exp(-((xx - c[..., 0, None, None]) ** 2 + (yy - c[..., 1, None, None]) ** 2) / 8.0)
+        hm = hm.transpose(0, 2, 3, 1).astype(np.float32)
+    x = jnp.asarray(hm).astype(dtype)
+    if dtype == "bfloat16" and kind in ("random", "gaussian"):
+        assert len(np.unique(np.asarray(x, np.float32))) < len(np.unique(hm))
+    ref = np.asarray(jattn.topk_class_indices(x, k))
+    port = tattn.topk_class_indices(_t(np.asarray(x, np.float32)).to(getattr(torch, dtype)), k)
+    np.testing.assert_array_equal(port.numpy(), ref)
 
 
 @pytest.mark.parametrize("scale,kernel", [(4.0, 12), (1.0, 3), (0.5, 1), (0.125, 1)])

@@ -19,12 +19,17 @@ KERNEL_MODULES = {
                       "deform_sample_cuda"),
     "deform_conv": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv",
                     "deform_conv_cuda"),
+    "biased_attention_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
+                              "plain_biased_attention_bf16", "biased_attention_bf16_cuda"),
+    # one wrapper launches the float32 or the bf16 kernel by dtype
+    "deform_conv_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv",
+                         "deform_conv_cuda"),
 }
 
 
 def test_every_source_is_registered():
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert sorted(build.KERNEL_SOURCES.values()) == sources
+    assert sorted(set(build.KERNEL_SOURCES.values())) == sources
     assert set(build._SIGNATURES) == set(build.KERNEL_SOURCES) == set(build.launch_counts())
 
 
@@ -32,9 +37,9 @@ def test_every_source_is_registered():
 def test_entry_point_matches_source(name):
     src = (build.CSRC / build.KERNEL_SOURCES[name]).read_text()
     fn_name, argtypes = build._SIGNATURES[name]
-    m = re.search(r'extern "C" int (\w+)\(([^)]*)\)', src)
-    assert m and m.group(1) == fn_name
-    assert len(m.group(2).split(",")) == len(argtypes)
+    entry_points = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+    assert fn_name in entry_points
+    assert len(entry_points[fn_name].split(",")) == len(argtypes)
 
 
 @pytest.mark.parametrize("name", sorted(build.KERNEL_SOURCES))
@@ -42,4 +47,5 @@ def test_every_kernel_has_its_plain_version(name):
     module, plain, wrapper = KERNEL_MODULES[name]
     mod = importlib.import_module(module)
     assert callable(getattr(mod, plain)) and callable(getattr(mod, wrapper))
-    assert name in (getattr(mod, "KERNEL", None), getattr(mod, "CONV_KERNEL", None))
+    names = {getattr(mod, a, None) for a in ("KERNEL", "KERNEL_BF16", "CONV_KERNEL", "CONV_KERNEL_BF16")}
+    assert name in names

@@ -106,3 +106,35 @@ def test_deform_conv_cuda_rejects_bad_inputs():
         tdcn.deform_conv_cuda(x, om, torch.zeros(5, 64), torch.zeros(5))
     with pytest.raises(ValueError):  # om is not (B,H,W,27)
         tdcn.deform_conv_cuda(x, om[..., :18], torch.zeros(5, 72), torch.zeros(5))
+    with pytest.raises(ValueError):  # bf16 x with float32 weights: no mixed kernel
+        tdcn.deform_conv_cuda(x.to(torch.bfloat16), om.to(torch.bfloat16), torch.zeros(5, 72),
+                              torch.zeros(5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_deform_conv_refuses_other_dtypes(dtype):
+    """float32 goes to the float32 kernel, bf16 to the bf16 one; any other
+    dtype raises on every device, the CPU included."""
+    mod = tdcn.DeformConv2d(8, 5).to(dtype)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        mod(torch.zeros(1, 8, 4, 4, dtype=dtype))
+
+
+def test_plain_deform_conv_bf16_rounds_once():
+    """The bf16 plain version (the bf16 kernel's reference): the sampled
+    columns formed in float32 from the bf16 inputs and rounded once, the
+    product in float32, the output rounded once to bf16."""
+    rs = np.random.RandomState(5)
+    x = _t(rs.randn(1, 9, 11, 6).astype(np.float32)).to(torch.bfloat16)
+    om = _t(np.concatenate([rs.rand(1, 9, 11, 18) * 6 - 3, 2 * rs.randn(1, 9, 11, 9)], -1)
+            .astype(np.float32)).to(torch.bfloat16)
+    w = _t((rs.randn(5, 54) / 8).astype(np.float32)).to(torch.bfloat16)
+    b = _t(rs.randn(5).astype(np.float32)).to(torch.bfloat16)
+    out = tdcn.plain_deform_conv(x, om, w, b)
+    assert out.dtype == torch.bfloat16
+    f = torch.float32
+    cols = tdcn.plain_deform_sample(x.to(f), om[..., :18].to(f), torch.sigmoid(om[..., 18:].to(f)))
+    ref = torch.nn.functional.linear(cols.to(torch.bfloat16).to(f), w.to(f), b.to(f))
+    assert torch.equal(out, ref.to(torch.bfloat16))
+    exact = torch.nn.functional.linear(cols, w.to(f), b.to(f))
+    assert (out.to(f) - exact).abs().max() <= 0.05 * exact.abs().max()

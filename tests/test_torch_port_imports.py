@@ -34,7 +34,9 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert res["libs"] == 0
     expected = {"sgtapose_tpu_torch.infer.detector", "sgtapose_tpu_torch.models.sgta",
                 "sgtapose_tpu_torch.ops.attention_kernel", "sgtapose_tpu_torch.models.deform_conv",
-                "sgtapose_tpu_torch.utils.weights", "sgtapose_tpu_torch.core.pnp"}
+                "sgtapose_tpu_torch.utils.weights", "sgtapose_tpu_torch.core.pnp",
+                "sgtapose_tpu_torch.utils.precision", "sgtapose_tpu_torch.eval.metrics",
+                "sgtapose_tpu_torch.eval.analysis", "sgtapose_tpu_torch.eval.synthetic_eval"}
     assert expected <= set(res["modules"])
 
 

@@ -113,3 +113,48 @@ def test_reprojection_prior_matches_jax():
     ok_t, est_t, _ = tpnp.pnp_reprojection_prior(_t(x3d), _t(x2d), _t(nxt), _t(K), _t(valid))
     assert bool(ok_j) == bool(ok_t)
     assert np.abs(np.asarray(est_j) - est_t.numpy()).max() < REPROJ_BAR
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm_start"])
+def test_batched_prior_matches_jax_vmap(warm):
+    """pnp_reprojection_prior_batch over 5 consistent problems (0-4 masked
+    rows, one with too few points) against JAX's vmap of the same solve: each
+    problem keeps its own mask, warm start and success at the same bars."""
+    probs = [_problem(40 + i, n_masked=i, noise=0.5) for i in range(5)]
+    x3d, x2d, valid, q, t = (np.stack(a) for a in zip(*probs))
+    nxt = x3d + 0.01
+    use = np.array([True, False, True, False, True])
+    q0 = (q + 0.02).astype(np.float32)
+
+    def jax_one(a, b, c, v, qq, tt, u):
+        return jpnp.pnp_reprojection_prior(a, b, c, K, v, init=(qq, tt, u) if warm else None)
+
+    ok_j, est_j, res_j = jax.jit(jax.vmap(jax_one))(x3d, x2d, nxt, valid, q0, t, use)
+    init = (_t(q0), _t(t), _t(use)) if warm else None
+    ok_t, est_t, res_t = tpnp.pnp_reprojection_prior_batch(_t(x3d), _t(x2d), _t(nxt), _t(K), _t(valid),
+                                                           init=init)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+    assert list(ok_t.numpy()) == [True, True, True, True, False]
+    ok = ok_t.numpy()
+    assert np.abs(np.asarray(est_j)[ok] - est_t.numpy()[ok]).max() < REPROJ_BAR
+    for i in range(5):  # each problem as the single solve gives it
+        one = tpnp.pnp_reprojection_prior(_t(x3d[i]), _t(x2d[i]), _t(nxt[i]), _t(K), _t(valid[i]),
+                                          init=None if init is None else tuple(a[i] for a in init))
+        assert bool(one[0]) == bool(ok[i])
+        if ok[i]:
+            assert np.abs(one[1].numpy() - est_t[i].numpy()).max() < REPROJ_BAR
+
+
+def test_register_gn_matches_jax():
+    """The eval harness's weighted refinement from a perturbed start, on a
+    noisy problem: the refined pose's reprojection within the PnP bar."""
+    x3d, x2d, valid, q, t = _problem(51, 0, 1.0)
+    q0 = (q + 0.01).astype(np.float32)
+    t0 = (t + 0.01).astype(np.float32)
+    w = np.exp(-5.0 * np.random.RandomState(1).rand(7, 1).repeat(2, 1)).astype(np.float32)
+    qj, tj = jpnp.register_gn(jnp.asarray(x2d), jnp.asarray(x3d), jnp.asarray(q0), jnp.asarray(t0),
+                              jnp.asarray(w), jnp.asarray(K))
+    qt, tt = tpnp.register_gn(_t(x2d), _t(x3d), _t(q0), _t(t0), _t(w), _t(K))
+    pj = _reproj(qj / jnp.linalg.norm(qj), tj, x3d, jg)
+    pt = _reproj(qt / qt.norm(), tt, _t(x3d), tg)
+    assert np.abs(pj - pt).max() < REPROJ_BAR
