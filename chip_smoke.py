@@ -16,8 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain / library (F.scaled_dot_product_attention, a yardstick the port
      never calls) times;
   4. the DCN sampling kernel (off the detector path since the fused kernel;
-     kept for the training slice) against its plain version at every decoder
-     shape;
+     the training backward recomputes the columns with it) and the DCN
+     sampling backward against their plain versions at every decoder input
+     shape at the training batch of 8, and one ragged shape;
   5. the float32 fused DCN kernel against its plain version at the decoder
      shapes and one ragged shape, with kernel / unfused pair (the sampler,
      then torch.addmm with TF32 off) / plain times;
@@ -51,13 +52,30 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. the eval harness (eval/analysis.py, PnP and weighted refinement batched
      over frames on the card) on the bf16 exact run's detections, and on
      the ground truth with 0.5 px of noise, whose scores are known;
- 11. a `{"kernels": [...]}` line, the card line, and last the device line
+ 11. training (float32, the train_demo path): both backward kernels
+     (`biased_attention_bwd`, `deform_sample_bwd`) against their plain
+     versions at every flagship attention (n, d) and every decoder DCN input
+     shape at the training batch of 8 plus one ragged shape each, with cold /
+     plain times, bounds and SDPA's backward as the attention's yardstick;
+     one full-width train-step gradient (480x480, batch 1, dropout off) on
+     the card and on the CPU in float32, both held against a CPU float64
+     reference (GRAD_WORST_TOL, GRAD_L2_TOL); 5 steps of `train/trainer.train_step` at 480x480, batch 8
+     on one fixed batch (the loss must fall); then `cli/train_demo.main` for
+     20 steps on fresh batches with stage times (batch build with the PnP
+     priors, forward, backward, optimizer) and launch counts asserted per
+     step, and its eval of the trained weights (bf16 exact runner, 1 video of
+     8 frames); device time per kernel per step from torch.profiler;
+ 12. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
+
+The detector runs of phase 9 take 8 frames each (16 before the training
+phases were added, to keep the script inside half its time limit).
 
 Kernel times are CUDA-event times of single launches with the 50 MB L2
 flushed before each (the detector reads each weight once per frame); the
 per-kernel entries of the kernels line are per-frame sums over the shapes one
-frame launches. Bounds (H100 SXM data sheet): the larger of bytes over
+frame launches (per-step sums over one training step's shapes for the
+sampler and the two backward kernels). Bounds (H100 SXM data sheet): the larger of bytes over
 3.35 TB/s and operations over the rate of the instructions used, 67 TFLOP/s
 for float32 FMAs, 165 TFLOP/s (495 / 3) for 3xTF32 and 989 TFLOP/s for dense
 bf16 on the tensor cores. Details go to chiprun_out/chip_smoke.json.
@@ -65,6 +83,7 @@ bf16 on the tensor cores. Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -78,8 +97,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32X3_OPS_PER_S = 495e12 / 3
 BF16_OPS_PER_S = 989e12
-T_FRAMES = 16
+T_FRAMES = 8
 N_VIDEOS = 8  # the batched runner's video batch
+TRAIN_BATCH = 8  # train_demo's default batch
+FIXED_STEPS, TRAIN_STEPS = 5, 20
 ATTN_TOL = 2e-4  # the JAX package's Pallas-vs-XLA bar
 DCN_TOL = 1e-5  # same float32 arithmetic; only FMA contraction may differ
 # fused DCN vs plain, relative to max(1, max|ref|): a 9C-long sum in another
@@ -101,6 +122,19 @@ DCN_BF16_REL_TOL = 8e-3  # of max(1, max|ref|): two bf16 ulps at the top of the 
 # (H100 readings: hm 1, reg 2.75, tracking 2 units).
 BF16_VS_F32_REL_TOL = 1e-2
 BF16_CARD_VS_CPU_ULPS = 4
+# backward kernels vs their plain versions, relative to max(1, max|ref|) per
+# gradient: the attention recomputes P with the fast exp2 and sums in another
+# order; the DCN adds into dfeat with float atomics (order varies per run)
+BWD_REL_TOL = 1e-4
+# a full-width train step's parameter gradients are held against a float64
+# reference (autograd through the plain versions on the CPU): train-mode
+# BatchNorm normalises by batch statistics, which amplifies float32 rounding
+# layer by layer, so float32 gradients are only as good as float32 allows
+# here. H100 readings at 480x480, batch 1 (PERF.md, PR 4): the card's worst
+# tensor 6.4 % of its largest reference gradient, 0.19 % over all gradients
+# in L2; the CPU's float32 53 % and 12 %. Bars for the card:
+GRAD_WORST_TOL = 0.2
+GRAD_L2_TOL = 0.01
 # (H, C_in, C_out, nodes per frame) of the 16 decoder DCN nodes at 480x480
 DCN_NODES = [(15, 512, 256, 1), (30, 256, 256, 1), (30, 256, 128, 2), (30, 256, 64, 1),
              (60, 128, 128, 2), (60, 128, 64, 4), (120, 64, 64, 5)]
@@ -109,8 +143,15 @@ RAGGED_DCN = (9, 6, 5, 0)  # 9x11 map, C % 8 != 0, O below one tile; off the pat
 DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "deform_conv_kernel",
                 "deform_sample": "deform_sample_kernel",
                 "biased_attention_bf16": "biased_attention_bf16_kernel",
-                "deform_conv_bf16": "deform_conv_bf16_kernel"}
+                "deform_conv_bf16": "deform_conv_bf16_kernel",
+                "biased_attention_bwd": "biased_attention_bwd_", "deform_sample_bwd": "deform_sample_bwd_kernel"}
+TRAIN_STAGES = ("batch", "forward", "backward", "optimizer")
 STAGE_NAMES = ("pnp", "render", "trunk", "fuse", "decode")
+
+
+def rel_err(a, b) -> float:
+    """max|a - b| / max(1, max|b|)."""
+    return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -243,34 +284,58 @@ def main() -> int:
                    bound_ms=b_ms, bound_by=b_by)
         attn_rows.append(row)
         print("attention " + json.dumps(row))
+    report["attention_shapes"] = attn_rows
 
-    # ---- 4. DCN sampling kernel vs plain ----------------------------------
-    # (H, C_in) of the 16 decoder DCN nodes at 480x480 and how many per frame
-    # (the sampler alone is no longer launched on the detector path)
+    # ---- 4. DCN sampling kernel and its backward vs plain -------------------
+    # at the training batch: a training step launches the sampler (the
+    # backward's recompute of the columns) and deform_sample_bwd once per
+    # decoder node; the detector launches neither
     dcn_shapes = {}
-    for H, C, _, nodes in DCN_NODES:
+    for H, C, _, nodes in DCN_NODES + [RAGGED_DCN]:
         dcn_shapes[(H, C)] = dcn_shapes.get((H, C), 0) + nodes
-    dcn_rows = []
-    for (H, C), per_frame in dcn_shapes.items():
-        feat = torch.randn(1, H, H, C, generator=gen, device=dev)
-        offsets = torch.rand(1, H, H, 18, generator=gen, device=dev) * 6 - 3
-        masks = torch.rand(1, H, H, 9, generator=gen, device=dev)
+    dcn_rows, dcn_bwd_rows = [], []
+    for (H, C), per_step in dcn_shapes.items():
+        B, W = (TRAIN_BATCH, H) if per_step else (2, H + 2)
+        feat = torch.randn(B, H, W, C, generator=gen, device=dev)
+        offsets = torch.rand(B, H, W, 18, generator=gen, device=dev) * 6 - 3
+        masks = torch.rand(B, H, W, 9, generator=gen, device=dev)
         out = deform_conv.deform_sample_cuda(feat, offsets, masks)
         torch.cuda.synchronize()
         ref = deform_conv.plain_deform_sample(feat, offsets, masks)
         err = (out - ref).abs().max().item()
         if not math.isfinite(err) or err > DCN_TOL:
-            raise AssertionError(f"DCN kernel H={H} C={C}: max abs err {err} > {DCN_TOL}")
-        n_bytes = 4 * H * H * (C + 18 + 9 + 9 * C)
-        b_ms, b_by = bound_ms(n_bytes, H * H * 9 * C * 9)
-        row = dict(H=H, W=H, C=C, per_frame=per_frame, max_abs_err=err,
+            raise AssertionError(f"DCN kernel B={B} H={H} C={C}: max abs err {err} > {DCN_TOL}")
+        M = B * H * W
+        b_ms, b_by = bound_ms(4 * M * (C + 18 + 9 + 9 * C), M * 9 * C * 9)
+        row = dict(B=B, H=H, W=W, C=C, per_step=per_step, max_abs_err=err,
                    ms=cold_ms(lambda: deform_conv.deform_sample_cuda(feat, offsets, masks)),
                    plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample(feat, offsets, masks)),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
         dcn_rows.append(row)
         print("deform_sample " + json.dumps(row))
-    report["attention_shapes"] = attn_rows
+
+        grad = torch.randn(B, H, W, 9 * C, generator=gen, device=dev)
+        dfeat, dom = deform_conv.deform_sample_bwd_cuda(feat, offsets, masks, grad)
+        torch.cuda.synchronize()
+        rf, roff, rmask = deform_conv.plain_deform_sample_backward(feat, offsets, masks, grad)
+        errs = {name: rel_err(a, r) for name, a, r in (
+            ("dfeat", dfeat, rf), ("doffsets", dom[..., :18], roff),
+            ("dmask_logits", dom[..., 18:], rmask * masks * (1 - masks)))}
+        if not all(math.isfinite(e) and e <= BWD_REL_TOL for e in errs.values()):
+            raise AssertionError(f"deform_sample_bwd B={B} H={H} C={C}: rel errors {errs} > {BWD_REL_TOL}")
+        # read feat, offsets, masks, grad once, write dfeat and dom once; ~34
+        # FLOPs per (pixel, tap, channel) with the 4 atomic adds
+        b_ms, b_by = bound_ms(4 * M * (C + 18 + 9 + 9 * C + C + 27), M * 9 * C * 34)
+        row = dict(B=B, H=H, W=W, C=C, per_step=per_step, rel_err=errs,
+                   max_abs_err=max((dfeat - rf).abs().max().item(), (dom[..., :18] - roff).abs().max().item()),
+                   ms=cold_ms(lambda: deform_conv.deform_sample_bwd_cuda(feat, offsets, masks, grad)),
+                   plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample_backward(feat, offsets, masks, grad)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        dcn_bwd_rows.append(row)
+        print("deform_sample_bwd " + json.dumps(row))
+        del feat, offsets, masks, grad, out, ref, dfeat, dom, rf, roff, rmask
     report["deform_sample_shapes"] = dcn_rows
+    report["deform_sample_bwd_shapes"] = dcn_bwd_rows
 
     def dcn_inputs(H, W, C, O, dtype, B=1):
         x = torch.randn(B, H, W, C, generator=gen, device=dev)
@@ -393,10 +458,9 @@ def main() -> int:
     inputs = [torch.randn(1, H, W, 3, generator=g), torch.randn(1, H, W, 3, generator=g),
               torch.rand(1, H, W, 1, generator=g), torch.rand(1, H, W, 1, generator=g),
               cls.permute(1, 2, 0)[None].contiguous(), cls.roll(3, dims=2).permute(1, 2, 0)[None].contiguous()]
-    per_frame_launches = {"biased_attention": 3 * n_layers, "deform_conv": 16, "deform_sample": 0,
-                          "biased_attention_bf16": 0, "deform_conv_bf16": 0}
-    per_frame_launches16 = {"biased_attention": 0, "deform_conv": 0, "deform_sample": 0,
-                            "biased_attention_bf16": 3 * n_layers, "deform_conv_bf16": 16}
+    no_launches = {name: 0 for name in build.KERNEL_SOURCES}
+    per_frame_launches = dict(no_launches, biased_attention=3 * n_layers, deform_conv=16)
+    per_frame_launches16 = dict(no_launches, biased_attention_bf16=3 * n_layers, deform_conv_bf16=16)
     with torch.no_grad():
         t0 = time.perf_counter()
         out_cpu = model_cpu(*inputs)
@@ -570,14 +634,17 @@ def main() -> int:
             or pm["num_pnp_found"] != T_FRAMES or pm["add_mean"] > 0.03 or pm["add_max"] > 0.06):
         raise AssertionError(f"eval harness on noisy ground truth: {kp} {pm}")
 
-    # ---- 11. kernels line --------------------------------------------------
-    def per_frame(rows, key):
-        """Sum over the shapes one frame runs (for the sampler: the shapes
-        of the 16 DCN nodes it served before the fused kernel)."""
-        vals = [r[key] for r in rows if r["per_frame"]]
+    # ---- 11. training ------------------------------------------------------
+    train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd_rows)
+    report["training"] = train
+
+    # ---- 12. kernels line --------------------------------------------------
+    def per_frame(rows, key, unit="per_frame"):
+        """Sum over the shapes one frame (or one training step) runs."""
+        vals = [r[key] for r in rows if r[unit]]
         if any(v is None for v in vals):
             return None
-        return sum(r[key] * r["per_frame"] for r in rows if r["per_frame"])
+        return sum(r[key] * r[unit] for r in rows if r[unit])
 
     rates = {"biased_attention": "67 TFLOP/s float32 FMA", "deform_sample": "67 TFLOP/s float32 FMA",
              "deform_conv": "165 TFLOP/s 3xTF32 (495 / 3)",
@@ -593,8 +660,6 @@ def main() -> int:
          "sgtapose_tpu/models/deform_conv.py:329", main_counts, runs["teacher_forced"]),
         ("deform_conv_bf16", conv16_rows, "sgtapose_tpu_torch/csrc/deform_conv.cu",
          "sgtapose_tpu/models/deform_conv.py:329", counts16, runs["bf16_exact"]),
-        ("deform_sample", dcn_rows, "sgtapose_tpu_torch/csrc/deform_sample.cu",
-         "sgtapose_tpu/models/deform_conv.py:104", main_counts, runs["teacher_forced"]),
     ):
         bounds = [r["bound_by"] for r in rows if r["per_frame"]]
         bound_by = max(set(bounds), key=bounds.count)
@@ -614,8 +679,36 @@ def main() -> int:
             entry["clean_ms"] = per_frame(rows, "clean_ms")
         if name == "deform_conv":
             entry["pair_ms"] = per_frame(rows, "pair_ms")
-        if name.startswith("deform_conv") or name == "deform_sample":
+        if name.startswith("deform_conv"):
             entry["library_ms_note"] = "no single PyTorch call computes this function"
+        kernels.append(entry)
+    # the training kernels, read from the train_demo run (per step)
+    rates.update(biased_attention_bwd="67 TFLOP/s float32 FMA", deform_sample_bwd="67 TFLOP/s float32 FMA")
+    for name, rows, source, replaces in (
+        ("deform_sample", dcn_rows, "sgtapose_tpu_torch/csrc/deform_sample.cu",
+         "sgtapose_tpu/models/deform_conv.py:104"),
+        ("biased_attention_bwd", train["attention_bwd_shapes"], "sgtapose_tpu_torch/csrc/biased_attention_bwd.cu",
+         "sgtapose_tpu/ops/attention_kernel.py:145"),
+        ("deform_sample_bwd", dcn_bwd_rows, "sgtapose_tpu_torch/csrc/deform_sample_bwd.cu",
+         "sgtapose_tpu/models/deform_conv.py:130"),
+    ):
+        bounds = [r["bound_by"] for r in rows if r["per_step"]]
+        bound_by = max(set(bounds), key=bounds.count)
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train["launches"][name],
+            "launches_per_step": train["launches"][name] // TRAIN_STEPS,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per_frame(rows, "ms", "per_step"), "plain_ms": per_frame(rows, "plain_ms", "per_step"),
+            "bound_ms": per_frame(rows, "bound_ms", "per_step"), "bound_by": bound_by,
+            "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else rates[name],
+            "library_ms": per_frame(rows, "library_ms", "per_step"),
+            "profiled_ms_per_step": train["profiled"]["kernel_ms_per_step"][name],
+        }
+        if name.startswith("deform_sample"):
+            entry["library_ms_note"] = "no single PyTorch call computes this function"
+        else:
+            entry["library_ms_note"] = "backward of F.scaled_dot_product_attention with a float mask"
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -628,6 +721,213 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd_rows):
+    """Phase 11 (module docstring): the attention backward kernel against
+    its plain version, the full-width gradient card vs CPU, the fixed-batch
+    steps, the train_demo run with its eval, and a profiled step."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from sgtapose_tpu_torch.cli import train_demo
+    from sgtapose_tpu_torch.data import pipeline, synthetic
+    from sgtapose_tpu_torch.models.attention import set_dropout_rate
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.ops import attention_kernel, build
+    from sgtapose_tpu_torch.train import trainer
+    from sgtapose_tpu_torch.train.loss import sgta_loss
+    from sgtapose_tpu_torch.train.phases import model_inputs
+
+    out = {}
+    h = cfg.model.n_heads
+    n_layers = cfg.model.num_decoder_layers
+    # (n, d, backward launches per step): levels 0 and 1 feed no head (the
+    # decoder starts at level 2), so autograd runs only level 2's backward,
+    # once per tied layer
+    shapes = []
+    for i in range(3):
+        kernel = cfg.model.kernel_list[i]
+        n = cfg.model.num_classes * cfg.model.k_list[i] * (1 + 2 * (kernel // 2)) ** 2
+        shapes.append((n, 4 * 2 ** i, n_layers if i == 2 else 0, TRAIN_BATCH))
+    shapes.append((100, 8, 0, 2))  # ragged n, not on the main path
+    rows = []
+    for n, d, per_step, B in shapes:
+        q, k, v, dout = (torch.randn(B, h, n, d, generator=gen, device=dev) for _ in range(4))
+        bias = 0.3 * torch.randn(h, n, n, generator=gen, device=dev)
+        o = attention_kernel.biased_attention_cuda(q, k, v, bias)
+        got = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)
+        torch.cuda.synchronize()
+        ref = attention_kernel.plain_biased_attention_backward(q, k, v, bias, o, dout)
+        errs = {name: rel_err(a, r) for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref)}
+        if not all(math.isfinite(e) and e <= BWD_REL_TOL for e in errs.values()):
+            raise AssertionError(f"attention backward n={n} d={d} B={B}: rel errors {errs} > {BWD_REL_TOL}")
+        again = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"attention backward n={n} d={d}: two runs differ (it has no atomics)")
+        # SDPA with a float mask that requires grad: its backward alone
+        qs, ks, vs, bs = (t.detach().clone().requires_grad_() for t in (q, k, v, bias))
+        y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bs)
+        # read the bias and q, k, v, O, dO once, write dbias and dq, dk, dv
+        # once; ~10d + 5 FLOPs per (b, head, i, j) (S and dP recomputed, dS,
+        # three d-long products)
+        b_ms, b_by = bound_ms(4 * (2 * h * n * n + 8 * B * h * n * d), B * h * n * n * (10 * d + 5))
+        row = dict(n=n, d=d, B=B, per_step=per_step, rel_err=errs,
+                   max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
+                   ms=cold_ms(lambda: attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)),
+                   plain_ms=cold_ms(lambda: attention_kernel.plain_biased_attention_backward(q, k, v, bias, o, dout)),
+                   library_ms=cold_ms(lambda: y.backward(dout, retain_graph=True)),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print("attention_bwd " + json.dumps(row))
+        del q, k, v, dout, bias, o, got, again, ref, qs, ks, vs, bs, y
+    out["attention_bwd_shapes"] = rows
+
+    # one full-width train-step gradient (480x480, batch 1, dropout off):
+    # card float32 and CPU float32 against a CPU float64 reference; seeded
+    # weights with the zero-initialised ones perturbed, except the DCN
+    # offset/mask convs, kept at flax's zero init (offsets of a few pixels
+    # make float32 train-mode gradients far noisier on either device)
+    model_cpu = create_model(cfg.model, device="cpu", seed=0)
+    perturb_zero_init(model_cpu, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for name, p in model_cpu.named_parameters():
+            if "conv_offset_mask" in name:
+                p.zero_()
+    set_dropout_rate(model_cpu, 0.0)
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    model_64 = copy.deepcopy(model_cpu).double()
+    raw = synthetic.make_raw_batch(torch.Generator().manual_seed(6), 1, device="cpu")
+    batch_cpu = pipeline.make_batch_fn(cfg, synthetic.camera_K())(torch.Generator().manual_seed(7), raw)
+    batch_64 = {k: v.double() if v.is_floating_point() else v for k, v in batch_cpu.items()}
+    grads = {}
+    for where, model, batch in (("card", model_gpu, {k: v.to(dev) for k, v in batch_cpu.items()}),
+                                ("cpu", model_cpu, batch_cpu), ("cpu_float64", model_64, batch_64)):
+        t0 = time.perf_counter()
+        counts0 = build.launch_counts()
+        with plain_autograd() if where == "cpu_float64" else contextlib.nullcontext():
+            model.train()
+            loss, _ = sgta_loss(model(*model_inputs("PlanA_win", batch)), batch)
+            loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+            launched = {kn: c - counts0[kn] for kn, c in build.launch_counts().items()}
+        out[f"grad_{where}_seconds"] = time.perf_counter() - t0
+        grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
+    expect = dict(no_launches, biased_attention=3 * n_layers, biased_attention_bwd=n_layers,
+                  deform_conv=16, deform_sample=16, deform_sample_bwd=16)
+    if launched != expect:
+        raise AssertionError(f"gradient step launches {launched}, expected {expect}")
+    ref = grads["cpu_float64"]
+    if not set(grads["card"]) == set(grads["cpu"]) == set(ref):
+        raise AssertionError("card, CPU and reference reach different parameters")
+    live = [name for name, g in ref.items() if g.abs().max().item() > 1e-6]
+    cmp = {}
+    for where in ("card", "cpu"):
+        errs = {name: ((grads[where][name] - ref[name]).abs().max() / ref[name].abs().max()).item()
+                for name in live}
+        l2 = math.sqrt(sum(((grads[where][n] - ref[n]) ** 2).sum().item() for n in live)
+                       / sum((ref[n] ** 2).sum().item() for n in live))
+        cmp[where] = {"worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3], "l2": l2}
+    out["grad_vs_float64"] = dict(cmp, tensors=len(live), bars=[GRAD_WORST_TOL, GRAD_L2_TOL],
+                                  input="480x480, batch 1")
+    print("train-step gradient 480x480 batch 1 vs float64: " + json.dumps(out["grad_vs_float64"])
+          + f" (card {out['grad_card_seconds']:.2f} s, cpu {out['grad_cpu_seconds']:.1f} s, "
+          f"float64 {out['grad_cpu_float64_seconds']:.1f} s)")
+    worst = cmp["card"]["worst"][0][1]
+    if not math.isfinite(worst) or worst > GRAD_WORST_TOL or not cmp["card"]["l2"] <= GRAD_L2_TOL:
+        raise AssertionError(f"train-step gradients, card vs float64: {cmp['card']} (bars {GRAD_WORST_TOL} "
+                             f"per tensor, {GRAD_L2_TOL} in L2)")
+    del model_cpu, model_gpu, model_64, grads, batch_cpu, batch_64
+
+    # the train_demo path, float32, 480x480, batch 8: FIXED_STEPS steps on one
+    # fixed batch (the loss must fall), through the entry points a user calls
+    argv = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--eval_videos", "1",
+            "--eval_frames", "8", "--log_every", "5"]
+    args = train_demo.parse_args(argv)
+    tcfg = train_demo.make_config(args)
+    state = trainer.create_train_state(tcfg, args.seed, max_iters=FIXED_STEPS, device=dev)
+    raw = synthetic.make_raw_batch(train_demo.step_generator(args.seed, 0, 0), TRAIN_BATCH, device=dev)
+    fixed = pipeline.make_batch_fn(tcfg, synthetic.camera_K())(train_demo.step_generator(args.seed, 0, 1), raw)
+    losses = [trainer.train_step(state, fixed)["tot"].item() for _ in range(FIXED_STEPS)]
+    out["fixed_batch_losses"] = losses
+    print(f"fixed batch, {FIXED_STEPS} steps: losses {losses}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fixed-batch training: losses {losses} are not finite or do not fall")
+
+    # a profiled step on the fixed batch: device time per kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_step(state, fixed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / 2
+    out["profiled"] = {
+        "kernel_ms_per_step": {name: sum(e.time_range.elapsed_us() for e in device if fn in e.name) / 1e3 / 2
+                               for name, fn in DEVICE_NAMES.items()},
+        "device_kernel_ms_per_step": device_ms, "profiled_wall_ms_per_step": wall_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "launches_per_step": len(_launch_events(events)) / 2}
+    print("profiled train step: " + json.dumps(out["profiled"]))
+    del state, fixed, raw
+
+    # train_demo.main: TRAIN_STEPS steps on fresh batches, then its eval
+    timer = StageTimer()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_demo.main(argv, stage_timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    stage_ms = timer.per_frame_ms(TRAIN_STEPS)
+    expect = {"biased_attention": 3 * n_layers, "biased_attention_bwd": n_layers, "deform_conv": 16,
+              "deform_sample": 16, "deform_sample_bwd": 16}
+    per_step = {kn: counts[kn] / TRAIN_STEPS for kn in expect}
+    if per_step != expect:
+        raise AssertionError(f"train_demo launches per step {per_step}, expected {expect}")
+    if counts["biased_attention_bf16"] != 3 * n_layers * 8 or counts["deform_conv_bf16"] != 16 * 8:
+        raise AssertionError(f"train_demo eval launches {counts}: expected the bf16 kernels once per frame")
+    losses = [e["tot"] for e in res["logged"]]
+    ev = res["results"]
+    if not all(math.isfinite(x) for x in losses) or ev["adds"].shape != (8,) or not all(
+            math.isfinite(a) for a in ev["adds"].tolist()):
+        raise AssertionError(f"train_demo: losses {losses}, eval ADD {ev['adds']}")
+    train_ms = sum(stage_ms[st] for st in TRAIN_STAGES)
+    out["train_demo"] = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "wall_s_with_setup_and_eval": wall,
+                         "stage_ms_per_step": stage_ms, "step_ms": train_ms,
+                         "steps_per_s": 1e3 / train_ms, "launches": counts,
+                         "launches_per_step": per_step, "logged": res["logged"],
+                         "eval": {"fps": res["fps"], "keypoint_metrics": ev["keypoint_metrics"],
+                                  "pnp_metrics": ev["pnp_metrics"]},
+                         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["launches"] = counts
+    print("train_demo 480x480 batch 8: " + json.dumps(out["train_demo"]))
+    return out
+
+
+@contextlib.contextmanager
+def plain_autograd():
+    """Route the DCN and the attention through torch autograd of their plain
+    versions (their autograd Functions and kernels run float32 only), for a
+    float64 reference on the CPU."""
+    from sgtapose_tpu_torch.models import attention, deform_conv
+    from sgtapose_tpu_torch.ops import attention_kernel
+
+    saved = deform_conv.deform_conv, attention.fused_biased_attention
+    deform_conv.deform_conv = deform_conv.plain_deform_conv
+    attention.fused_biased_attention = attention_kernel.plain_biased_attention
+    try:
+        yield
+    finally:
+        deform_conv.deform_conv, attention.fused_biased_attention = saved
 
 
 def perturb_zero_init(model, gen) -> None:

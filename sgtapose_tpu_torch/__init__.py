@@ -9,13 +9,16 @@ JAX package:
   core/       geometry, masked EPnP + LM PnP solver (batched over videos or
               frames), the eval harness's weighted refinement
   models/     DLA-34 trunk, DCNv2 decoder, windowed cross-attention, SGTAPose
-  ops/        hand-written CUDA kernels (csrc/*.cu, float32 and bf16): the
-              nvcc build, the ctypes bindings and the launch counters
+  ops/        hand-written CUDA kernels (csrc/*.cu: forward in float32 and
+              bf16, backward in float32): the nvcc build, the ctypes
+              bindings and the launch counters
   decode/     peak finding + sub-pixel decode (batched over videos)
   infer/      streaming video detectors: exact, feature-cache, batched
   eval/       metrics, set-level analysis, the synthetic-video harness
-  data/       synthetic sequences
-  utils/      flax-variable loader, bf16 serving (precision.py)
+  data/       synthetic sequences, the training-batch pipeline
+  train/      loss, schedules, phases, the float32 trainer
+  cli/        train_demo
+  utils/      flax-variable and train-state loader, bf16 serving (precision.py)
 
 A bf16 model (`utils.precision.bf16_inference_model`) serves as the JAX
 package's `bf16_inference_variables` + `make_bf16_apply` do: bf16 weights and

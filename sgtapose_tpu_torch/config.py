@@ -1,5 +1,5 @@
 """Configuration dataclasses for the port (own copy of the reference's
-`sgtapose_tpu/config.py` subset this slice runs, with identical defaults)."""
+`sgtapose_tpu/config.py` subset the port runs, with identical defaults)."""
 
 from __future__ import annotations
 
@@ -100,9 +100,28 @@ class InferConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Training config: the fields the port's trainer and batch pipeline
+    read, with the JAX package's defaults."""
+
+    lr: float = 1.25e-4
+    warmup_iters: int = 3000  # linear warmup
+    poly_power: float = 1.0  # poly decay to max_iters
+    seed: int = 317
+    # prior heatmap fault-injection curriculum
+    hm_disturb: float = 0.75
+    lost_disturb: float = 0.2
+    # false-positive blobs in the origin prior: inert unless fp_disturb_active
+    # (the reference's live renderer has the block commented out)
+    fp_disturb: float = 0.1
+    fp_disturb_active: bool = False
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     infer: InferConfig = field(default_factory=InferConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     robot: str = "panda_synthetic"
 
     @property

@@ -228,6 +228,38 @@ def render_prior_heatmap_cls(
     )
 
 
+def render_noised_prior_heatmap(
+    noise, keep_u, fp_u, fp_noise, kp_projs_raw, trans_input, input_w, input_h, raw_width,
+    raw_height, hm_disturb: float, lost_disturb: float, fp_disturb: float = 0.0,
+) -> torch.Tensor:
+    """Training prior with jitter, random drops and optional false positives,
+    a deterministic function of its draws (`data/pipeline.draw_augment`):
+    the (K, 2) raw keypoints are transformed and clipped, jittered by
+    noise ~ N(0,1) times hm_disturb * 2, and kept where keep_u ~ U[0,1)
+    exceeds lost_disturb. fp_disturb > 0 adds a blob near each kept keypoint
+    where fp_u < fp_disturb, jittered by fp_noise times 0.05 * 2 (the
+    reference's commented-out block; callers pass 0 unless
+    TrainConfig.fp_disturb_active). Returns (H_in, W_in)."""
+    pts = affine_transform_and_clip(kp_projs_raw, trans_input, input_w, input_h, raw_width, raw_height)
+    keep = keep_u > lost_disturb
+    hm = render_gaussian_heatmap(pts + noise * hm_disturb * 2.0, keep.to(torch.float32), input_h,
+                                 input_w, radius=4, sigma=2.0)
+    if fp_disturb > 0.0:
+        fp = (fp_u < fp_disturb) & keep
+        fp_hm = render_gaussian_heatmap(pts + fp_noise * 0.05 * 2.0, fp.to(torch.float32), input_h,
+                                        input_w, radius=4, sigma=2.0)
+        hm = torch.maximum(hm, fp_hm)
+    return hm
+
+
+def render_gt_heatmap(kp_int, output_w, output_h) -> torch.Tensor:
+    """Per-class training targets (..., K, H_out, W_out) at output
+    resolution from (..., K, 2) integer keypoints."""
+    conf = torch.ones(kp_int.shape[:-1], dtype=torch.float32, device=kp_int.device)
+    return render_gaussian_heatmap(kp_int.to(torch.float32), conf, output_h, output_w, radius=4,
+                                   sigma=2.0, per_class=True)
+
+
 # -----------------------------------------------------------------------------
 # Quaternions (w, x, y, z) and projection
 # -----------------------------------------------------------------------------

@@ -398,6 +398,7 @@ def solve_pnp(
     valid: Optional[torch.Tensor] = None,
     refine_iters: int = 30,
     init: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    prior_grade: bool = False,
 ) -> PnPResult:
     """Masked EPnP init + LM refine, with the JAX solver's DLT/canonical
     fallback when the EPnP-started solve ends above 3 px mean reprojection.
@@ -406,6 +407,10 @@ def solve_pnp(
     True LM starts from it instead of the EPnP pose. success is False with
     fewer than 4 valid rows or a degenerate (non-finite / >1e3 px) solution.
     Both sides of each JAX `lax.cond` are computed and selected.
+
+    prior_grade=True is the JAX solver's training-prior path: a 1-case EPnP
+    start and one unconditional canonical-pose start, the better of the two
+    LM solves, no DLT fallback.
     """
     dev = x3d.device
     n = x3d.shape[0]
@@ -417,7 +422,7 @@ def solve_pnp(
     x3d = torch.where(valid[:, None], x3d, torch.zeros((), device=dev))
     x2d = torch.where(valid[:, None], x2d, torch.zeros((), device=dev))
 
-    R0, t0 = epnp_init(x3d, x2d, K, w)
+    R0, t0 = epnp_init(x3d, x2d, K, w, n_cases=1 if prior_grade else 3)
     q0 = geometry.matrix_to_quat(R0)
     if init is not None:
         quat0, trans0, use_init = init
@@ -428,6 +433,8 @@ def solve_pnp(
     centroid = (x3d * w[:, None]).sum(0) / n_valid.clamp(min=1.0)
     q_c = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
     t_c = torch.tensor([0.0, 0.0, 2.0], device=dev) - centroid
+    if prior_grade:
+        return _prior_grade_solve(x3d, x2d, K, w, n_valid, q0, t0, q_c, t_c, refine_iters)
     R_d, t_d = dlt_init(x3d, x2d, K, w)
 
     # the three starts: EPnP (a), DLT (b), canonical (e) — one batched LM
@@ -465,13 +472,34 @@ def solve_pnp(
     return PnPResult(success=ok, quat=q, trans=t)
 
 
+def _prior_grade_solve(x3d, x2d, K, w, n_valid, q0, t0, q_c, t_c, refine_iters) -> PnPResult:
+    """The prior_grade tail of `solve_pnp`: LM from the EPnP (a) and the
+    canonical (e) start as one batched solve, the better wins (a on ties)."""
+    qs, ts = refine_pose_lm(x3d, x2d, K, w, torch.stack([q0, q_c]), torch.stack([t0, t_c]),
+                            max_iters=refine_iters)
+    errs = _masked_mean_err(x3d, x2d, K, w, geometry.quat_to_matrix(qs), ts, n_valid.clamp(min=1.0))
+    errs = torch.where(torch.isfinite(errs), errs, float("inf"))
+    use_a = errs[0] <= errs[1]
+    q = torch.where(use_a, qs[0], qs[1])
+    t = torch.where(use_a, ts[0], ts[1])
+    ok = (
+        (n_valid >= 4)
+        & torch.isfinite(q).all()
+        & torch.isfinite(t).all()
+        & (torch.minimum(errs[0], errs[1]) < 1e3)
+    )
+    q = torch.where(ok, q, q_c)
+    t = torch.where(ok, t, torch.zeros(3, device=x3d.device))
+    return PnPResult(success=ok, quat=q, trans=t)
+
+
 def pnp_reprojection_prior(
-    prev_x3d, prev_x2d, next_x3d, K, valid=None, init=None,
+    prev_x3d, prev_x2d, next_x3d, K, valid=None, init=None, prior_grade: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, PnPResult]:
     """PnP from the previous frame's (3D, 2D) pairs, then reproject the next
     frame's 3D keypoints: the temporal structure prior. Returns (success,
     next_2d_est (N,2), PnPResult)."""
-    res = solve_pnp(prev_x3d, prev_x2d, K, valid, init=init)
+    res = solve_pnp(prev_x3d, prev_x2d, K, valid, init=init, prior_grade=prior_grade)
     R = geometry.quat_to_matrix(res.quat)
     next_est = geometry.project_points(next_x3d, R, res.trans, K)
     return res.success, next_est, res
@@ -491,6 +519,31 @@ def pnp_reprojection_prior_batch(
     return torch.func.vmap(
         lambda a, b, c, v, q0, t0, u: pnp_reprojection_prior(a, b, c, K, v, init=(q0, t0, u)))(
         prev_x3d, prev_x2d, next_x3d, valid, *init)
+
+
+def noised_pnp_prior(
+    noise: torch.Tensor,
+    keep_u: torch.Tensor,
+    prev_x3d: torch.Tensor,
+    prev_x2d_gt: torch.Tensor,
+    next_x3d: torch.Tensor,
+    K: torch.Tensor,
+    hm_disturb: float,
+    lost_disturb: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, PnPResult]:
+    """Training-time prior with fault injection, a deterministic function of
+    its draws (`data/pipeline.draw_augment` makes them): each previous GT
+    projection is jittered by noise (N,2) ~ N(0,1) times hm_disturb * 2, and
+    kept where keep_u (N,) ~ U[0,1) exceeds lost_disturb (a dropped row gets
+    weight 0); a prior_grade PnP on the survivors reprojects the next frame's
+    3D points. Returns (success, next_2d_est (N,2), the noised projections
+    with dropped rows at the -999.999 sentinel (N,2), PnPResult)."""
+    noised = prev_x2d_gt + noise * hm_disturb * 2.0
+    keep = keep_u > lost_disturb
+    success, next_est, res = pnp_reprojection_prior(prev_x3d, noised, next_x3d, K, keep,
+                                                    prior_grade=True)
+    noised_out = torch.where(keep[:, None], noised, torch.full_like(noised, -999.999))
+    return success, next_est, noised_out, res
 
 
 # -----------------------------------------------------------------------------

@@ -1,0 +1,325 @@
+// Biased attention backward (float32): the gradients of
+//   O = softmax(S) v,   S = q k^T / sqrt(d) + bias
+// with respect to q, k, v (B, heads, n, d) and the (heads, n, n) bias shared
+// across the batch, given dO (B, heads, n, d) and the forward's output O.
+//
+// Replaces the custom VJP of the Pallas TPU kernel,
+// sgtapose_tpu/ops/attention_kernel.py:141-153 (_bwd_rule, a recompute
+// through the XLA formulation _xla_attention at :119-128). Like that rule it
+// saves no probabilities: P is recomputed from q, k and the bias.
+//   D_i   = sum_c dO_ic O_ic
+//   P_ij  = exp(S_ij - lse_i),                    lse_i = log sum_j exp S_ij
+//   dS_ij = P_ij (dO_i . v_j - D_i)
+//   dq    = dS k / sqrt(d),   dk = dS^T q / sqrt(d),   dv = P^T dO
+//   dbias = sum_b dS   (summed over the batch in a fixed order, no atomics,
+//                       so a training step is reproducible)
+//
+// Two kernels, launched back to back by one entry point:
+//   * the row pass: one block per (head, tile of 8 query rows), one warp per
+//     row, lanes strided over the keys. The tile's bias rows are read once
+//     into shared memory and serve every batch element; for each b (in
+//     order) the block stages K and V of (b, head), and each warp takes the
+//     row max, the row sum and then dS in three passes over the keys,
+//     recomputing the logits (d <= 32 FMAs from shared memory). It writes
+//     dq, lse and D for the column pass and adds dS into a shared-memory
+//     dbias row that the warp alone owns; the tile's dbias rows are written
+//     once at the end.
+//   * the column pass: one block per (b, head, tile of 32 keys), one key per
+//     lane, the 8 warps strided over the query rows. The bias columns of the
+//     tile are strided in memory, so rounds of 32 query rows stage q, dO,
+//     lse, D and the bias sub-tile (32 rows of 32 contiguous floats, one
+//     coalesced line a row) in shared memory; each lane accumulates dk_j and
+//     dv_j in registers and the 8 warps' sums are added in shared memory.
+//
+// What bounds it on an H100: at level 0 of the flagship ((n, d) = (1183, 4),
+// 8 heads, batch 8) operations: ~10d + 5 FLOPs per (b, head, i, j) are 4.0
+// GFLOP, ~60 us at 67 TFLOP/s, against ~99 MB of bytes (the bias read once,
+// dbias written once, q, k, v, O, dO and the gradients), ~30 us at
+// 3.35 TB/s. At level 2, the only level whose backward training runs
+// ((63, 16)), bytes: 2.3 MB, ~0.7 us. This first design is simple and right
+// rather than fast: the row pass re-reads K and V of each (b, head) for every
+// tile (from L2) and walks the batch in series; the column pass re-reads the
+// bias for every b (from L2 when the b blocks of one tile run together).
+// q, k, v, O and dO rows are read as float4 (they start on 16-byte lines,
+// as the forward requires).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int RS = kWarps;  // query rows per row-pass block: one per warp
+constexpr int CT = 32;      // keys per column-pass block: one per lane
+constexpr int CR = 32;      // query rows per column-pass staging round
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x for x <= 0: one MUFU.EX2 (results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the D floats of a row that starts on a 16-byte line
+template <int D>
+__device__ __forceinline__ void load_row(const float* __restrict__ p, float (&r)[D]) {
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p) + c);
+    r[4 * c] = u.x; r[4 * c + 1] = u.y; r[4 * c + 2] = u.z; r[4 * c + 3] = u.w;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float dot(const float (&a)[D], const float* b) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; ++c) s = fmaf(a[c], b[c], s);
+  return s;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    biased_attention_bwd_row_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ bias,
+                                    const float* __restrict__ out, const float* __restrict__ dout,
+                                    float* __restrict__ dq, float* __restrict__ dbias,
+                                    float* __restrict__ lse, float* __restrict__ delta, int B,
+                                    int heads, int n, int tiles, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* sb = smem;            // [RS][n] this tile's bias rows
+  float* acc = sb + RS * n;    // [RS][n] this tile's dbias rows
+  float* ks = acc + RS * n;    // [n][D] K of the current (b, head)
+  float* vs = ks + n * D;      // [n][D] V of the current (b, head)
+  const int h = blockIdx.x / tiles, r0 = (blockIdx.x % tiles) * RS;
+  const int rows = min(RS, n - r0);
+  const float* bias_tile = bias + ((size_t)h * n + r0) * n;
+  for (int e = threadIdx.x; e < rows * n; e += kThreads) {
+    sb[e] = __ldg(bias_tile + e);
+    acc[e] = 0.f;
+  }
+  const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
+  const int i = r0 + warp;
+  const float* srow = sb + warp * n;
+  float* arow = acc + warp * n;
+
+  for (int b = 0; b < B; ++b) {
+    const size_t bh = (size_t)b * heads + h;
+    __syncthreads();  // the bias is in; the previous b's K and V are no longer read
+    const float4* kg = reinterpret_cast<const float4*>(k + bh * n * D);
+    const float4* vg = reinterpret_cast<const float4*>(v + bh * n * D);
+    for (int e = threadIdx.x; e < n * D / 4; e += kThreads) {
+      reinterpret_cast<float4*>(ks)[e] = __ldg(kg + e);
+      reinterpret_cast<float4*>(vs)[e] = __ldg(vg + e);
+    }
+    __syncthreads();
+    if (i >= n) continue;  // warp-uniform; no barrier below in this iteration
+
+    const size_t row = bh * n + i;
+    float qr[D], gr[D], orow[D];
+    load_row<D>(q + row * D, qr);
+    load_row<D>(dout + row * D, gr);
+    load_row<D>(out + row * D, orow);
+    const float dlt = dot<D>(gr, orow);
+
+    // pass 1: the row max of the logits
+    float m = -INFINITY;
+    for (int j = lt; j < n; j += 32) m = fmaxf(m, fmaf(dot<D>(qr, ks + j * D), scale, srow[j]));
+    m = warp_max(m);
+    const float neg_m2 = -m * kLog2e;
+    // pass 2: the row sum
+    float l = 0.f;
+    for (int j = lt; j < n; j += 32)
+      l += exp2_ftz(fmaf(fmaf(dot<D>(qr, ks + j * D), scale, srow[j]), kLog2e, neg_m2));
+    l = warp_sum(l);
+    const float inv_l = 1.f / l;
+    // pass 3: dS; dq and this row's dbias
+    float dqa[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) dqa[c] = 0.f;
+    for (int j = lt; j < n; j += 32) {
+      const float* kj = ks + j * D;
+      const float s = fmaf(dot<D>(qr, kj), scale, srow[j]);
+      const float p = exp2_ftz(fmaf(s, kLog2e, neg_m2)) * inv_l;
+      const float ds = p * (dot<D>(gr, vs + j * D) - dlt);
+      arow[j] += ds;
+#pragma unroll
+      for (int c = 0; c < D; ++c) dqa[c] = fmaf(ds, kj[c], dqa[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) dqa[c] = warp_sum(dqa[c]);
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      if (c == lt) dq[row * D + c] = dqa[c] * scale;
+    if (lt == 0) {
+      lse[row] = m + logf(l);
+      delta[row] = dlt;
+    }
+  }
+  __syncthreads();
+  float* dtile = dbias + ((size_t)h * n + r0) * n;
+  for (int e = threadIdx.x; e < rows * n; e += kThreads) dtile[e] = acc[e];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    biased_attention_bwd_col_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ bias,
+                                    const float* __restrict__ dout, const float* __restrict__ lse,
+                                    const float* __restrict__ delta, float* __restrict__ dk,
+                                    float* __restrict__ dv, int heads, int n, int ctiles,
+                                    float scale) {
+  // staging for one round of CR query rows; after the rows, the same bytes
+  // hold the warps' partial sums
+  constexpr int kStage = CR * (CT + 1) + 2 * CR * D + 2 * CR;
+  constexpr int kReduce = kWarps * CT * D;
+  __shared__ __align__(16) float smem[kStage > kReduce ? kStage : kReduce];
+  float* sbias = smem;                  // [CR][CT + 1]
+  float* sq = sbias + CR * (CT + 1);    // [CR][D]
+  float* sg = sq + CR * D;              // [CR][D] dO
+  float* slse = sg + CR * D;            // [CR] lse * log2(e)
+  float* sdl = slse + CR;               // [CR] D
+
+  const size_t bh = blockIdx.x / ctiles;
+  const int h = (int)(bh % heads);
+  const int j0 = (blockIdx.x % ctiles) * CT;
+  const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
+  const int j = j0 + lt;
+  const bool jv = j < n;
+  float kr[D], vr[D], dka[D], dva[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) kr[c] = vr[c] = dka[c] = dva[c] = 0.f;
+  if (jv) {
+    load_row<D>(k + (bh * n + j) * D, kr);
+    load_row<D>(v + (bh * n + j) * D, vr);
+  }
+  const int cols = min(CT, n - j0);
+  for (int i0 = 0; i0 < n; i0 += CR) {
+    const int rows = min(CR, n - i0);
+    __syncthreads();  // the previous round's rows are no longer read
+    for (int e = threadIdx.x; e < rows * CT; e += kThreads) {
+      const int r = e / CT, c = e % CT;
+      sbias[r * (CT + 1) + c] = c < cols ? __ldg(bias + ((size_t)h * n + i0 + r) * n + j0 + c) : 0.f;
+    }
+    for (int e = threadIdx.x; e < rows * D; e += kThreads) {
+      sq[e] = __ldg(q + (bh * n + i0) * D + e);
+      sg[e] = __ldg(dout + (bh * n + i0) * D + e);
+    }
+    for (int e = threadIdx.x; e < rows; e += kThreads) {
+      slse[e] = __ldg(lse + bh * n + i0 + e) * kLog2e;
+      sdl[e] = __ldg(delta + bh * n + i0 + e);
+    }
+    __syncthreads();
+    if (jv) {
+      for (int r = warp; r < rows; r += kWarps) {
+        const float* qi = sq + r * D;  // the same address in every lane: a broadcast
+        const float* gi = sg + r * D;
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          s = fmaf(qi[c], kr[c], s);
+          dp = fmaf(gi[c], vr[c], dp);
+        }
+        s = fmaf(s, scale, sbias[r * (CT + 1) + lt]);
+        const float p = exp2_ftz(fmaf(s, kLog2e, -slse[r]));
+        const float ds = p * (dp - sdl[r]);
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          dka[c] = fmaf(ds, qi[c], dka[c]);
+          dva[c] = fmaf(p, gi[c], dva[c]);
+        }
+      }
+    }
+  }
+  // add the 8 warps' sums: [warp][c][lane], then one thread per (key, c)
+  for (int pass = 0; pass < 2; ++pass) {
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < D; ++c) smem[(warp * D + c) * CT + lt] = pass == 0 ? dka[c] : dva[c];
+    __syncthreads();
+    float* dst = pass == 0 ? dk : dv;
+    const float mul = pass == 0 ? scale : 1.f;
+    for (int e = threadIdx.x; e < cols * D; e += kThreads) {
+      const int jl = e / D, c = e % D;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += smem[(w * D + c) * CT + jl];
+      dst[(bh * n + j0) * D + e] = s * mul;
+    }
+  }
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* bias, const float* out,
+           const float* dout, float* dq, float* dk, float* dv, float* dbias, float* lse,
+           float* delta, int B, int heads, int n, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * (size_t)RS * n + 2 * (size_t)n * D);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(biased_attention_bwd_row_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int tiles = (n + RS - 1) / RS;
+  const int ctiles = (n + CT - 1) / CT;
+  const long long col_blocks = (long long)B * heads * ctiles;
+  if ((long long)heads * tiles >= (1ll << 31) || col_blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)D);
+  biased_attention_bwd_row_kernel<D><<<heads * tiles, kThreads, smem, stream>>>(
+      q, k, v, bias, out, dout, dq, dbias, lse, delta, B, heads, n, tiles, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  biased_attention_bwd_col_kernel<D><<<(unsigned)col_blocks, kThreads, 0, stream>>>(
+      q, k, v, bias, dout, lse, delta, dk, dv, heads, n, ctiles, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// float32 q, k, v, out, dout (B, heads, n, d), bias (heads, n, n) -> dq, dk, dv
+// (B, heads, n, d), dbias (heads, n, n); lse and delta (B, heads, n) are scratch
+// the row pass fills for the column pass
+extern "C" int biased_attention_bwd(const void* q, const void* k, const void* v, const void* bias,
+                                    const void* out, const void* dout, void* dq, void* dk, void* dv,
+                                    void* dbias, void* lse, void* delta, int B, int heads, int n,
+                                    int d, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(dout)) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(bias) & 3) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const float* a[6] = {static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<const float*>(bias),
+                       static_cast<const float*>(out), static_cast<const float*>(dout)};
+  float* o[6] = {static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                 static_cast<float*>(dbias), static_cast<float*>(lse), static_cast<float*>(delta)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define CASE(DD) \
+  case DD: return launch<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2], o[3], o[4], o[5], B, heads, n, s);
+    CASE(4)
+    CASE(8)
+    CASE(16)
+    CASE(32)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -2,7 +2,7 @@
 skeleton (the 7-keypoint panda chain, or it resampled to n keypoints),
 rendered as colour-coded blob images (640x360 raws, the synthetic camera).
 Counterpart of `sgtapose_tpu/data/synthetic.py` (`robot_skeleton`,
-`random_pose`, `render_frame`, `make_sequence`); randomness comes from an
+`random_pose`, `render_frame`, `make_sequence`, `make_raw_batch`); randomness comes from an
 explicit `torch.Generator`, so the numbers differ from `jax.random` draws,
 while `robot_skeleton`, `sequence_from_motion` and `render_frame` are the
 same functions of their inputs.
@@ -17,6 +17,7 @@ import torch
 from sgtapose_tpu_torch import resolve_device
 from sgtapose_tpu_torch.config import SYNTHETIC_CAMERA_K
 from sgtapose_tpu_torch.core import geometry
+from sgtapose_tpu_torch.data.pipeline import RawSample
 
 RAW_H, RAW_W = 360, 640
 
@@ -124,3 +125,14 @@ def make_sequence(generator: torch.Generator, num_frames: int = 2, return_pos_ca
     skel = None if n_kp is None else robot_skeleton(n_kp)
     out = sequence_from_motion(q0.to(dev), t0.to(dev), dq.to(dev), dt.to(dev), num_frames, skel)
     return out if return_pos_cam else out[:2]
+
+
+def make_raw_batch(generator: torch.Generator, batch_size: int, device="cuda") -> RawSample:
+    """A batch of (prev, next) synthetic frame pairs of the 7-keypoint chain,
+    sample after sample from `generator`, rendered on `device`."""
+    seqs = [make_sequence(generator, 2, device=device) for _ in range(batch_size)]
+    projs = torch.stack([p for p, _ in seqs])  # (B, 2, K, 2)
+    imgs = torch.stack([i for _, i in seqs])  # (B, 2, H, W, 3)
+    skel = skeleton(projs.device).expand(batch_size, -1, -1)
+    return RawSample(prev_img=imgs[:, 0], next_img=imgs[:, 1], prev_projs=projs[:, 0],
+                     next_projs=projs[:, 1], prev_x3d_rob=skel, next_x3d_rob=skel)

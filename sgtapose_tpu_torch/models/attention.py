@@ -20,8 +20,15 @@ Two places where the obvious torch call would not match JAX:
     that, so the port takes a stable descending sort;
   * duplicate ids in the scatter (clamped or colliding windows): XLA on the
     CPU keeps the LAST write, and CUDA's `index_put_` is nondeterministic;
-    here the last position per pixel is found with `scatter_reduce(amax)`
-    and every duplicate writes that winner's value, on every device.
+    here the last position per pixel is found with `scatter_reduce(amax)`,
+    only the winners are written to their pixels and the losers to a dump
+    row that is cut off, on every device. So the gradient reaches each
+    winner once and no loser, as the VJP of JAX's `.at[ids].set` sends it
+    (writing the winner's value from every duplicate gave the winner one
+    copy of the gradient per duplicate).
+
+Dropout (rate 0.1, train mode only) acts where flax applies it, drawn from
+the explicit generator the trainer sets (`set_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -85,16 +92,54 @@ def gather_window_features(feats: torch.Tensor, feat_ids: torch.Tensor) -> torch
 def scatter_window_features(feats: torch.Tensor, feat_ids: torch.Tensor,
                             values: torch.Tensor) -> torch.Tensor:
     """Write values (B, M, C) into a copy of feats (B, H, W, C) at feat_ids
-    (B, M); where ids repeat, the last position wins, deterministically."""
+    (B, M); where ids repeat, the last position wins, deterministically, and
+    alone receives the gradient of its pixel."""
     B, H, W, C = feats.shape
     M = feat_ids.shape[1]
     pos = torch.arange(M, device=feats.device).expand(B, M)
     winner = torch.full((B, H * W), -1, dtype=torch.int64, device=feats.device)
     winner.scatter_reduce_(1, feat_ids, pos, reduce="amax")
-    src = winner.gather(1, feat_ids)  # (B, M): the winning position of each id
-    vals = torch.gather(values.to(feats.dtype), 1, src[:, :, None].expand(-1, -1, C))
-    flat = feats.reshape(B, H * W, C).scatter(1, feat_ids[:, :, None].expand(-1, -1, C), vals)
-    return flat.reshape(B, H, W, C)
+    wins = winner.gather(1, feat_ids) == pos  # (B, M): the last position of its id
+    target = torch.where(wins, feat_ids, H * W)  # losers go to the dump row
+    flat = torch.cat([feats.reshape(B, H * W, C), feats.new_zeros(B, 1, C)], dim=1)
+    flat = flat.scatter(1, target[:, :, None].expand(-1, -1, C), values.to(feats.dtype))
+    return flat[:, :H * W].reshape(B, H, W, C)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout(rate)`: in train mode each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; in eval
+    mode (or at rate 0) the identity. The keep mask is drawn from
+    `self.generator`, a torch.Generator on the input's device that the
+    trainer sets (`set_dropout_generator`); train mode without one raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("train-mode dropout needs a generator: models.attention.set_dropout_generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Give every `Dropout` of `model` the generator it draws from."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+def set_dropout_rate(model: nn.Module, rate: float) -> None:
+    """Set the rate of every `Dropout` of `model` (0 turns dropout off)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = rate
 
 
 class MultiHeadCrossAttention(nn.Module):
@@ -132,18 +177,19 @@ class MultiHeadCrossAttention(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     """Cross-attention + FFN block, keeping the reference's residual quirk:
-    dropout acts on the residual query, not on the attention output."""
+    dropout acts on the residual query, not on the attention output; the
+    other two act after the FFN's ReLU and after its second layer."""
 
     def __init__(self, d_inp: int, d_model: int, n_tokens: int, d_ffn: int = 1024,
                  dropout: float = 0.1, n_heads: int = 8, pos_embed: bool = True):
         super().__init__()
         self.cross_attn = MultiHeadCrossAttention(n_heads, d_inp, d_model * n_heads, n_tokens, pos_embed)
-        self.dropout1 = nn.Dropout(dropout)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_inp, eps=1e-5)
         self.linear1 = nn.Linear(d_inp, d_ffn)
-        self.dropout2 = nn.Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
         self.linear2 = nn.Linear(d_ffn, d_inp)
-        self.dropout3 = nn.Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
         self.norm3 = nn.LayerNorm(d_inp, eps=1e-5)
 
     def forward(self, query, key, value):

@@ -16,11 +16,16 @@ kernel forms each sampled element in float32 from the bf16 inputs and rounds
 it once to bf16, and rounds the float32 product plus bias once; the JAX
 module rounds after every corner product and sum, and adds a bf16 bias to a
 bf16 product (`sgtapose_tpu/models/deform_conv.py:92-99`).
-The sampler alone, `csrc/deform_sample.cu`, stays for the training slice's
-weight gradient, which needs the sampled columns; the detector does not
-launch it. Its plain version (a mirror of the JAX `_sample_pieces`) serves
-CPU tensors.
-Forward only (the JAX custom VJP `_dsb_bwd` belongs to the training slice).
+`deform_conv` is a `torch.autograd.Function` (float32 training; a bf16
+backward raises). Its backward, the counterpart of the JAX custom VJP
+`_dsb_bwd` / `_bwd_core` plus the 1x1 contraction's gradient that XLA
+derives: the sampled columns recomputed by the sampler alone
+(`csrc/deform_sample.cu`, which the detector does not launch), the weight
+and bias gradients and the columns' cotangent as plain products
+(`torch.matmul`, as XLA computes them outside any kernel), then
+`csrc/deform_sample_bwd.cu` for the feature gradient and the gradient of the
+raw offset/mask conv output. CPU tensors take the plain versions (the
+sampler mirrors the JAX `_sample_pieces`, its backward `_bwd_core`).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from sgtapose_tpu_torch.ops import build
 KERNEL = "deform_sample"
 CONV_KERNEL = "deform_conv"
 CONV_KERNEL_BF16 = "deform_conv_bf16"
+BWD_KERNEL = "deform_sample_bwd"
 
 
 def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -97,6 +103,79 @@ def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.T
     return out
 
 
+def plain_deform_sample_backward(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                                 grad: torch.Tensor):
+    """A mirror of the JAX `_bwd_core`: the gradients (dfeat (B,H,W,C),
+    doffsets (B,H,W,18), dmask (B,H,W,9)) of `plain_deform_sample` given
+    grad (B,H,W,9C), with validity folded into the bilinear weights and
+    their derivatives."""
+    B, H, W, C = feat.shape
+    dev = feat.device
+    gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None, None]
+    gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :, None]
+    taps = torch.arange(9, device=dev)
+    ky = (taps // 3 - 1).to(torch.float32)[None, None, :]
+    kx = (taps % 3 - 1).to(torch.float32)[None, None, :]
+    off = offsets.reshape(B, H, W, 9, 2)
+    y = (gy + ky)[None] + off[..., 0]
+    x = (gx + kx)[None] + off[..., 1]
+    y0, x0 = torch.floor(y), torch.floor(x)
+    fy, fx = y - y0, x - x0
+    y0i, x0i = y0.to(torch.int64), x0.to(torch.int64)
+    flat = feat.reshape(B, H * W, C)
+    g9 = grad.reshape(B, H, W, 9, C)
+    dsamp = g9 * masks[..., None]
+    dfeat = torch.zeros(B * H * W, C, dtype=feat.dtype, device=dev)
+    batch_base = (torch.arange(B, device=dev) * (H * W))[:, None]
+    samp = dval_dy = dval_dx = 0.0
+    for dy, dx, w, cy, cx in ((0, 0, (1 - fy) * (1 - fx), -(1 - fx), -(1 - fy)),
+                              (0, 1, (1 - fy) * fx, -fx, 1 - fy),
+                              (1, 0, fy * (1 - fx), 1 - fx, -fy),
+                              (1, 1, fy * fx, fx, fy)):
+        yi, xi = y0i + dy, x0i + dx
+        valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).to(torch.float32)
+        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        vals = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C)).reshape(B, H, W, 9, C)
+        wv = (w * valid)[..., None]
+        samp = samp + vals * wv
+        dval_dy = dval_dy + vals * (cy * valid)[..., None]
+        dval_dx = dval_dx + vals * (cx * valid)[..., None]
+        dfeat.index_add_(0, (idx.reshape(B, -1) + batch_base).reshape(-1), (dsamp * wv).reshape(-1, C))
+    dmask = (samp * g9).sum(-1)
+    doffsets = torch.stack([(dsamp * dval_dy).sum(-1), (dsamp * dval_dx).sum(-1)], dim=-1)
+    return dfeat.reshape(B, H, W, C), doffsets.reshape(B, H, W, 18), dmask
+
+
+def deform_sample_bwd_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                           grad: torch.Tensor):
+    """Launch the CUDA sampling backward on the current stream (CUDA tensors,
+    float32): (dfeat (B,H,W,C), dom (B,H,W,27)), dom being the gradient of the
+    raw offset/mask conv output whose last 9 channels' sigmoid is `masks`."""
+    if feat.dim() != 4:
+        raise ValueError(f"feat must be (B,H,W,C), got {tuple(feat.shape)}")
+    B, H, W, C = feat.shape
+    expect = {"offsets": (B, H, W, 18), "masks": (B, H, W, 9), "grad": (B, H, W, 9 * C)}
+    for name, t in (("feat", feat), ("offsets", offsets), ("masks", masks), ("grad", grad)):
+        if name in expect and tuple(t.shape) != expect[name]:
+            raise ValueError(f"{name} must be {expect[name]} for feat {tuple(feat.shape)}, got {tuple(t.shape)}")
+        if t.device.type != "cuda" or t.device != feat.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {feat.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dfeat = torch.zeros_like(feat)
+    dom = torch.empty((B, H, W, 27), dtype=torch.float32, device=feat.device)
+    fn = build.kernel_fn(BWD_KERNEL)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feat.data_ptr(), offsets.data_ptr(), masks.data_ptr(), grad.data_ptr(),
+                 dfeat.data_ptr(), dom.data_ptr(), B, H, W, C, stream)
+    build.check(BWD_KERNEL, err)
+    build.count_launch(BWD_KERNEL)
+    return dfeat, dom
+
+
 def deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """9-tap modulated deformable sampling (see module docstring). CUDA
     tensors go through the kernel (or raise); CPU tensors take the plain
@@ -158,17 +237,55 @@ def deform_conv_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
+    """Gradients (dx, dom, dweight, dbias) of `plain_deform_conv` (float32)
+    given dy (B,H,W,O): the columns recomputed by the sampler, the plain
+    products (full float32 unless the caller turned TF32 matmuls on), then
+    the sampling backward. CUDA tensors launch the sampler and
+    `deform_sample_bwd` (or raise); CPU tensors take the plain versions."""
+    B, H, W, C = x.shape
+    O = weight.shape[0]
+    offsets = om[..., :18].contiguous()
+    masks = torch.sigmoid(om[..., 18:27]).contiguous()
+    cols = deform_sample(x, offsets, masks).reshape(-1, 9 * C)
+    dy2 = dy.reshape(-1, O)
+    dweight = dy2.t() @ cols
+    dbias = dy2.sum(0)
+    dcols = (dy2 @ weight).reshape(B, H, W, 9 * C)
+    if x.device.type == "cpu":
+        dx, doffsets, dmask = plain_deform_sample_backward(x, offsets, masks, dcols)
+        dom = torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
+    else:
+        dx, dom = deform_sample_bwd_cuda(x, offsets, masks, dcols)
+    return dx, dom, dweight, dbias
+
+
+class _DeformConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, om, weight, bias):
+        ctx.save_for_backward(x, om, weight)
+        if x.device.type == "cpu":
+            return plain_deform_conv(x, om, weight, bias)
+        return deform_conv_cuda(x, om, weight, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, om, weight = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise NotImplementedError("deform_conv backward: bf16 training is not ported (float32 only)")
+        return deform_conv_backward(x, om, weight, dy.contiguous())
+
+
 def deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Modulated deformable conv from the offset/mask conv's raw output (see
-    `plain_deform_conv`). CUDA tensors go through the fused kernel of their
-    dtype, float32 or bf16 (or raise); CPU tensors take the plain version.
-    Any other dtype raises on both."""
+    `plain_deform_conv`), differentiable in float32. CUDA tensors go through
+    the fused kernel of their dtype, float32 or bf16, and the backward
+    kernels (or raise); CPU tensors take the plain versions. Any other dtype
+    raises on both."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"deform_conv runs float32 or bf16, got {x.dtype}")
-    if x.device.type == "cpu":
-        return plain_deform_conv(x, om, weight, bias)
-    return deform_conv_cuda(x, om, weight, bias)
+    return _DeformConv.apply(x, om, weight, bias)
 
 
 class DeformConv2d(nn.Module):

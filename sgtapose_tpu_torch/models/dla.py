@@ -7,8 +7,9 @@ counterpart and `utils/weights.py` maps the two trees one to one.
 
 Modules take and return NCHW tensors; the model feeds them NHWC data viewed
 as NCHW (channels_last memory), so the convolutions and the DCN sampler
-share one memory layout without copies. Inference only: BatchNorm runs on
-its running statistics (flax momentum 0.9 == torch momentum 0.1, eps 1e-5).
+share one memory layout without copies. BatchNorm is flax's (`BatchNorm`):
+running statistics in eval mode, batch statistics with flax's running
+average in train mode (`model.train()` / `model.eval()` switch it).
 """
 
 from __future__ import annotations
@@ -22,11 +23,32 @@ import torch.nn.functional as F
 
 from sgtapose_tpu_torch.models.deform_conv import DeformConv2d
 
-BN_MOMENTUM = 0.1  # torch convention; flax's 0.9
+BN_MOMENTUM = 0.9  # flax convention: running = 0.9 running + 0.1 batch
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over NCHW. Eval mode:
+    the running statistics, as `nn.BatchNorm2d`. Train mode: the batch's
+    statistics over N*H*W, its BIASED variance both for normalising and for
+    the running average, running = 0.9 running + 0.1 batch (nn.BatchNorm2d
+    feeds the unbiased variance into running_var)."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(self.running_mean.dtype), alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var.to(self.running_var.dtype), alpha=1 - BN_MOMENTUM)
+        return out
+
+
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c)
 
 
 class ConvBnAct(nn.Module):

@@ -1,11 +1,16 @@
 """Biased attention softmax(q k^T / sqrt(d) + bias) v: the CUDA kernels
-(`csrc/biased_attention.cu`, one design instantiated for float32 and for bf16
-serving) and their plain PyTorch versions.
+(`csrc/biased_attention.cu`, one forward design instantiated for float32 and
+for bf16 serving; `csrc/biased_attention_bwd.cu`, the float32 backward) and
+their plain PyTorch versions.
 
 Counterpart of `sgtapose_tpu/ops/attention_kernel.py:fused_biased_attention`
-(a Pallas TPU kernel). On the card the port always runs a kernel; the plain
-versions are what a CPU tensor gets, and what the kernels are held against.
-Forward only: training is a later slice.
+(a Pallas TPU kernel) and of its custom VJP `_bwd_rule` (a recompute through
+the XLA formulation). `fused_biased_attention` is a `torch.autograd.Function`:
+on the card its forward and backward always run kernels; the plain versions
+are what a CPU tensor gets, and what the kernels are held against. The
+backward saves the forward's output beside q, k, v and the bias, and
+recomputes the probabilities. Training runs float32; a bf16 backward raises
+(bf16 training is not ported).
 
 bf16: the port follows the JAX package's DEFAULT attention form
 (`fused_attention=False`, `sgtapose_tpu/models/attention.py:175-180`), which
@@ -28,6 +33,7 @@ from sgtapose_tpu_torch.ops import build
 
 KERNEL = "biased_attention"
 KERNEL_BF16 = "biased_attention_bf16"
+BWD_KERNEL = "biased_attention_bwd"
 SUPPORTED_HEAD_DIMS = (4, 8, 16, 32)
 # the kernel's layout (csrc/biased_attention.cu): blocks of 8 warps, one
 # warp (ROW_LANES lanes) per query row, a 2-stage ring of bias spans
@@ -51,6 +57,21 @@ def plain_biased_attention(q, k, v, bias):
     energy = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(d)
     p = torch.softmax(energy + bias, dim=-1)
     return torch.einsum("bhij,bhjd->bhid", p, v)
+
+
+def plain_biased_attention_backward(q, k, v, bias, out, dout):
+    """The backward's formulas step by step (float32): with S = q k^T / sqrt(d)
+    + bias, P = softmax(S), D_i = dO_i . O_i and dS = P (dO v^T - D),
+    returns dq = dS k / sqrt(d), dk = dS^T q / sqrt(d), dv = P^T dO and
+    dbias = sum over the batch of dS."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.einsum("bhid,bhjd->bhij", q, k) * scale + bias, dim=-1)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhid,bhjd->bhij", dout, v) - delta)
+    dq = torch.einsum("bhij,bhjd->bhid", ds, k) * scale
+    dk = torch.einsum("bhij,bhid->bhjd", ds, q) * scale
+    dv = torch.einsum("bhij,bhid->bhjd", p, dout)
+    return dq, dk, dv, ds.sum(0)
 
 
 def plain_biased_attention_bf16(q, k, v, bias):
@@ -146,13 +167,71 @@ def biased_attention_bf16_cuda(q, k, v, bias):
     return out
 
 
+def bwd_smem_bytes(n: int, d: int) -> int:
+    """Shared memory of the backward's row pass: 8 bias rows, their 8 dbias
+    rows, and K and V of one (batch, head)."""
+    return 4 * (2 * _ROWS * n + 2 * n * d)
+
+
+def biased_attention_bwd_cuda(q, k, v, bias, out, dout):
+    """Launch the float32 backward on the current stream (CUDA tensors only):
+    (dq, dk, dv, dbias) of `plain_biased_attention_backward`, dbias summed
+    over the batch in a fixed order (no atomics)."""
+    _check(q, k, v, bias)
+    if q.device.type != "cuda":
+        raise ValueError("biased_attention_bwd_cuda needs CUDA tensors")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {tuple(q.shape)} tensor on {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("q, k, v, out, dout must start on a 16-byte boundary (rows are read as float4)")
+    B, h, n, d = q.shape
+    smem = bwd_smem_bytes(n, d)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"n={n}, d={d}: the backward needs {smem} B of shared memory, more than {_SMEM_LIMIT}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+    lse, delta = (torch.empty((B, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
+    fn = build.kernel_fn(BWD_KERNEL)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), B, h, n, d, stream)
+    build.check(BWD_KERNEL, err)
+    build.count_launch(BWD_KERNEL)
+    return dq, dk, dv, dbias
+
+
+class _BiasedAttention(torch.autograd.Function):
+    """Forward through the kernel of the inputs' dtype (plain on the CPU);
+    backward through `biased_attention_bwd_cuda` (plain on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        bf16 = k.dtype == torch.bfloat16
+        if q.device.type == "cpu":
+            out = plain_biased_attention_bf16(q, k, v, bias) if bf16 else plain_biased_attention(q, k, v, bias)
+        else:
+            out = biased_attention_bf16_cuda(q, k, v, bias) if bf16 else biased_attention_cuda(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out = ctx.saved_tensors
+        if any(t.dtype != torch.float32 for t in (q, k, v, bias)):
+            raise NotImplementedError("biased attention backward: bf16 training is not ported (float32 only)")
+        dout = dout.contiguous()
+        if q.device.type == "cpu":
+            return plain_biased_attention_backward(q, k, v, bias, out, dout)
+        return biased_attention_bwd_cuda(q, k, v, bias, out, dout)
+
+
 def fused_biased_attention(q, k, v, bias):
     """softmax(q k^T / sqrt(d) + bias) v with q, k, v (B, heads, n, d) and a
     (heads, n, n) bias shared across the batch; float32, or bf16 k, v, bias
-    (module docstring), always returning float32. CUDA tensors go through the
-    hand-written kernel of their dtype (or raise); CPU tensors take the plain
-    version."""
-    bf16 = k.dtype == torch.bfloat16
-    if q.device.type == "cpu":
-        return plain_biased_attention_bf16(q, k, v, bias) if bf16 else plain_biased_attention(q, k, v, bias)
-    return biased_attention_bf16_cuda(q, k, v, bias) if bf16 else biased_attention_cuda(q, k, v, bias)
+    (module docstring), always returning float32. Differentiable (float32).
+    CUDA tensors go through the hand-written kernels of their dtype (or
+    raise); CPU tensors take the plain versions."""
+    return _BiasedAttention.apply(q, k, v, bias)

@@ -1,0 +1,186 @@
+"""The trainer: one float32 optimizer step of the flagship model, evaluation
+and prediction forwards, and checkpoints.
+
+Counterpart of `sgtapose_tpu/train/trainer.py` on one device. The JAX
+TrainState (step, params, batch_stats, optax Adam state) becomes a
+`TrainState` holding the model (its BatchNorm buffers are the batch_stats), a
+`torch.optim.Adam`, the learning-rate schedule with its own count, the step,
+and the dropout generator. `train_step` updates the state in place.
+
+Adam: optax's `adam(schedule)` and torch's Adam make the same update,
+lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps). optax applies
+`schedule(count)` and then increments the count, so update t (from 0) uses
+schedule(t): under warmup the first update runs at base * 1e-6. The trainer
+sets the learning rate of each update to schedule(schedule_count) before
+`optimizer.step()` and increments the count after, the same sequence.
+Dropout draws from a generator on the model's device reseeded from
+(seed, step) at each step, as the JAX step folds the step into its key.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from sgtapose_tpu_torch.config import Config
+from sgtapose_tpu_torch.models.attention import set_dropout_generator
+from sgtapose_tpu_torch.models.sgta import SGTAPose, create_model
+from sgtapose_tpu_torch.train.loss import sgta_loss
+from sgtapose_tpu_torch.train.phases import input_names, loss_weights, model_inputs
+from sgtapose_tpu_torch.train.schedule import warmup_poly_schedule
+
+
+@dataclass
+class TrainState:
+    model: SGTAPose
+    optimizer: torch.optim.Adam
+    schedule: Callable[[int], float]
+    dropout_generator: torch.Generator
+    seed: int
+    step: int = 0
+    schedule_count: int = 0  # optax's scale_by_schedule count
+
+
+def example_batch(cfg: Config, batch_size: int = 1, device="cuda") -> Dict[str, torch.Tensor]:
+    """A zero batch with the training pipeline's shapes (NHWC)."""
+    H, W = cfg.model.input_res
+    Ho, Wo = cfg.model.output_res
+    C = cfg.model.num_classes
+    B = batch_size
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "cur_img": z(B, H, W, 3), "pre_img": z(B, H, W, 3),
+        "pre_hm": z(B, H, W, 1), "repro_hm": z(B, H, W, 1),
+        "pre_hm_cls": z(B, Ho, Wo, C), "repro_hm_cls": z(B, Ho, Wo, C),
+        "pre_origin_hm": z(B, H, W, 1),
+        "gt_belief_maps": z(B, Ho, Wo, C), "kp_int": z(B, C, 2, dtype=torch.int32),
+        "reg_target": z(B, C, 2), "tracking_target": z(B, C, 2),
+    }
+
+
+def create_train_state(cfg: Config, seed: int, max_iters: int = 100000, device="cuda",
+                       phase: str = "PlanA_win", schedule=None) -> TrainState:
+    """The flagship model (weights drawn from `seed`) in train mode on
+    `device`, Adam (b1 0.9, b2 0.999, eps 1e-8) and the warmup-poly schedule
+    of cfg.train over `max_iters` steps unless `schedule` is given."""
+    input_names(phase)  # raises for a phase that is not ported
+    model = create_model(cfg.model, device=device, seed=seed).train()
+    if schedule is None:
+        schedule = warmup_poly_schedule(cfg.train.lr, max_iters, cfg.train.warmup_iters,
+                                        power=cfg.train.poly_power)
+    optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
+    generator = torch.Generator(device=next(model.parameters()).device)
+    set_dropout_generator(model, generator)
+    return TrainState(model=model, optimizer=optimizer, schedule=schedule,
+                      dropout_generator=generator, seed=seed)
+
+
+def resume_schedule_state(state: TrainState, step: int) -> TrainState:
+    """Continue a parent run's learning-rate schedule from `step` after a
+    params-only warm start: the step and the schedule count advance to
+    `step`; Adam's bias-correction count stays where it is (0 for fresh
+    moments), so the first updates are not run at the stale count's larger
+    size."""
+    state.step = step
+    state.schedule_count = step
+    return state
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed at `step` of a run seeded with `seed`."""
+    return (seed * (1 << 32) + step) % (1 << 63)
+
+
+def _timed(stage_timer, name):
+    return stage_timer(name) if stage_timer is not None else contextlib.nullcontext()
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor], hm_weight: float = 1.0,
+               reg_weight: float = 0.01, tracking_weight: float = 0.0, bf16: bool = False,
+               phase: str = "PlanA_win", stage_timer=None) -> Dict[str, torch.Tensor]:
+    """One optimizer step in float32, in place: forward in train mode (batch
+    statistics; the BN running averages update), the loss, backward, the
+    learning rate of this update from the schedule, Adam. Returns the loss
+    terms {"tot", "hm", "reg", "tracking"} (detached, on the device).
+    stage_timer: optional fn(name) -> context manager around the stages
+    "forward", "backward" and "optimizer"."""
+    if bf16:
+        raise NotImplementedError("bf16 training is not ported to sgtapose_tpu_torch (float32 only)")
+    weights = loss_weights(phase, hm_weight, reg_weight, tracking_weight)
+    model = state.model.train()
+    state.dropout_generator.manual_seed(dropout_seed(state.seed, state.step))
+    with _timed(stage_timer, "forward"):
+        out = model(*model_inputs(phase, batch))
+        total, stats = sgta_loss({k: v.to(torch.float32) for k, v in out.items()}, batch, **weights)
+    with _timed(stage_timer, "backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        # optax updates every parameter: where the loss does not reach one
+        # (levels 0 and 1 feed no head), its zero gradient still moves it by
+        # its Adam moments; torch's Adam skips a parameter without a grad
+        for p in state.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    with _timed(stage_timer, "optimizer"):
+        lr = state.schedule(state.schedule_count)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+    state.schedule_count += 1
+    state.step += 1
+    return {k: v.detach() for k, v in stats.items()}
+
+
+@torch.no_grad()
+def _eval_forward(state: TrainState, batch, phase: str):
+    return state.model.eval()(*model_inputs(phase, batch))
+
+
+def _prediction_heads(out) -> Dict[str, torch.Tensor]:
+    """Sigmoided heatmaps, reg and tracking in float32."""
+    return {"hm": torch.sigmoid(out["hm"].to(torch.float32)), "reg": out["reg"].to(torch.float32),
+            "tracking": out["tracking"].to(torch.float32)}
+
+
+def eval_step(state: TrainState, batch, phase: str = "PlanA_win") -> Dict[str, torch.Tensor]:
+    """Validation forward (running statistics, no dropout) and loss terms."""
+    out = _eval_forward(state, batch, phase)
+    _, stats = sgta_loss({k: v.to(torch.float32) for k, v in out.items()}, batch, **loss_weights(phase))
+    return stats
+
+
+def predict_step(state: TrainState, batch, phase: str = "PlanA_win") -> Dict[str, torch.Tensor]:
+    """Inference forward: the decodable heads."""
+    return _prediction_heads(_eval_forward(state, batch, phase))
+
+
+def eval_predict_step(state: TrainState, batch, phase: str = "PlanA_win"
+                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Loss terms and decodable heads from one validation forward."""
+    out = _eval_forward(state, batch, phase)
+    out_f32 = {k: v.to(torch.float32) for k, v in out.items()}
+    _, stats = sgta_loss(out_f32, batch, **loss_weights(phase))
+    return stats, _prediction_heads(out_f32)
+
+
+def save_checkpoint(path: str, state: TrainState) -> None:
+    """torch.save of {step, schedule_count, model, optimizer}."""
+    torch.save({"step": state.step, "schedule_count": state.schedule_count,
+                "model": state.model.state_dict(), "optimizer": state.optimizer.state_dict()}, path)
+
+
+def load_checkpoint(path: str, state: TrainState) -> TrainState:
+    """Restore a `save_checkpoint` payload into `state` (in place, tensors on
+    the model's device) and return it."""
+    payload = torch.load(path, map_location=next(state.model.parameters()).device, weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    state.schedule_count = int(payload["schedule_count"])
+    return state

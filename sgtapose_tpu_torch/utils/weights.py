@@ -18,6 +18,11 @@ the module type decide the layout change:
 
 Strict in both directions: a flax leaf with no port tensor, a port tensor no
 leaf sets, or a shape mismatch raises.
+
+`load_flax_train_state` carries a whole JAX train state across the same way:
+the variables into the model, optax Adam's moments mu / nu (trees shaped like
+the params) and their count into torch Adam's exp_avg / exp_avg_sq / step,
+and the schedule count and step into the port's TrainState.
 """
 
 from __future__ import annotations
@@ -62,29 +67,62 @@ def _target(model: nn.Module, collection: str, path: tuple):
     raise KeyError(path)
 
 
+def _convert(model: nn.Module, trees: Mapping[str, Mapping], targets: Mapping[str, torch.Tensor]
+             ) -> Dict[str, np.ndarray]:
+    """{port tensor name: array in the port's layout} for every leaf of the
+    flax trees (collection -> tree); raises on a leaf with no target, a
+    target no leaf sets, or a shape mismatch."""
+    out: Dict[str, np.ndarray] = {}
+    for collection, tree in trees.items():
+        for path, value in _flatten(tree).items():
+            where = f"flax leaf {collection}/{'/'.join(path)}"
+            try:
+                key, tf = _target(model, collection, path)
+            except (AttributeError, KeyError) as e:
+                raise KeyError(f"{where} has no port tensor") from e
+            if key not in targets:
+                raise KeyError(f"{where} -> {key}: no such port tensor")
+            arr = np.ascontiguousarray(tf(value) if tf is not None else value)
+            if tuple(arr.shape) != tuple(targets[key].shape):
+                raise ValueError(f"{key}: {where} gives {arr.shape}, port expects {tuple(targets[key].shape)}")
+            if key in out:
+                raise ValueError(f"{key} set twice")
+            out[key] = arr
+    missing = sorted(set(targets) - set(out))
+    if missing:
+        raise KeyError(f"{len(missing)} port tensors not set by the flax tree: {missing[:8]}")
+    return out
+
+
 @torch.no_grad()
 def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
     """Set every parameter and BatchNorm statistic of `model` from the flax
     variable tree (see module docstring); raises on any unused leaf, unset
     tensor or shape mismatch."""
     state = {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
-    seen = set()
-    for collection in ("params", "batch_stats"):
-        for path, value in _flatten(variables.get(collection, {})).items():
-            try:
-                key, tf = _target(model, collection, path)
-            except (AttributeError, KeyError) as e:
-                raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has no port tensor") from e
-            if key not in state:
-                raise KeyError(f"flax leaf {collection}/{'/'.join(path)} -> {key}: no such port tensor")
-            arr = np.ascontiguousarray(tf(value) if tf is not None else value)
-            if tuple(arr.shape) != tuple(state[key].shape):
-                raise ValueError(f"{key}: flax {collection}/{'/'.join(path)} gives {arr.shape}, "
-                                 f"port expects {tuple(state[key].shape)}")
-            if key in seen:
-                raise ValueError(f"{key} set twice")
-            state[key].copy_(torch.from_numpy(arr).to(state[key].dtype))
-            seen.add(key)
-    missing = sorted(set(state) - seen)
-    if missing:
-        raise KeyError(f"{len(missing)} port tensors not set by the flax tree: {missing[:8]}")
+    trees = {c: variables.get(c, {}) for c in ("params", "batch_stats")}
+    for key, arr in _convert(model, trees, state).items():
+        state[key].copy_(torch.from_numpy(arr).to(state[key].dtype))
+
+
+@torch.no_grad()
+def load_flax_train_state(state, flax_state: Mapping) -> None:
+    """Set the port's TrainState (`train/trainer.py`) from a JAX train state
+    given as {"params", "batch_stats", "mu", "nu", "adam_count",
+    "schedule_count", "step"}: the variables as `load_flax_variables` sets
+    them, Adam's first and second moments (trees shaped like "params") and
+    its bias-correction count into every parameter's torch Adam state, the
+    schedule count and the step. Strict like `load_flax_variables`."""
+    model = state.model
+    load_flax_variables(model, flax_state)
+    params = dict(model.named_parameters())
+    moments = {name: _convert(model, {"params": flax_state[leaf]}, params)
+               for name, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}
+    count = float(np.asarray(flax_state["adam_count"]))
+    for key, p in params.items():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            **{name: torch.from_numpy(m[key]).to(p.device, p.dtype) for name, m in moments.items()},
+        }
+    state.schedule_count = int(np.asarray(flax_state["schedule_count"]))
+    state.step = int(np.asarray(flax_state["step"]))

@@ -24,6 +24,10 @@ KERNEL_MODULES = {
     # one wrapper launches the float32 or the bf16 kernel by dtype
     "deform_conv_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv",
                          "deform_conv_cuda"),
+    "biased_attention_bwd": ("sgtapose_tpu_torch.ops.attention_kernel",
+                             "plain_biased_attention_backward", "biased_attention_bwd_cuda"),
+    "deform_sample_bwd": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample_backward",
+                          "deform_sample_bwd_cuda"),
 }
 
 
@@ -47,5 +51,6 @@ def test_every_kernel_has_its_plain_version(name):
     module, plain, wrapper = KERNEL_MODULES[name]
     mod = importlib.import_module(module)
     assert callable(getattr(mod, plain)) and callable(getattr(mod, wrapper))
-    names = {getattr(mod, a, None) for a in ("KERNEL", "KERNEL_BF16", "CONV_KERNEL", "CONV_KERNEL_BF16")}
+    names = {getattr(mod, a, None)
+             for a in ("KERNEL", "KERNEL_BF16", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL")}
     assert name in names

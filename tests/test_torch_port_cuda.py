@@ -190,3 +190,95 @@ def test_kernels_refuse_other_dtypes(dev):
     with pytest.raises(ValueError):
         attention_kernel.fused_biased_attention(q, q, q, torch.zeros(8, 63, 63, device=dev,
                                                                      dtype=torch.float16))
+
+
+# Backward kernels (float32 training) against their plain versions. The
+# attention backward recomputes the probabilities with the fast exp2 and sums
+# in another order: within 1e-4 of max(1, max|ref|) per gradient. The DCN
+# sampling backward adds into the feature gradient with float atomics (an
+# order that changes from run to run): within 1e-4 of max(1, max|ref|).
+BWD_REL = 1e-4
+
+
+def _rel_err(a, b):
+    return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("n,d,B", [(1183, 4, 8), (343, 8, 8), (63, 16, 8), (100, 8, 2), (33, 8, 2),
+                                   (1, 4, 2)])
+def test_biased_attention_bwd_kernel_matches_plain(dev, n, d, B):
+    """The flagship shapes at the training batch of 8, and ragged n."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(n * d + B)
+    q, k, v, dout = (torch.randn(B, 8, n, d, generator=g, device=dev) for _ in range(4))
+    bias = 0.3 * torch.randn(8, n, n, generator=g, device=dev)
+    out = attention_kernel.plain_biased_attention(q, k, v, bias)
+    before = build.launch_counts()["biased_attention_bwd"]
+    got = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, out, dout)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["biased_attention_bwd"] == before + 1
+    ref = attention_kernel.plain_biased_attention_backward(q, k, v, bias, out, dout)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_REL, (name, _rel_err(a, b))
+    again = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, out, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: reproducible
+
+
+@pytest.mark.parametrize("H,W,C", [(15, 15, 512), (30, 30, 256), (60, 60, 128), (120, 120, 64), (9, 11, 6)])
+def test_deform_sample_bwd_kernel_matches_plain(dev, H, W, C):
+    """The decoder's input shapes at the training batch of 8, and a ragged
+    one; offsets reach 3 px, so samples leave the map."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B = 8 if C > 6 else 2
+    g = torch.Generator(device=dev).manual_seed(H * C)
+    feat = torch.randn(B, H, W, C, generator=g, device=dev)
+    offsets = torch.rand(B, H, W, 18, generator=g, device=dev) * 6 - 3
+    masks = torch.rand(B, H, W, 9, generator=g, device=dev)
+    grad = torch.randn(B, H, W, 9 * C, generator=g, device=dev)
+    before = build.launch_counts()["deform_sample_bwd"]
+    dfeat, dom = deform_conv.deform_sample_bwd_cuda(feat, offsets, masks, grad)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["deform_sample_bwd"] == before + 1
+    rf, roff, rmask = deform_conv.plain_deform_sample_backward(feat, offsets, masks, grad)
+    assert _rel_err(dfeat, rf) <= BWD_REL
+    assert _rel_err(dom[..., :18], roff) <= BWD_REL
+    assert _rel_err(dom[..., 18:], rmask * masks * (1 - masks)) <= BWD_REL
+
+
+def test_training_gradients_reach_every_parameter_on_the_card(dev):
+    """A DCN module and an attention layer (dropout off) on the card: outputs
+    carry a grad_fn, and every parameter gets a non-zero gradient equal to
+    the CPU's (plain versions), within 1e-4 of max(1, max|cpu grad|)."""
+    import copy
+
+    from sgtapose_tpu_torch.models.attention import TransformerEncoderLayer, set_dropout_rate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    dcn = deform_conv.DeformConv2d(16, 24)
+    layer = TransformerEncoderLayer(16, 4, 63, n_heads=8)
+    set_dropout_rate(layer, 0.0)
+    with torch.no_grad():
+        for p in list(dcn.parameters()) + list(layer.parameters()):
+            p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    x = torch.randn(2, 16, 12, 12, generator=gen)
+    tokens = [torch.randn(2, 63, 16, generator=gen) for _ in range(2)]
+    for mod, args in ((dcn, (x,)), (layer, (tokens[0], tokens[1], tokens[1]))):
+        mod_gpu = copy.deepcopy(mod).to(dev).train()
+        mod.train()
+        out_cpu = mod(*args)
+        before = build.launch_counts()
+        out_gpu = mod_gpu(*[a.to(dev) for a in args])
+        assert out_gpu.grad_fn is not None
+        w = torch.randn(out_cpu.shape, generator=gen)
+        (out_cpu * w).sum().backward()
+        (out_gpu * w.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        bwd = "deform_sample_bwd" if mod is dcn else "biased_attention_bwd"
+        assert after[bwd] == before[bwd] + 1
+        for (name, p), q in zip(mod.named_parameters(), mod_gpu.parameters()):
+            assert q.grad is not None and q.grad.abs().max().item() > 0, name
+            assert _rel_err(q.grad.cpu(), p.grad) <= BWD_REL, (name, _rel_err(q.grad.cpu(), p.grad))

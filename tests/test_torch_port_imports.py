@@ -36,7 +36,10 @@ def test_port_imports_no_jax_and_builds_nothing():
                 "sgtapose_tpu_torch.ops.attention_kernel", "sgtapose_tpu_torch.models.deform_conv",
                 "sgtapose_tpu_torch.utils.weights", "sgtapose_tpu_torch.core.pnp",
                 "sgtapose_tpu_torch.utils.precision", "sgtapose_tpu_torch.eval.metrics",
-                "sgtapose_tpu_torch.eval.analysis", "sgtapose_tpu_torch.eval.synthetic_eval"}
+                "sgtapose_tpu_torch.eval.analysis", "sgtapose_tpu_torch.eval.synthetic_eval",
+                "sgtapose_tpu_torch.data.pipeline", "sgtapose_tpu_torch.train.loss",
+                "sgtapose_tpu_torch.train.schedule", "sgtapose_tpu_torch.train.phases",
+                "sgtapose_tpu_torch.train.trainer", "sgtapose_tpu_torch.cli.train_demo"}
     assert expected <= set(res["modules"])
 
 

@@ -1,12 +1,15 @@
 """Shared pieces of the port's parity tests (tests/test_torch_port_*.py):
 the tiny model config of both packages, seeded numpy perturbation of flax
 variable trees (so zero-initialised parameters and BN statistics matter),
-and a cache of flax SGTAPose variables per decoder node type."""
+a cache of flax SGTAPose variables per decoder node type, and the pieces of
+the train-step tests (a random batch, their variables, a seeded Adam state,
+flax dropout turned off)."""
 
 from __future__ import annotations
 
 import functools
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,3 +100,49 @@ def flax_model_and_variables(dla_node: str = "dcn"):
         return np.zeros(s.shape, np.float32)
 
     return model, perturb(jax.tree_util.tree_map_with_path(one, shapes), seed=1)
+
+
+def random_train_batch(seed: int = 0, res: int = 64, B: int = 2):
+    """A training batch of random numpy tensors for the tiny model."""
+    rs = np.random.RandomState(seed)
+    Ho = res // 4
+    f = np.float32
+    return {
+        "cur_img": rs.randn(B, res, res, 3).astype(f), "pre_img": rs.randn(B, res, res, 3).astype(f),
+        "pre_hm": rs.rand(B, res, res, 1).astype(f), "repro_hm": rs.rand(B, res, res, 1).astype(f),
+        "pre_hm_cls": rs.rand(B, Ho, Ho, 7).astype(f), "repro_hm_cls": rs.rand(B, Ho, Ho, 7).astype(f),
+        "gt_belief_maps": rs.rand(B, Ho, Ho, 7).astype(f),
+        "kp_int": rs.randint(0, Ho, (B, 7, 2)).astype(np.int32),
+        "reg_target": rs.rand(B, 7, 2).astype(f), "tracking_target": rs.randn(B, 7, 2).astype(f),
+    }
+
+
+def train_variables():
+    """The tiny model's perturbed variables with the DCN offset/mask convs
+    scaled by 0.3 (offsets of a fraction of a pixel). In train mode
+    BatchNorm normalises by the batch statistics of 2x2-16x16 maps, which
+    amplifies float32 rounding layer by layer through the decoder, the more
+    the larger the offsets (tests/test_torch_port_train_f64.py holds the same
+    step in float64)."""
+    flax_model, variables = flax_model_and_variables("dcn")
+
+    def one(path, x):
+        names = [getattr(p, "key", str(p)) for p in path]
+        return (0.3 * x).astype(np.float32) if "conv_offset_mask" in names else x
+
+    return flax_model, jax.tree_util.tree_map_with_path(one, variables)
+
+
+def adam_state(params, seed: int = 9):
+    """Seeded Adam moments (mu, nu) of the size a few steps leave."""
+    rs = np.random.RandomState(seed)
+    mu = jax.tree_util.tree_map(lambda p: (1e-3 * rs.randn(*p.shape)).astype(np.float32), params)
+    nu = jax.tree_util.tree_map(lambda p: (1e-6 * (1 + rs.rand(*p.shape))).astype(np.float32), params)
+    return mu, nu
+
+
+def no_dropout(next_fun, args, kwargs, context):
+    """flax.linen.intercept_methods interceptor: nn.Dropout as the identity."""
+    if isinstance(context.module, fnn.Dropout):
+        return args[0]
+    return next_fun(*args, **kwargs)
