@@ -18,7 +18,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. the DCN sampling kernel (off the detector path since the fused kernel;
      the training backward recomputes the columns with it) and the DCN
      sampling backward against their plain versions at every decoder input
-     shape at the training batch of 8, and one ragged shape;
+     shape at the training batch of 8, and one ragged shape (the backward
+     no longer launches deform_sample_bwd: it is the yardstick of 4b);
+ 4b. the float32 DCN data gradient `deform_conv_dgrad` (the training
+     backward's dx and offset/mask gradient in one kernel) against its plain
+     version at every decoder node at the training batch of 8 and one ragged
+     shape, with offsets at zero, within its halo tile (+-3 px) and beyond
+     it (+-12 px), dom the same bit for bit in two runs; kernel / unfused
+     pair (dY W with TF32 off, then deform_sample_bwd) / the pair's product
+     alone / plain times at +-3, the kernel's at zero offsets;
   5. the float32 fused DCN kernel against its plain version at the decoder
      shapes and one ragged shape, with kernel / unfused pair (the sampler,
      then torch.addmm with TF32 off) / plain times;
@@ -52,18 +60,20 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. the eval harness (eval/analysis.py, PnP and weighted refinement batched
      over frames on the card) on the bf16 exact run's detections, and on
      the ground truth with 0.5 px of noise, whose scores are known;
- 11. training (float32, the train_demo path): both backward kernels
-     (`biased_attention_bwd`, `deform_sample_bwd`) against their plain
-     versions at every flagship attention (n, d) and every decoder DCN input
-     shape at the training batch of 8 plus one ragged shape each, with cold /
-     plain times, bounds and SDPA's backward as the attention's yardstick;
+ 11. training (float32, the train_demo path): the attention backward
+     kernel against its plain version at every flagship (n, d) at the
+     training batch of 8, at level 2 and a ragged (100, 8) also at batch 1
+     and 2 (the cluster path), every output the same bit for bit in two
+     runs, with cold / plain times, bounds and SDPA's backward as the
+     yardstick;
      one full-width train-step gradient (480x480, batch 1, dropout off) on
      the card and on the CPU in float32, both held against a CPU float64
      reference (GRAD_WORST_TOL, GRAD_L2_TOL); 5 steps of `train/trainer.train_step` at 480x480, batch 8
      on one fixed batch (the loss must fall); then `cli/train_demo.main` for
      20 steps on fresh batches with stage times (batch build with the PnP
      priors, forward, backward, optimizer) and launch counts asserted per
-     step, and its eval of the trained weights (bf16 exact runner, 1 video of
+     step (16 deform_conv_dgrad, 0 deform_sample_bwd, 3 attention
+     backward), and its eval of the trained weights (bf16 exact runner, 1 video of
      8 frames); device time per kernel per step from torch.profiler;
  12. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
@@ -75,7 +85,7 @@ Kernel times are CUDA-event times of single launches with the 50 MB L2
 flushed before each (the detector reads each weight once per frame); the
 per-kernel entries of the kernels line are per-frame sums over the shapes one
 frame launches (per-step sums over one training step's shapes for the
-sampler and the two backward kernels). Bounds (H100 SXM data sheet): the larger of bytes over
+sampler and the backward kernels). Bounds (H100 SXM data sheet): the larger of bytes over
 3.35 TB/s and operations over the rate of the instructions used, 67 TFLOP/s
 for float32 FMAs, 165 TFLOP/s (495 / 3) for 3xTF32 and 989 TFLOP/s for dense
 bf16 on the tensor cores. Details go to chiprun_out/chip_smoke.json.
@@ -144,7 +154,8 @@ DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "d
                 "deform_sample": "deform_sample_kernel",
                 "biased_attention_bf16": "biased_attention_bf16_kernel",
                 "deform_conv_bf16": "deform_conv_bf16_kernel",
-                "biased_attention_bwd": "biased_attention_bwd_", "deform_sample_bwd": "deform_sample_bwd_kernel"}
+                "biased_attention_bwd": "biased_attention_bwd_", "deform_sample_bwd": "deform_sample_bwd_kernel",
+                "deform_conv_dgrad": "deform_conv_dgrad_kernel"}
 TRAIN_STAGES = ("batch", "forward", "backward", "optimizer")
 STAGE_NAMES = ("pnp", "render", "trunk", "fuse", "decode")
 
@@ -336,6 +347,60 @@ def main() -> int:
         del feat, offsets, masks, grad, out, ref, dfeat, dom, rf, roff, rmask
     report["deform_sample_shapes"] = dcn_rows
     report["deform_sample_bwd_shapes"] = dcn_bwd_rows
+
+    # ---- 4b. float32 DCN data gradient (deform_conv_dgrad) vs plain -------
+    # the training backward's dx and d(om) at every decoder node at the
+    # training batch, offsets at zero (flax's init), within the kernel's halo
+    # tile (+-3) and beyond it (+-12); times at +-3 against the unfused pair
+    # it replaced (dY W with TF32 off, then deform_sample_bwd), the kernel's
+    # alone at zero offsets
+    dgrad_rows = []
+    for (H, C, O, per_step), span in [(node, span) for node in DCN_NODES + [RAGGED_DCN]
+                                      for span in (0.0, 3.0, 12.0)]:
+        B, W = (TRAIN_BATCH, H) if per_step else (2, H + 2)
+        x = torch.randn(B, H, W, C, generator=gen, device=dev)
+        om = torch.cat([(torch.rand(B, H, W, 18, generator=gen, device=dev) * 2 - 1) * span,
+                        2 * torch.randn(B, H, W, 9, generator=gen, device=dev)], dim=-1)
+        weight = torch.randn(O, 9 * C, generator=gen, device=dev) / math.sqrt(9 * C)
+        dy = torch.randn(B, H, W, O, generator=gen, device=dev)
+        dx, dom = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+        torch.cuda.synchronize()
+        rdx, rdom = deform_conv.plain_deform_conv_dgrad(x, om, weight, dy)
+        errs = {"dx": rel_err(dx, rdx), "dom": rel_err(dom, rdom)}
+        if not all(math.isfinite(e) and e <= BWD_REL_TOL for e in errs.values()):
+            raise AssertionError(f"deform_conv_dgrad B={B} H={H} C={C} O={O} offsets +-{span}: "
+                                 f"rel errors {errs} > {BWD_REL_TOL}")
+        if not torch.equal(dom, deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)[1]):
+            raise AssertionError(f"deform_conv_dgrad H={H} C={C} O={O}: two runs give another dom")
+        M = B * H * W
+        # read dY, x, om and the weight once, write dx and dom once; the
+        # product's 2 M O 9C operations at the 3xTF32 rate (the scatter's
+        # float32 work, ~34 FLOPs per (pixel, tap, channel), not counted)
+        b_ms, b_by = bound_ms(4 * (M * O + 2 * M * C + 2 * M * 27 + O * 9 * C), 2 * M * O * 9 * C,
+                              TF32X3_OPS_PER_S)
+        row = dict(B=B, H=H, W=W, C=C, O=O, offsets=span, per_step=per_step if span == 3.0 else 0,
+                   rel_err=errs, max_abs_err=max((dx - rdx).abs().max().item(), (dom - rdom).abs().max().item()),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if span == 0.0:
+            row["ms"] = cold_ms(lambda: deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy))
+        if span == 3.0:
+            offsets = om[..., :18].contiguous()
+            masks = torch.sigmoid(om[..., 18:]).contiguous()
+
+            def matmul():
+                return (dy.view(-1, O) @ weight).view(B, H, W, 9 * C)
+
+            def pair():
+                return deform_conv.deform_sample_bwd_cuda(x, offsets, masks, matmul())
+
+            row.update(ms=cold_ms(lambda: deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)),
+                       matmul_ms=cold_ms(matmul), pair_ms=cold_ms(pair),
+                       plain_ms=cold_ms(lambda: deform_conv.plain_deform_conv_dgrad(x, om, weight, dy),
+                                        iters=5, warmup=1))
+        dgrad_rows.append(row)
+        print("deform_conv_dgrad " + json.dumps(row))
+        del x, om, weight, dy, dx, dom, rdx, rdom
+    report["deform_conv_dgrad_shapes"] = dgrad_rows
 
     def dcn_inputs(H, W, C, O, dtype, B=1):
         x = torch.randn(B, H, W, C, generator=gen, device=dev)
@@ -635,7 +700,7 @@ def main() -> int:
         raise AssertionError(f"eval harness on noisy ground truth: {kp} {pm}")
 
     # ---- 11. training ------------------------------------------------------
-    train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd_rows)
+    train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches)
     report["training"] = train
 
     # ---- 12. kernels line --------------------------------------------------
@@ -683,12 +748,17 @@ def main() -> int:
             entry["library_ms_note"] = "no single PyTorch call computes this function"
         kernels.append(entry)
     # the training kernels, read from the train_demo run (per step)
-    rates.update(biased_attention_bwd="67 TFLOP/s float32 FMA", deform_sample_bwd="67 TFLOP/s float32 FMA")
+    # (deform_sample_bwd launches 0 times per step since deform_conv_dgrad;
+    # its per-step sums are those of the route it was on, for comparison)
+    rates.update(biased_attention_bwd="67 TFLOP/s float32 FMA", deform_sample_bwd="67 TFLOP/s float32 FMA",
+                 deform_conv_dgrad="165 TFLOP/s 3xTF32 (495 / 3)")
     for name, rows, source, replaces in (
         ("deform_sample", dcn_rows, "sgtapose_tpu_torch/csrc/deform_sample.cu",
          "sgtapose_tpu/models/deform_conv.py:104"),
         ("biased_attention_bwd", train["attention_bwd_shapes"], "sgtapose_tpu_torch/csrc/biased_attention_bwd.cu",
          "sgtapose_tpu/ops/attention_kernel.py:145"),
+        ("deform_conv_dgrad", dgrad_rows, "sgtapose_tpu_torch/csrc/deform_conv_bwd.cu",
+         "sgtapose_tpu/models/deform_conv.py:188"),
         ("deform_sample_bwd", dcn_bwd_rows, "sgtapose_tpu_torch/csrc/deform_sample_bwd.cu",
          "sgtapose_tpu/models/deform_conv.py:130"),
     ):
@@ -705,7 +775,16 @@ def main() -> int:
             "library_ms": per_frame(rows, "library_ms", "per_step"),
             "profiled_ms_per_step": train["profiled"]["kernel_ms_per_step"][name],
         }
-        if name.startswith("deform_sample"):
+        if name == "deform_conv_dgrad":
+            entry["pair_ms"] = per_frame(rows, "pair_ms", "per_step")
+            entry["matmul_ms"] = per_frame(rows, "matmul_ms", "per_step")
+            entry["ms_zero_offsets"] = sum(
+                r["ms"] * n for r in rows if r["offsets"] == 0.0
+                for H_, C_, O_, n in DCN_NODES if (r["H"], r["C"], r["O"]) == (H_, C_, O_))
+            entry["offsets_note"] = "ms, pair_ms, plain_ms at offsets in [-3, 3] px"
+        if name == "deform_sample_bwd":
+            entry["note"] = "off the path since deform_conv_dgrad; ms summed over the 16 nodes it ran on"
+        if name.startswith("deform"):
             entry["library_ms_note"] = "no single PyTorch call computes this function"
         else:
             entry["library_ms_note"] = "backward of F.scaled_dot_product_attention with a float mask"
@@ -723,7 +802,7 @@ def main() -> int:
     return 0
 
 
-def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd_rows):
+def training_phase(torch, dev, gen, cfg, cold_ms, no_launches):
     """Phase 11 (module docstring): the attention backward kernel against
     its plain version, the full-width gradient card vs CPU, the fixed-batch
     steps, the train_demo run with its eval, and a profiled step."""
@@ -746,12 +825,15 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd
     # (n, d, backward launches per step): levels 0 and 1 feed no head (the
     # decoder starts at level 2), so autograd runs only level 2's backward,
     # once per tied layer
+    # level 2 and the ragged (100, 8) take the cluster path, also at B = 1, 2
     shapes = []
     for i in range(3):
         kernel = cfg.model.kernel_list[i]
         n = cfg.model.num_classes * cfg.model.k_list[i] * (1 + 2 * (kernel // 2)) ** 2
         shapes.append((n, 4 * 2 ** i, n_layers if i == 2 else 0, TRAIN_BATCH))
-    shapes.append((100, 8, 0, 2))  # ragged n, not on the main path
+        if i == 2:
+            shapes += [(n, 16, 0, 1), (n, 16, 0, 2)]
+    shapes += [(100, 8, 0, B) for B in (1, 2, TRAIN_BATCH)]  # ragged n, not on the main path
     rows = []
     for n, d, per_step, B in shapes:
         q, k, v, dout = (torch.randn(B, h, n, d, generator=gen, device=dev) for _ in range(4))
@@ -765,7 +847,8 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd
             raise AssertionError(f"attention backward n={n} d={d} B={B}: rel errors {errs} > {BWD_REL_TOL}")
         again = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"attention backward n={n} d={d}: two runs differ (it has no atomics)")
+            raise AssertionError(f"attention backward n={n} d={d} B={B}: two runs differ (no atomics: "
+                                 "dbias must be the same bit for bit)")
         # SDPA with a float mask that requires grad: its backward alone
         qs, ks, vs, bs = (t.detach().clone().requires_grad_() for t in (q, k, v, bias))
         y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bs)
@@ -773,7 +856,8 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd
         # once; ~10d + 5 FLOPs per (b, head, i, j) (S and dP recomputed, dS,
         # three d-long products)
         b_ms, b_by = bound_ms(4 * (2 * h * n * n + 8 * B * h * n * d), B * h * n * n * (10 * d + 5))
-        row = dict(n=n, d=d, B=B, per_step=per_step, rel_err=errs,
+        row = dict(n=n, d=d, B=B, per_step=per_step, rel_err=errs, dbias_bitwise_equal=True,
+                   path="cluster" if attention_kernel.bwd_uses_cluster(n, d) else "two_pass",
                    max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
                    ms=cold_ms(lambda: attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)),
                    plain_ms=cold_ms(lambda: attention_kernel.plain_biased_attention_backward(q, k, v, bias, o, dout)),
@@ -816,7 +900,7 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd
         out[f"grad_{where}_seconds"] = time.perf_counter() - t0
         grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
     expect = dict(no_launches, biased_attention=3 * n_layers, biased_attention_bwd=n_layers,
-                  deform_conv=16, deform_sample=16, deform_sample_bwd=16)
+                  deform_conv=16, deform_sample=16, deform_conv_dgrad=16)
     if launched != expect:
         raise AssertionError(f"gradient step launches {launched}, expected {expect}")
     ref = grads["cpu_float64"]
@@ -889,7 +973,7 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, dcn_rows, dcn_bwd
     counts = build.launch_counts()
     stage_ms = timer.per_frame_ms(TRAIN_STEPS)
     expect = {"biased_attention": 3 * n_layers, "biased_attention_bwd": n_layers, "deform_conv": 16,
-              "deform_sample": 16, "deform_sample_bwd": 16}
+              "deform_sample": 16, "deform_conv_dgrad": 16, "deform_sample_bwd": 0}
     per_step = {kn: counts[kn] / TRAIN_STEPS for kn in expect}
     if per_step != expect:
         raise AssertionError(f"train_demo launches per step {per_step}, expected {expect}")

@@ -14,7 +14,35 @@
 //   dbias = sum_b dS   (summed over the batch in a fixed order, no atomics,
 //                       so a training step is reproducible)
 //
-// Two kernels, launched back to back by one entry point:
+// Two paths behind one entry point; the caller picks one by shared-memory
+// size (ops/attention_kernel.py: bwd_uses_cluster).
+//
+// The one-pass cluster path, for every (n, d) whose whole (batch, head)
+// problem fits in one block's shared memory (level 2 of the flagship,
+// (63, 16), the only level whose backward training runs, ~86 KB):
+//   * one block per (batch element, head), the blocks of one head grouped in
+//     a thread-block cluster along the batch (up to 8, the portable size;
+//     for B > 8 rank r takes b = r, r + 8, ... in order);
+//   * the block stages q, k, v, O and dO of its (b, head) (K and V rows
+//     padded to d + 4 floats, so the lanes' float4 reads of 8 keys fall on
+//     distinct banks) and the head's bias tile, once for all its b;
+//   * a row phase, one of the block's 16 warps per query row, lanes strided
+//     over the keys: logits, max, sum, then P and dS into two n x n tiles,
+//     and dS added into the block's own dbias tile (the same warp and lane
+//     own an element for every b, so its sum runs in b order);
+//   * a column phase: one thread per row of dq, dk and dv, each a length-n
+//     sum over a column (or row) of the P or dS tile against broadcast rows
+//     of K, q or dO, written once (no lse or D round trip through device
+//     memory, no second kernel);
+//   * dbias: after a cluster barrier, rank r owns a band of rows and adds the
+//     ranks' dbias tiles 0 .. 7 in rank order through distributed shared
+//     memory, then writes the band once.
+// What bounds it on an H100: bytes, ~2.3 MB at level 2, batch 8 (0.7 us);
+// the block's latency chain (a cold load, two phases, a cluster barrier) is
+// what remains, not work.
+//
+// The two-pass path, for larger n (levels 0 and 1, which training never
+// differentiates), launched back to back by the same entry point:
 //   * the row pass: one block per (head, tile of 8 query rows), one warp per
 //     row, lanes strided over the keys. The tile's bias rows are read once
 //     into shared memory and serve every batch element; for each b (in
@@ -31,23 +59,26 @@
 //     coalesced line a row) in shared memory; each lane accumulates dk_j and
 //     dv_j in registers and the 8 warps' sums are added in shared memory.
 //
-// What bounds it on an H100: at level 0 of the flagship ((n, d) = (1183, 4),
+// What bounds the two-pass path on an H100: at level 0 of the flagship ((n, d) = (1183, 4),
 // 8 heads, batch 8) operations: ~10d + 5 FLOPs per (b, head, i, j) are 4.0
 // GFLOP, ~60 us at 67 TFLOP/s, against ~99 MB of bytes (the bias read once,
 // dbias written once, q, k, v, O, dO and the gradients), ~30 us at
 // 3.35 TB/s. At level 2, the only level whose backward training runs
-// ((63, 16)), bytes: 2.3 MB, ~0.7 us. This first design is simple and right
-// rather than fast: the row pass re-reads K and V of each (b, head) for every
-// tile (from L2) and walks the batch in series; the column pass re-reads the
-// bias for every b (from L2 when the b blocks of one tile run together).
+// ((63, 16)), bytes (the cluster path's case). This design is simple and
+// right rather than fast: the row pass re-reads K and V of each (b, head) for
+// every tile (from L2) and walks the batch in series; the column pass re-reads
+// the bias for every b (from L2 when the b blocks of one tile run together).
 // q, k, v, O and dO rows are read as float4 (they start on 16-byte lines,
 // as the forward requires).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -56,6 +87,9 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int RS = kWarps;  // query rows per row-pass block: one per warp
 constexpr int CT = 32;      // keys per column-pass block: one per lane
 constexpr int CR = 32;      // query rows per column-pass staging round
+constexpr int kMaxCluster = 8;  // portable cluster size
+constexpr int kCWarps = 16;     // the cluster path's block: one (batch, head) problem
+constexpr int kCThreads = 32 * kCWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x for x <= 0: one MUFU.EX2 (results below 2^-126 flush to 0)
@@ -65,6 +99,22 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// asynchronous copies global -> shared (16 or 4 bytes), waited for with
+// cp_async_wait before the barrier that publishes them
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
 // the D floats of a row that starts on a 16-byte line
 template <int D>
 __device__ __forceinline__ void load_row(const float* __restrict__ p, float (&r)[D]) {
@@ -73,6 +123,21 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p, float (&r)
     const float4 u = __ldg(reinterpret_cast<const float4*>(p) + c);
     r[4 * c] = u.x; r[4 * c + 1] = u.y; r[4 * c + 2] = u.z; r[4 * c + 3] = u.w;
   }
+}
+
+// a . b for b a 16-byte aligned row in shared memory
+template <int D>
+__device__ __forceinline__ float dot4(const float (&a)[D], const float* b) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) {
+    const float4 u = reinterpret_cast<const float4*>(b)[c];
+    s = fmaf(a[4 * c], u.x, s);
+    s = fmaf(a[4 * c + 1], u.y, s);
+    s = fmaf(a[4 * c + 2], u.z, s);
+    s = fmaf(a[4 * c + 3], u.w, s);
+  }
+  return s;
 }
 
 template <int D>
@@ -266,6 +331,167 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// shared-memory floats of the cluster path (ops/attention_kernel.py:
+// bwd_cluster_smem_bytes mirrors it)
+size_t cluster_floats(int n, int d) {
+  return 2 * (size_t)n * (d + 4) + 3 * (size_t)n * d + 4 * (size_t)n * n + n;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kCThreads)
+    biased_attention_bwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v, const float* __restrict__ bias,
+                                        const float* __restrict__ out, const float* __restrict__ dout,
+                                        float* __restrict__ dq, float* __restrict__ dk,
+                                        float* __restrict__ dv, float* __restrict__ dbias, int B,
+                                        int heads, int n, float scale) {
+  constexpr int DP = D + 4;  // padded K and V rows
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;          // [n][DP]
+  float* vs = ks + n * DP;   // [n][DP]
+  float* qs = vs + n * DP;   // [n][D]
+  float* os = qs + n * D;    // [n][D] the forward's output
+  float* gs = os + n * D;    // [n][D] dO
+  float* bs = gs + n * D;    // [n][n] the head's bias
+  float* ps = bs + n * n;    // [n][n] P of the current b
+  float* dss = ps + n * n;   // [n][n] dS of the current b
+  float* acc = dss + n * n;  // [n][n] this block's dbias: dS summed over its b
+  const int rank = blockIdx.x, cs = gridDim.x;  // one cluster spans the x extent
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lt = tid & 31;
+  const float* bias_h = bias + (size_t)h * n * n;
+  for (int e = tid; e < n * n; e += kCThreads) {
+    cp_async4(bs + e, bias_h + e);
+    acc[e] = 0.f;
+  }
+  for (int b = rank; b < B; b += cs) {
+    const size_t bh = (size_t)b * heads + h;
+    __syncthreads();  // the previous b's tiles are no longer read
+    for (int e = tid; e < n * D / 4; e += kCThreads) {
+      const int row = 4 * e / D, c = 4 * e % D;
+      const size_t at = bh * n * D + 4 * e;
+      cp_async16(qs + 4 * e, q + at);
+      cp_async16(os + 4 * e, out + at);
+      cp_async16(gs + 4 * e, dout + at);
+      cp_async16(ks + row * DP + c, k + at);
+      cp_async16(vs + row * DP + c, v + at);
+    }
+    cp_async_wait();  // this b's rows (and the first time, the bias)
+    __syncthreads();
+    // row phase: one warp per query row, lanes strided over the keys
+    for (int i = warp; i < n; i += kCWarps) {
+      float qr[D], gr[D];  // the same addresses in every lane: broadcasts
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        qr[c] = qs[i * D + c];
+        gr[c] = gs[i * D + c];
+      }
+      const float* brow = bs + i * n;
+      float* prow = ps + i * n;
+      float* drow = dss + i * n;
+      float* arow = acc + i * n;
+      float m = -INFINITY;
+      for (int j = lt; j < n; j += 32) {
+        const float s = fmaf(dot4<D>(qr, ks + j * DP), scale, brow[j]);
+        prow[j] = s;
+        m = fmaxf(m, s);
+      }
+      m = warp_max(m);
+      const float neg_m2 = -m * kLog2e;
+      float l = 0.f;
+      for (int j = lt; j < n; j += 32) {
+        const float p = exp2_ftz(fmaf(prow[j], kLog2e, neg_m2));
+        prow[j] = p;
+        l += p;
+      }
+      l = warp_sum(l);
+      const float inv_l = 1.f / l;
+      const float dlt = dot4<D>(gr, os + i * D);
+      for (int j = lt; j < n; j += 32) {
+        const float p = prow[j] * inv_l;
+        const float ds = p * (dot4<D>(gr, vs + j * DP) - dlt);
+        prow[j] = p;
+        drow[j] = ds;
+        arow[j] += ds;
+      }
+    }
+    __syncthreads();
+    // column phase: one thread per row of dq, dk or dv; each step of its
+    // length-n sum reads one P or dS element and one broadcast row of K, q
+    // or dO for its d products
+    for (int e = tid; e < 3 * n; e += kCThreads) {
+      const int which = e / n, r = e % n;
+      float a[D];
+#pragma unroll
+      for (int c = 0; c < D; ++c) a[c] = 0.f;
+      const float* tile = which == 2 ? ps : dss;
+      const float* rows = which == 0 ? ks : (which == 1 ? qs : gs);
+      const int pitch = which == 0 ? DP : D;
+      for (int j = 0; j < n; ++j) {
+        const float w = which == 0 ? tile[r * n + j] : tile[j * n + r];
+        const float4* row = reinterpret_cast<const float4*>(rows + j * pitch);
+#pragma unroll
+        for (int c = 0; c < D / 4; ++c) {
+          const float4 u = row[c];
+          a[4 * c] = fmaf(w, u.x, a[4 * c]);
+          a[4 * c + 1] = fmaf(w, u.y, a[4 * c + 1]);
+          a[4 * c + 2] = fmaf(w, u.z, a[4 * c + 2]);
+          a[4 * c + 3] = fmaf(w, u.w, a[4 * c + 3]);
+        }
+      }
+      float* dst = (which == 0 ? dq : (which == 1 ? dk : dv)) + (bh * n + r) * D;
+      const float mul = which == 2 ? 1.f : scale;
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c)
+        reinterpret_cast<float4*>(dst)[c] =
+            make_float4(a[4 * c] * mul, a[4 * c + 1] * mul, a[4 * c + 2] * mul, a[4 * c + 3] * mul);
+    }
+  }
+  // dbias: rank r adds the ranks' tiles over its band of rows in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int r0 = n * rank / cs, r1 = n * (rank + 1) / cs;
+  float* dbias_h = dbias + (size_t)h * n * n;
+  for (int e = r0 * n + tid; e < r1 * n; e += kCThreads) {
+    float part[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) part[r] = r < cs ? cluster.map_shared_rank(acc, r)[e] : 0.f;
+    float s = part[0];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r) s += part[r];
+    dbias_h[e] = s;
+  }
+  cluster.sync();  // no block leaves while another reads its tile
+}
+
+template <int D>
+int launch_cluster(const float* q, const float* k, const float* v, const float* bias,
+                   const float* out, const float* dout, float* dq, float* dk, float* dv,
+                   float* dbias, int B, int heads, int n, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * cluster_floats(n, D);
+  if (smem > 227 * 1024 || heads > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(biased_attention_bwd_cluster_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int cs = B < kMaxCluster ? B : kMaxCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, heads, 1);
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, biased_attention_bwd_cluster_kernel<D>, q, k, v, bias, out, dout,
+                         dq, dk, dv, dbias, B, heads, n, 1.f / sqrtf((float)D));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* bias, const float* out,
            const float* dout, float* dq, float* dk, float* dv, float* dbias, float* lse,
@@ -294,12 +520,13 @@ int launch(const float* q, const float* k, const float* v, const float* bias, co
 }  // namespace
 
 // float32 q, k, v, out, dout (B, heads, n, d), bias (heads, n, n) -> dq, dk, dv
-// (B, heads, n, d), dbias (heads, n, n); lse and delta (B, heads, n) are scratch
-// the row pass fills for the column pass
+// (B, heads, n, d), dbias (heads, n, n). cluster != 0 takes the one-pass
+// cluster path (lse and delta unused); else the two-pass path, for which lse
+// and delta (B, heads, n) are scratch the row pass fills for the column pass
 extern "C" int biased_attention_bwd(const void* q, const void* k, const void* v, const void* bias,
                                     const void* out, const void* dout, void* dq, void* dk, void* dv,
                                     void* dbias, void* lse, void* delta, int B, int heads, int n,
-                                    int d, void* stream) {
+                                    int d, int cluster, void* stream) {
   if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
@@ -313,8 +540,12 @@ extern "C" int biased_attention_bwd(const void* q, const void* k, const void* v,
                  static_cast<float*>(dbias), static_cast<float*>(lse), static_cast<float*>(delta)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-#define CASE(DD) \
-  case DD: return launch<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2], o[3], o[4], o[5], B, heads, n, s);
+#define CASE(DD)                                                                                 \
+  case DD:                                                                                       \
+    return cluster ? launch_cluster<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2],   \
+                                        o[3], B, heads, n, s)                                    \
+                   : launch<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2], o[3], o[4], \
+                                o[5], B, heads, n, s);
     CASE(4)
     CASE(8)
     CASE(16)

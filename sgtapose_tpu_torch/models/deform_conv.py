@@ -19,13 +19,18 @@ bf16 product (`sgtapose_tpu/models/deform_conv.py:92-99`).
 `deform_conv` is a `torch.autograd.Function` (float32 training; a bf16
 backward raises). Its backward, the counterpart of the JAX custom VJP
 `_dsb_bwd` / `_bwd_core` plus the 1x1 contraction's gradient that XLA
-derives: the sampled columns recomputed by the sampler alone
-(`csrc/deform_sample.cu`, which the detector does not launch), the weight
-and bias gradients and the columns' cotangent as plain products
-(`torch.matmul`, as XLA computes them outside any kernel), then
-`csrc/deform_sample_bwd.cu` for the feature gradient and the gradient of the
-raw offset/mask conv output. CPU tensors take the plain versions (the
-sampler mirrors the JAX `_sample_pieces`, its backward `_bwd_core`).
+derives: the data gradients (dx and the gradient of the raw offset/mask conv
+output) in one kernel, `csrc/deform_conv_bwd.cu` (`deform_conv_dgrad`: the
+columns' cotangent dY W formed on the tensor cores and added into dx through
+a shared-memory halo tile, never written to device memory); the weight and
+bias gradients from the columns recomputed by the sampler alone
+(`csrc/deform_sample.cu`, which the detector does not launch) and plain
+products (`torch.matmul`, as XLA computes them outside any kernel). The
+unfused route for the data gradient, the product dY W then
+`csrc/deform_sample_bwd.cu`, stays as a wrapper the card is timed against;
+the backward does not launch it. CPU tensors take the plain versions (the
+sampler mirrors the JAX `_sample_pieces`, its backward `_bwd_core`;
+`tiled_deform_scatter` mirrors the kernel's halo split).
 """
 
 from __future__ import annotations
@@ -39,6 +44,18 @@ KERNEL = "deform_sample"
 CONV_KERNEL = "deform_conv"
 CONV_KERNEL_BF16 = "deform_conv_bf16"
 BWD_KERNEL = "deform_sample_bwd"
+DGRAD_KERNEL = "deform_conv_dgrad"
+# the data-gradient kernel's pixel tile side and the offsets its shared-memory
+# halo tile covers (csrc/deform_conv_bwd.cu: T, HALO)
+DGRAD_TILE, DGRAD_HALO = 8, 3
+
+
+def dgrad_scratch_floats(C: int, O: int) -> int:
+    """Floats of the data-gradient kernel's pre-split weight: a tf32 hi and
+    lo plane of 9 x 16 channels x 32 outputs (4608 floats each) per
+    16-channel chunk and 32-output step (csrc/deform_conv_bwd.cu: CC, BK,
+    B_TILE)."""
+    return -(-C // 16) * -(-O // 32) * 2 * 4608
 
 
 def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -237,26 +254,129 @@ def deform_conv_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def plain_deform_conv_dgrad(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                            dy: torch.Tensor):
+    """The data gradients (dx (B,H,W,C), dom (B,H,W,27)) of `plain_deform_conv`
+    (float32) given dy (B,H,W,O): the columns' cotangent dy W, the sampling
+    backward, and the mask logits' sigmoid derivative."""
+    B, H, W, C = x.shape
+    masks = torch.sigmoid(om[..., 18:27])
+    dcols = (dy.reshape(-1, weight.shape[0]) @ weight).reshape(B, H, W, 9 * C)
+    dx, doffsets, dmask = plain_deform_sample_backward(x, om[..., :18], masks, dcols)
+    return dx, torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
+
+
+def deform_conv_dgrad_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                           dy: torch.Tensor):
+    """Launch the fused data-gradient kernel on the current stream (CUDA
+    tensors, float32): (dx, dom) of `plain_deform_conv_dgrad`."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B,H,W,C), got {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    if weight.dim() != 2 or weight.shape[1] != 9 * C:
+        raise ValueError(f"weight must be (O, 9*C) = (O, {9 * C}), got {tuple(weight.shape)}")
+    O = weight.shape[0]
+    expect = {"om": (B, H, W, 27), "dy": (B, H, W, O)}
+    for name, t in (("x", x), ("om", om), ("weight", weight), ("dy", dy)):
+        if name in expect and tuple(t.shape) != expect[name]:
+            raise ValueError(f"{name} must be {expect[name]} for x {tuple(x.shape)}, got {tuple(t.shape)}")
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if B * H * W >= 2 ** 31 or O * 9 * C >= 2 ** 31:
+        raise ValueError(f"x {tuple(x.shape)} with O={O} exceeds the kernel's 32-bit indices")
+    dx = torch.zeros_like(x)
+    dom = torch.empty((B, H, W, 27), dtype=torch.float32, device=x.device)
+    wsplit = torch.empty(dgrad_scratch_floats(C, O), dtype=torch.float32, device=x.device)
+    fn = build.kernel_fn(DGRAD_KERNEL)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), om.data_ptr(), weight.data_ptr(), wsplit.data_ptr(), dy.data_ptr(),
+                 dx.data_ptr(), dom.data_ptr(), B, H, W, C, O, stream)
+    build.check(DGRAD_KERNEL, err)
+    build.count_launch(DGRAD_KERNEL)
+    return dx, dom
+
+
+def tiled_deform_scatter(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                         grad: torch.Tensor, tile: int = DGRAD_TILE, halo: int = DGRAD_HALO):
+    """The data-gradient kernel's scatter of dfeat in plain PyTorch: each
+    output pixel belongs to a tile x tile block of its image, whose halo tile
+    of side tile + 2 halo + 3 starts at the block's corner minus (1 + halo).
+    A corner inside the halo adds into the block's halo tile (the kernel
+    gathers each cell's contributions from a list sorted by cell), which is
+    then added into dfeat; a corner outside it adds into dfeat directly. Returns
+    (dfeat (B,H,W,C), the share of the non-zero contributions that went
+    through the halo tiles); dfeat equals that of
+    `plain_deform_sample_backward` up to the order of the additions."""
+    B, H, W, C = feat.shape
+    dev = feat.device
+    hs = tile + 2 * halo + 3
+    ty, tx = -(-H // tile), -(-W // tile)
+    py = torch.arange(H, device=dev)[:, None, None].expand(H, W, 9)
+    px = torch.arange(W, device=dev)[None, :, None].expand(H, W, 9)
+    taps = torch.arange(9, device=dev)
+    off = offsets.reshape(B, H, W, 9, 2)
+    y = (py + taps // 3 - 1).to(torch.float32)[None] + off[..., 0]
+    x = (px + taps % 3 - 1).to(torch.float32)[None] + off[..., 1]
+    y0, x0 = torch.floor(y), torch.floor(x)
+    fy, fx = y - y0, x - x0
+    y0i, x0i = y0.to(torch.int64), x0.to(torch.int64)
+    # the block of each output pixel and its halo origin
+    hy0 = (py // tile) * tile - 1 - halo
+    hx0 = (px // tile) * tile - 1 - halo
+    bimg = torch.arange(B, device=dev)[:, None, None, None]
+    block = (bimg * ty + (py // tile)[None]) * tx + (px // tile)[None]
+    dsamp = grad.reshape(B, H, W, 9, C) * masks[..., None]
+    dfeat = torch.zeros(B * H * W, C, dtype=feat.dtype, device=dev)
+    tiles = torch.zeros(B * ty * tx * hs * hs, C, dtype=feat.dtype, device=dev)
+    in_halo = total = 0
+    for dy, dx, w in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                      (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+        yi, xi = y0i + dy, x0i + dx
+        valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W) & (w != 0)
+        hy, hx = yi - hy0[None], xi - hx0[None]
+        inside = valid & (hy >= 0) & (hy < hs) & (hx >= 0) & (hx < hs)
+        outside = valid & ~inside
+        upd = dsamp * w[..., None]
+        gidx = (bimg * H + yi.clamp(0, H - 1)) * W + xi.clamp(0, W - 1)
+        dfeat.index_add_(0, gidx[outside], upd[outside])
+        tidx = (block.expand_as(hy) * hs + hy.clamp(0, hs - 1)) * hs + hx.clamp(0, hs - 1)
+        tiles.index_add_(0, tidx[inside], upd[inside])
+        in_halo += int(inside.sum())
+        total += int(valid.sum())
+    # flush: every halo cell inside the map into dfeat
+    cell = torch.arange(hs, device=dev)
+    by = torch.arange(ty, device=dev) * tile - 1 - halo
+    bx = torch.arange(tx, device=dev) * tile - 1 - halo
+    cy = (by[:, None, None, None] + cell[None, None, :, None]).expand(ty, tx, hs, hs)
+    cx = (bx[None, :, None, None] + cell[None, None, None, :]).expand(ty, tx, hs, hs)
+    keep = ((cy >= 0) & (cy < H) & (cx >= 0) & (cx < W))[None].expand(B, -1, -1, -1, -1)
+    gidx = (bimg[..., None] * H + cy.clamp(0, H - 1)[None]) * W + cx.clamp(0, W - 1)[None]
+    dfeat.index_add_(0, gidx[keep], tiles.reshape(B, ty, tx, hs, hs, C)[keep])
+    return dfeat.reshape(B, H, W, C), in_halo / max(total, 1)
+
+
 def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
     """Gradients (dx, dom, dweight, dbias) of `plain_deform_conv` (float32)
-    given dy (B,H,W,O): the columns recomputed by the sampler, the plain
-    products (full float32 unless the caller turned TF32 matmuls on), then
-    the sampling backward. CUDA tensors launch the sampler and
-    `deform_sample_bwd` (or raise); CPU tensors take the plain versions."""
-    B, H, W, C = x.shape
+    given dy (B,H,W,O). CUDA tensors launch `deform_conv_dgrad` for dx and dom,
+    and the sampler for the columns of dweight (or raise); CPU tensors take
+    the plain versions. dweight and dbias are plain products (full float32
+    unless the caller turned TF32 matmuls on)."""
+    C = x.shape[-1]
     O = weight.shape[0]
-    offsets = om[..., :18].contiguous()
     masks = torch.sigmoid(om[..., 18:27]).contiguous()
-    cols = deform_sample(x, offsets, masks).reshape(-1, 9 * C)
+    cols = deform_sample(x, om[..., :18].contiguous(), masks).reshape(-1, 9 * C)
     dy2 = dy.reshape(-1, O)
     dweight = dy2.t() @ cols
     dbias = dy2.sum(0)
-    dcols = (dy2 @ weight).reshape(B, H, W, 9 * C)
     if x.device.type == "cpu":
-        dx, doffsets, dmask = plain_deform_sample_backward(x, offsets, masks, dcols)
-        dom = torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
+        dx, dom = plain_deform_conv_dgrad(x, om, weight, dy)
     else:
-        dx, dom = deform_sample_bwd_cuda(x, offsets, masks, dcols)
+        dx, dom = deform_conv_dgrad_cuda(x, om, weight, dy)
     return dx, dom, dweight, dbias
 
 

@@ -1,7 +1,8 @@
 """Biased attention softmax(q k^T / sqrt(d) + bias) v: the CUDA kernels
 (`csrc/biased_attention.cu`, one forward design instantiated for float32 and
-for bf16 serving; `csrc/biased_attention_bwd.cu`, the float32 backward) and
-their plain PyTorch versions.
+for bf16 serving; `csrc/biased_attention_bwd.cu`, the float32 backward: one
+cluster launch where a (batch, head) problem fits in a block's shared memory,
+as at training's level 2, else two passes) and their plain PyTorch versions.
 
 Counterpart of `sgtapose_tpu/ops/attention_kernel.py:fused_biased_attention`
 (a Pallas TPU kernel) and of its custom VJP `_bwd_rule` (a recompute through
@@ -168,15 +169,60 @@ def biased_attention_bf16_cuda(q, k, v, bias):
 
 
 def bwd_smem_bytes(n: int, d: int) -> int:
-    """Shared memory of the backward's row pass: 8 bias rows, their 8 dbias
-    rows, and K and V of one (batch, head)."""
+    """Shared memory of the two-pass backward's row pass: 8 bias rows, their
+    8 dbias rows, and K and V of one (batch, head)."""
     return 4 * (2 * _ROWS * n + 2 * n * d)
+
+
+# the backward's cluster path (csrc/biased_attention_bwd.cu): one block per
+# (batch element, head), up to 8 batch elements per cluster
+BWD_CLUSTER = 8
+
+
+def bwd_cluster_smem_bytes(n: int, d: int) -> int:
+    """Shared memory of the backward's one-pass cluster path: K and V of one
+    (batch, head) in rows padded to d + 4 floats, q, O and dO, the head's
+    bias, P, dS and the block's dbias sum (n x n each), and D (n)."""
+    return 4 * (2 * n * (d + 4) + 3 * n * d + 4 * n * n + n)
+
+
+def bwd_uses_cluster(n: int, d: int) -> bool:
+    """The backward's path: one cluster launch when a whole (batch, head)
+    problem fits in one block's shared memory (level 2 of the flagship,
+    (63, 16), and (100, 8)), else the two-pass kernels (levels 0 and 1)."""
+    return bwd_cluster_smem_bytes(n, d) <= _SMEM_LIMIT
+
+
+def cluster_biased_attention_backward(q, k, v, bias, out, dout, cluster: int = BWD_CLUSTER):
+    """The cluster path's dbias order in plain PyTorch: rank r of a cluster
+    of min(B, cluster) blocks sums dS of b = r, r + cluster, ... in order,
+    and the ranks' sums are added in rank order. dq, dk and dv are those of
+    `plain_biased_attention_backward`, whose dbias this equals up to the
+    order of the float32 additions."""
+    dq, dk, dv, _ = plain_biased_attention_backward(q, k, v, bias, out, dout)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.einsum("bhid,bhjd->bhij", q, k) * scale + bias, dim=-1)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhid,bhjd->bhij", dout, v) - delta)
+    B = q.shape[0]
+    cs = min(B, cluster)
+    ranks = []
+    for r in range(cs):
+        acc = torch.zeros_like(bias)
+        for b in range(r, B, cs):
+            acc = acc + ds[b]
+        ranks.append(acc)
+    dbias = ranks[0]
+    for acc in ranks[1:]:
+        dbias = dbias + acc
+    return dq, dk, dv, dbias
 
 
 def biased_attention_bwd_cuda(q, k, v, bias, out, dout):
     """Launch the float32 backward on the current stream (CUDA tensors only):
     (dq, dk, dv, dbias) of `plain_biased_attention_backward`, dbias summed
-    over the batch in a fixed order (no atomics)."""
+    over the batch in a fixed order (no atomics). One launch either way: the
+    cluster path where `bwd_uses_cluster`, else the two-pass kernels."""
     _check(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_bwd_cuda needs CUDA tensors")
@@ -186,18 +232,20 @@ def biased_attention_bwd_cuda(q, k, v, bias, out, dout):
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("q, k, v, out, dout must start on a 16-byte boundary (rows are read as float4)")
     B, h, n, d = q.shape
+    cluster = bwd_uses_cluster(n, d)
     smem = bwd_smem_bytes(n, d)
-    if smem > _SMEM_LIMIT:
+    if not cluster and smem > _SMEM_LIMIT:
         raise ValueError(f"n={n}, d={d}: the backward needs {smem} B of shared memory, more than {_SMEM_LIMIT}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
-    lse, delta = (torch.empty((B, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
+    scratch = 0 if cluster else (B, h, n)
+    lse, delta = (torch.empty(scratch, dtype=torch.float32, device=q.device) for _ in range(2))
     fn = build.kernel_fn(BWD_KERNEL)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), B, h, n, d, stream)
+                 lse.data_ptr(), delta.data_ptr(), B, h, n, d, int(cluster), stream)
     build.check(BWD_KERNEL, err)
     build.count_launch(BWD_KERNEL)
     return dq, dk, dv, dbias

@@ -41,6 +41,7 @@ KERNEL_SOURCES = {
     "deform_conv_bf16": "deform_conv.cu",
     "biased_attention_bwd": "biased_attention_bwd.cu",
     "deform_sample_bwd": "deform_sample_bwd.cu",
+    "deform_conv_dgrad": "deform_conv_bwd.cu",
 }
 
 NVCC_FLAGS = (
@@ -63,10 +64,12 @@ _SIGNATURES = {
     "biased_attention_bf16": ("biased_attention_bf16_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # x, om, weight, bias, out, B, H, W, C, O, stream (all bf16)
     "deform_conv_bf16": ("deform_conv_bf16_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # q, k, v, bias, out, dout, dq, dk, dv, dbias, lse, delta, B, heads, n, d, stream
-    "biased_attention_bwd": ("biased_attention_bwd", [_P] * 12 + [_I, _I, _I, _I, _P]),
+    # q, k, v, bias, out, dout, dq, dk, dv, dbias, lse, delta, B, heads, n, d, cluster, stream
+    "biased_attention_bwd": ("biased_attention_bwd", [_P] * 12 + [_I, _I, _I, _I, _I, _P]),
     # feat, offsets, masks, grad, dfeat, dom, B, H, W, C, stream
     "deform_sample_bwd": ("deform_sample_bwd", [_P] * 6 + [_I, _I, _I, _I, _P]),
+    # x, om, weight, wsplit (scratch), dy, dx, dom, B, H, W, C, O, stream
+    "deform_conv_dgrad": ("deform_conv_dgrad", [_P] * 7 + [_I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -28,6 +28,8 @@ KERNEL_MODULES = {
                              "plain_biased_attention_backward", "biased_attention_bwd_cuda"),
     "deform_sample_bwd": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample_backward",
                           "deform_sample_bwd_cuda"),
+    "deform_conv_dgrad": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv_dgrad",
+                          "deform_conv_dgrad_cuda"),
 }
 
 
@@ -52,5 +54,6 @@ def test_every_kernel_has_its_plain_version(name):
     mod = importlib.import_module(module)
     assert callable(getattr(mod, plain)) and callable(getattr(mod, wrapper))
     names = {getattr(mod, a, None)
-             for a in ("KERNEL", "KERNEL_BF16", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL")}
+             for a in ("KERNEL", "KERNEL_BF16", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
+                      "DGRAD_KERNEL")}
     assert name in names

@@ -195,8 +195,9 @@ def test_kernels_refuse_other_dtypes(dev):
 # Backward kernels (float32 training) against their plain versions. The
 # attention backward recomputes the probabilities with the fast exp2 and sums
 # in another order: within 1e-4 of max(1, max|ref|) per gradient. The DCN
-# sampling backward adds into the feature gradient with float atomics (an
-# order that changes from run to run): within 1e-4 of max(1, max|ref|).
+# backward kernels add into the feature gradient with float atomics (an order
+# that changes from run to run), the data gradient after a 3xTF32 product:
+# within 1e-4 of max(1, max|ref|).
 BWD_REL = 1e-4
 
 
@@ -205,9 +206,10 @@ def _rel_err(a, b):
 
 
 @pytest.mark.parametrize("n,d,B", [(1183, 4, 8), (343, 8, 8), (63, 16, 8), (100, 8, 2), (33, 8, 2),
-                                   (1, 4, 2)])
+                                   (1, 4, 2), (63, 16, 1), (63, 16, 9), (100, 8, 8)])
 def test_biased_attention_bwd_kernel_matches_plain(dev, n, d, B):
-    """The flagship shapes at the training batch of 8, and ragged n."""
+    """The flagship shapes at the training batch of 8, and ragged n; n <= 100
+    takes the cluster path (B = 9: a rank sums two batch elements)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(n * d + B)
     q, k, v, dout = (torch.randn(B, 8, n, d, generator=g, device=dev) for _ in range(4))
@@ -277,8 +279,37 @@ def test_training_gradients_reach_every_parameter_on_the_card(dev):
         (out_gpu * w.to(dev)).sum().backward()
         torch.cuda.synchronize()
         after = build.launch_counts()
-        bwd = "deform_sample_bwd" if mod is dcn else "biased_attention_bwd"
+        bwd = "deform_conv_dgrad" if mod is dcn else "biased_attention_bwd"
         assert after[bwd] == before[bwd] + 1
         for (name, p), q in zip(mod.named_parameters(), mod_gpu.parameters()):
             assert q.grad is not None and q.grad.abs().max().item() > 0, name
             assert _rel_err(q.grad.cpu(), p.grad) <= BWD_REL, (name, _rel_err(q.grad.cpu(), p.grad))
+
+
+# (B, H, W, C, O, offset span): the decoder's nodes at the training batch of
+# 8 (15x15 splits its channel chunks over a cluster), a ragged shape (C and O
+# not multiples of 4: the scalar-load variant), zero offsets (flax's init)
+# and offsets beyond the kernel's halo tile
+DGRAD_SHAPES = [(8, 15, 15, 512, 256, 3.0), (8, 30, 30, 256, 128, 3.0), (8, 60, 60, 128, 64, 3.0),
+                (8, 120, 120, 64, 64, 3.0), (2, 9, 11, 6, 5, 3.0), (2, 30, 30, 64, 64, 0.0),
+                (2, 30, 30, 64, 64, 12.0), (1, 17, 23, 20, 36, 5.0)]
+
+
+@pytest.mark.parametrize("B,H,W,C,O,span", DGRAD_SHAPES)
+def test_deform_conv_dgrad_kernel_matches_plain(dev, B, H, W, C, O, span):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(H * C + O)
+    x = torch.randn(B, H, W, C, generator=g, device=dev)
+    om = torch.cat([(torch.rand(B, H, W, 18, generator=g, device=dev) * 2 - 1) * span,
+                    2 * torch.randn(B, H, W, 9, generator=g, device=dev)], dim=-1)
+    weight = torch.randn(O, 9 * C, generator=g, device=dev) / (9 * C) ** 0.5
+    dy = torch.randn(B, H, W, O, generator=g, device=dev)
+    before = build.launch_counts()["deform_conv_dgrad"]
+    dx, dom = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["deform_conv_dgrad"] == before + 1
+    rdx, rdom = deform_conv.plain_deform_conv_dgrad(x, om, weight, dy)
+    assert _rel_err(dx, rdx) <= BWD_REL, _rel_err(dx, rdx)
+    assert _rel_err(dom, rdom) <= BWD_REL, _rel_err(dom, rdom)
+    _, again = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+    assert torch.equal(dom, again)  # dom has no atomics: reproducible
