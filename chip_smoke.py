@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build every CUDA kernel from sgtapose_tpu_torch/csrc (one nvcc per
      source, all started together, sm_90a);
   3. the float32 biased-attention kernel against its plain PyTorch version at
-     the flagship shapes plus a ragged n, with kernel (cold, and warm: 3
+     the flagship shapes plus a ragged n (and the key-tiled float32 kernel at
+     a 42-keypoint model's levels 0 and 1), with kernel (cold, and warm: 3
      back-to-back launches without an L2 flush, as the 3 tied layers run;
      clean: the flush read back, so no dirty lines are left to write back) /
      plain / library (F.scaled_dot_product_attention, a yardstick the port
@@ -68,14 +69,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      yardstick;
      one full-width train-step gradient (480x480, batch 1, dropout off) on
      the card and on the CPU in float32, both held against a CPU float64
-     reference (GRAD_WORST_TOL, GRAD_L2_TOL); 5 steps of `train/trainer.train_step` at 480x480, batch 8
-     on one fixed batch (the loss must fall); then `cli/train_demo.main` for
-     20 steps on fresh batches with stage times (batch build with the PnP
-     priors, forward, backward, optimizer) and launch counts asserted per
-     step (16 deform_conv_dgrad, 0 deform_sample_bwd, 3 attention
-     backward), and its eval of the trained weights (bf16 exact runner, 1 video of
-     8 frames); device time per kernel per step from torch.profiler;
- 12. a `{"kernels": [...]}` line, the card line, and last the device line
+     reference (GRAD_WORST_TOL, GRAD_L2_TOL); the same gradient with
+     BatchNorm in eval mode and the DCN offset/mask convs perturbed, so
+     non-zero offsets go through deform_conv_dgrad in the network's
+     backward, card float32 against CPU float64 (EVAL_GRAD_WORST_TOL,
+     EVAL_GRAD_L2_TOL); 5 steps of `train/trainer.train_step` at 480x480,
+     batch 8 on one fixed batch (the loss must fall); then
+     `cli/train_demo.main` for 20 steps on fresh batches with stage times
+     (batch build with the PnP priors, forward, backward, optimizer) and
+     launch counts asserted per step (16 deform_conv_dgrad, 0
+     deform_sample_bwd, 3 attention backward), its eval of the trained
+     weights (bf16 exact runner, 1 video of 8 frames) and its checkpoint
+     (--ckpt_out into a temporary directory); device time per kernel per
+     step from torch.profiler;
+ 12. the inference CLI, `cli/infer.main --device cuda` at the flagship
+     config, on datasets written by the port's own writers: (A) synthetic,
+     2 videos x 4 frames (640x360), the phase-11 checkpoint, --rf
+     --multi_frame 2 --track --debug 1: 9 biased_attention and 16
+     deform_conv launches per frame and no other kernel, every artifact
+     (CSVs, analysis text, dt_and_gt.json, both multiframe CSVs, tracks.json,
+     the 3 debug images per frame), the CLI's fps and stage times; (B)
+     DREAM-real, 2 videos x 3 frames, the second at twice the resolution:
+     two runners, every frame's ground truth counted; (C) 42-keypoint depth,
+     4 frames, random weights: per frame 3 biased_attention (level 2), 6
+     biased_attention_tiled (levels 0 and 1 exceed the shared-memory
+     kernel) and 16 deform_conv; then the card against the CPU
+     (--device cpu) on a 2-frame copy of the first video, with the
+     checkpoint and with its hm bias at 0 (peaks decode; frame 0 only):
+     sentinel patterns and track ids equal, keypoints within CLI_KP_TOL px,
+     debug heatmap blends within CLI_BLEND_TOL levels;
+ 13. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 The detector runs of phase 9 take 8 frames each (16 before the training
@@ -99,8 +122,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12
@@ -145,6 +170,24 @@ BWD_REL_TOL = 1e-4
 # in L2; the CPU's float32 53 % and 12 %. Bars for the card:
 GRAD_WORST_TOL = 0.2
 GRAD_L2_TOL = 0.01
+# The same whole-model gradient with BatchNorm in eval mode (running
+# statistics: nothing amplifies float32 rounding) and the DCN offset/mask
+# convs perturbed (offsets of a few pixels, some samples out of bounds), so
+# non-zero offsets go through deform_conv_dgrad inside the network's
+# backward: card float32 against CPU float64, per tensor relative to its
+# largest reference gradient, and over all gradients in L2:
+EVAL_GRAD_WORST_TOL = 1e-3
+EVAL_GRAD_L2_TOL = 1e-4
+# phase 12, the inference CLI on the card: synthetic videos x frames (run A),
+# DREAM-real videos x frames (run B, the second video at twice the
+# resolution), depth frames (run C, 42 classes); card vs CPU on 2 frames:
+# keypoints within CLI_KP_TOL px where valid, the debug heatmap blends
+# within CLI_BLEND_TOL uint8 levels
+CLI_VIDEOS, CLI_FRAMES = 2, 4
+REAL_VIDEOS, REAL_FRAMES = 2, 3
+DEPTH_FRAMES, DEPTH_CLASSES = 4, 42
+CLI_KP_TOL = 0.05
+CLI_BLEND_TOL = 2
 # (H, C_in, C_out, nodes per frame) of the 16 decoder DCN nodes at 480x480
 DCN_NODES = [(15, 512, 256, 1), (30, 256, 256, 1), (30, 256, 128, 2), (30, 256, 64, 1),
              (60, 128, 128, 2), (60, 128, 64, 4), (120, 64, 64, 5)]
@@ -155,7 +198,8 @@ DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "d
                 "biased_attention_bf16": "biased_attention_bf16_kernel",
                 "deform_conv_bf16": "deform_conv_bf16_kernel",
                 "biased_attention_bwd": "biased_attention_bwd_", "deform_sample_bwd": "deform_sample_bwd_kernel",
-                "deform_conv_dgrad": "deform_conv_dgrad_kernel"}
+                "deform_conv_dgrad": "deform_conv_dgrad_kernel",
+                "biased_attention_tiled": "biased_attention_tiled_kernel"}
 TRAIN_STAGES = ("batch", "forward", "backward", "optimizer")
 STAGE_NAMES = ("pnp", "render", "trunk", "fuse", "decode")
 
@@ -296,6 +340,33 @@ def main() -> int:
         attn_rows.append(row)
         print("attention " + json.dumps(row))
     report["attention_shapes"] = attn_rows
+
+    # the key-tiled float32 kernel at a 42-keypoint model's levels 0 and 1
+    # (n beyond the shared-memory kernel), as phase 12's depth run launches it
+    tiled_rows = []
+    for i in range(2):
+        kernel = cfg.model.kernel_list[i]
+        n, d = DEPTH_CLASSES * cfg.model.k_list[i] * (1 + 2 * (kernel // 2)) ** 2, 4 * 2 ** i
+        q, k, v = (torch.randn(1, h, n, d, generator=gen, device=dev) for _ in range(3))
+        bias = 0.1 * torch.randn(h, n, n, generator=gen, device=dev)
+        if attention_kernel.fits_smem(n, d):
+            raise AssertionError(f"(n, d) = {(n, d)} fits the shared-memory kernel; expected the tiled one")
+        out = attention_kernel.biased_attention_tiled_cuda(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = attention_kernel.plain_biased_attention(q, k, v, bias)
+        err = (out - ref).abs().max().item()
+        if not math.isfinite(err) or err > ATTN_TOL:
+            raise AssertionError(f"tiled attention kernel n={n} d={d}: max abs err {err} > {ATTN_TOL}")
+        b_ms, b_by = bound_ms(4 * (4 * h * n * d + h * n * n), h * n * n * (4 * d + 4))
+        row = dict(n=n, d=d, per_frame=n_layers, max_abs_err=err,
+                   ms=cold_ms(lambda: attention_kernel.biased_attention_tiled_cuda(q, k, v, bias)),
+                   plain_ms=cold_ms(lambda: attention_kernel.plain_biased_attention(q, k, v, bias), iters=5),
+                   library_ms=cold_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), iters=5),
+                   bound_ms=b_ms, bound_by=b_by)
+        tiled_rows.append(row)
+        print("attention_tiled " + json.dumps(row))
+        del q, k, v, bias, out, ref
+    report["attention_tiled_shapes"] = tiled_rows
 
     # ---- 4. DCN sampling kernel and its backward vs plain -------------------
     # at the training batch: a training step launches the sampler (the
@@ -699,11 +770,18 @@ def main() -> int:
             or pm["num_pnp_found"] != T_FRAMES or pm["add_mean"] > 0.03 or pm["add_max"] > 0.06):
         raise AssertionError(f"eval harness on noisy ground truth: {kp} {pm}")
 
-    # ---- 11. training ------------------------------------------------------
-    train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches)
-    report["training"] = train
+    # ---- 11. training; 12. the inference CLI on its checkpoint -------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ckpt = os.path.join(work, "train_demo.pt")
+        train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt)
+        report["training"] = train
+        cli = cli_phase(torch, ckpt, work, no_launches)
+        report["cli"] = cli
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 12. kernels line --------------------------------------------------
+    # ---- 13. kernels line --------------------------------------------------
     def per_frame(rows, key, unit="per_frame"):
         """Sum over the shapes one frame (or one training step) runs."""
         vals = [r[key] for r in rows if r[unit]]
@@ -747,6 +825,19 @@ def main() -> int:
         if name.startswith("deform_conv"):
             entry["library_ms_note"] = "no single PyTorch call computes this function"
         kernels.append(entry)
+    # the key-tiled attention, read from phase 12's depth run (per frame of a
+    # 42-keypoint model)
+    depth_launches = cli["depth"]["launches"]["biased_attention_tiled"]
+    kernels.append({
+        "name": "biased_attention_tiled", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/biased_attention.cu",
+        "replaces": "sgtapose_tpu/ops/attention_kernel.py:108", "launches": depth_launches,
+        "launches_per_frame": depth_launches // DEPTH_FRAMES,
+        "max_abs_err": max(r["max_abs_err"] for r in tiled_rows),
+        "ms": per_frame(tiled_rows, "ms"), "plain_ms": per_frame(tiled_rows, "plain_ms"),
+        "bound_ms": per_frame(tiled_rows, "bound_ms"), "bound_by": tiled_rows[0]["bound_by"],
+        "bound_rate": "3.35 TB/s HBM" if tiled_rows[0]["bound_by"] == "bytes" else rates["biased_attention"],
+        "library_ms": per_frame(tiled_rows, "library_ms"),
+        "shapes_note": "levels 0 and 1 of a 42-keypoint model (phase 12's depth run), per frame"})
     # the training kernels, read from the train_demo run (per step)
     # (deform_sample_bwd launches 0 times per step since deform_conv_dgrad;
     # its per-step sums are those of the route it was on, for comparison)
@@ -802,10 +893,11 @@ def main() -> int:
     return 0
 
 
-def training_phase(torch, dev, gen, cfg, cold_ms, no_launches):
+def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt):
     """Phase 11 (module docstring): the attention backward kernel against
-    its plain version, the full-width gradient card vs CPU, the fixed-batch
-    steps, the train_demo run with its eval, and a profiled step."""
+    its plain version, the full-width gradients card vs CPU (train mode and
+    eval mode), the fixed-batch steps, the train_demo run with its eval
+    (its trained state saved to `ckpt`), and a profiled step."""
     import copy
 
     import torch.nn.functional as F
@@ -907,13 +999,7 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches):
     if not set(grads["card"]) == set(grads["cpu"]) == set(ref):
         raise AssertionError("card, CPU and reference reach different parameters")
     live = [name for name, g in ref.items() if g.abs().max().item() > 1e-6]
-    cmp = {}
-    for where in ("card", "cpu"):
-        errs = {name: ((grads[where][name] - ref[name]).abs().max() / ref[name].abs().max()).item()
-                for name in live}
-        l2 = math.sqrt(sum(((grads[where][n] - ref[n]) ** 2).sum().item() for n in live)
-                       / sum((ref[n] ** 2).sum().item() for n in live))
-        cmp[where] = {"worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3], "l2": l2}
+    cmp = {where: grad_errors(grads[where], ref, live) for where in ("card", "cpu")}
     out["grad_vs_float64"] = dict(cmp, tensors=len(live), bars=[GRAD_WORST_TOL, GRAD_L2_TOL],
                                   input="480x480, batch 1")
     print("train-step gradient 480x480 batch 1 vs float64: " + json.dumps(out["grad_vs_float64"])
@@ -923,12 +1009,13 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches):
     if not math.isfinite(worst) or worst > GRAD_WORST_TOL or not cmp["card"]["l2"] <= GRAD_L2_TOL:
         raise AssertionError(f"train-step gradients, card vs float64: {cmp['card']} (bars {GRAD_WORST_TOL} "
                              f"per tensor, {GRAD_L2_TOL} in L2)")
+    out["grad_eval_mode_vs_float64"] = eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches)
     del model_cpu, model_gpu, model_64, grads, batch_cpu, batch_64
 
     # the train_demo path, float32, 480x480, batch 8: FIXED_STEPS steps on one
     # fixed batch (the loss must fall), through the entry points a user calls
     argv = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--eval_videos", "1",
-            "--eval_frames", "8", "--log_every", "5"]
+            "--eval_frames", "8", "--log_every", "5", "--ckpt_out", ckpt]
     args = train_demo.parse_args(argv)
     tcfg = train_demo.make_config(args)
     state = trainer.create_train_state(tcfg, args.seed, max_iters=FIXED_STEPS, device=dev)
@@ -994,6 +1081,227 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches):
                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     out["launches"] = counts
     print("train_demo 480x480 batch 8: " + json.dumps(out["train_demo"]))
+    return out
+
+
+def grad_errors(got, ref, live):
+    """Worst 3 tensors by max|got - ref| / max|ref|, and the L2 error over
+    all `live` tensors relative to the reference's L2 norm."""
+    errs = {name: ((got[name] - ref[name]).abs().max() / ref[name].abs().max()).item() for name in live}
+    l2 = math.sqrt(sum(((got[n] - ref[n]) ** 2).sum().item() for n in live)
+                   / sum((ref[n] ** 2).sum().item() for n in live))
+    return {"worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3], "l2": l2}
+
+
+def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches):
+    """0b of phase 11: the loss's parameter gradients at 480x480, batch 1,
+    BatchNorm in eval mode (running statistics), seeded weights with the
+    zero-initialised ones perturbed, DCN offset/mask convs included: the
+    card in float32 against the CPU in float64 (plain versions), at
+    EVAL_GRAD_WORST_TOL per tensor and EVAL_GRAD_L2_TOL in L2."""
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.ops import build
+    from sgtapose_tpu_torch.train.loss import sgta_loss
+    from sgtapose_tpu_torch.train.phases import model_inputs
+
+    model_64 = create_model(cfg.model, device="cpu", seed=0)
+    perturb_zero_init(model_64, torch.Generator().manual_seed(1))
+    model_gpu = copy.deepcopy(model_64).to(dev).eval()
+    model_64 = model_64.double().eval()
+    batch_64 = {k: v.double() if v.is_floating_point() else v for k, v in batch_cpu.items()}
+    grads, seconds = {}, {}
+    for where, model, batch in (("card", model_gpu, {k: v.to(dev) for k, v in batch_cpu.items()}),
+                                ("cpu_float64", model_64, batch_64)):
+        t0 = time.perf_counter()
+        build.reset_launch_counts()
+        with plain_autograd() if where == "cpu_float64" else contextlib.nullcontext():
+            loss, _ = sgta_loss(model(*model_inputs("PlanA_win", batch)), batch)
+            loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+            launched = build.launch_counts()
+        seconds[where] = time.perf_counter() - t0
+        grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
+    expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16, deform_sample=16,
+                  deform_conv_dgrad=16)
+    if launched != expect:
+        raise AssertionError(f"eval-mode gradient launches {launched}, expected {expect}")
+    ref = grads["cpu_float64"]
+    if set(grads["card"]) != set(ref):
+        raise AssertionError("card and reference reach different parameters")
+    live = [name for name, g in ref.items() if g.abs().max().item() > 1e-6]
+    res = dict(grad_errors(grads["card"], ref, live), tensors=len(live), seconds=seconds,
+               bars=[EVAL_GRAD_WORST_TOL, EVAL_GRAD_L2_TOL], input="480x480, batch 1, BN eval mode",
+               offset_grad_max=max(ref[n].abs().max().item() for n in live if "conv_offset_mask" in n))
+    # the layers in network order: where the error enters
+    res["by_module"] = {}
+    for name in live:
+        mod = name.rsplit(".", 2)[0]
+        e = ((grads["card"][name] - ref[name]).abs().max() / ref[name].abs().max()).item()
+        res["by_module"][mod] = max(res["by_module"].get(mod, 0.0), e)
+    print("eval-mode gradient 480x480 batch 1, offsets perturbed, card vs float64: "
+          + json.dumps({k: v for k, v in res.items() if k != "by_module"}))
+    worst = res["worst"][0][1]
+    if not math.isfinite(worst) or worst > EVAL_GRAD_WORST_TOL or not res["l2"] <= EVAL_GRAD_L2_TOL:
+        top = sorted(res["by_module"].items(), key=lambda kv: -kv[1])[:8]
+        raise AssertionError(f"eval-mode gradients, card vs float64: worst {res['worst']}, L2 {res['l2']} "
+                             f"(bars {EVAL_GRAD_WORST_TOL} per tensor, {EVAL_GRAD_L2_TOL} in L2); "
+                             f"by module: {top}")
+    return res
+
+
+def upscale_second_video(root, set_name) -> None:
+    """Make a DREAM-real set mixed-resolution: the second video's frames
+    upscaled 2x, their projected keypoints scaled to match."""
+    from PIL import Image
+
+    set_dir = os.path.join(root, set_name)
+    with open(os.path.join(root, "dream_real_info", f"{set_name}_split_info.json")) as fh:
+        split = json.load(fh)
+    for img_rel, js_rel in zip(split["img_paths"][1], split["json_paths"][1]):
+        path = os.path.join(set_dir, img_rel)
+        im = Image.open(path)
+        im.resize((im.width * 2, im.height * 2), Image.BILINEAR).save(path)
+        with open(os.path.join(set_dir, js_rel)) as fh:
+            blob = json.load(fh)
+        for kp in blob["objects"][0]["keypoints"]:
+            kp["projected_location"] = [2 * x for x in kp["projected_location"]]
+        with open(os.path.join(set_dir, js_rel), "w") as fh:
+            json.dump(blob, fh)
+
+
+def cli_phase(torch, ckpt, work, no_launches):
+    """Phase 12 (module docstring): `cli.infer.main` on the card at the
+    flagship config on datasets the port's writers put in `work`: synthetic
+    with the phase-11 checkpoint and --rf --multi_frame 2 --track --debug 1,
+    DREAM-real at two resolutions, 42-keypoint depth with random weights,
+    each with its launches asserted per frame and its files checked; then
+    the card against the CPU on a 2-frame copy of the first video."""
+    import numpy as np
+    from PIL import Image
+
+    from sgtapose_tpu_torch.cli import infer
+    from sgtapose_tpu_torch.data import synthetic
+    from sgtapose_tpu_torch.infer.detector import KP_SENTINEL
+    from sgtapose_tpu_torch.ops import build
+
+    out = {}
+    syn, real, depth, syn2 = (os.path.join(work, d) for d in ("syn", "real", "depth", "syn2"))
+    t0 = time.perf_counter()
+    synthetic.write_synthetic_dataset(syn, CLI_VIDEOS, CLI_FRAMES, seed=4)
+    synthetic.write_real_dataset(real, "panda-mixed", REAL_VIDEOS, REAL_FRAMES, seed=5)
+    upscale_second_video(real, "panda-mixed")
+    synthetic.write_depth_dataset(depth, "panda-depth", DEPTH_FRAMES, seed=6)
+    os.makedirs(os.path.join(syn2, "00000"))
+    for f in range(2):
+        for suffix in ("_color.png", "_meta.json"):
+            shutil.copy(os.path.join(syn, "00000", f"{f:04d}{suffix}"), os.path.join(syn2, "00000"))
+    out["write_seconds"] = time.perf_counter() - t0
+
+    def run(name, argv, frames, per_frame, device="cuda"):
+        """One CLI run, the launch counters reset just before it and read
+        just after; the launches asserted per frame (card runs)."""
+        out_dir = os.path.join(work, "out_" + name)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = infer.main(argv + ["--output_dir", out_dir, "--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = build.launch_counts()
+        expect = dict(no_launches, **{k: n * frames for k, n in per_frame.items()})
+        if counts != expect:
+            raise AssertionError(f"cli {name}: launch counts {counts}, expected {expect}")
+        rec = {"frames": frames, "wall_s_with_setup_and_eval": wall, "launches": counts,
+               "timing": res["timing"], "keypoint_metrics": res["keypoint_metrics"],
+               "pnp_metrics": res["pnp_metrics"]}
+        for key in ("multiframe_pnp_metrics", "multiframe_pnp_real_metrics"):
+            if key in res:
+                rec[key] = res[key]
+        print(f"cli {name}: " + json.dumps(rec))
+        return res, rec, out_dir
+
+    flagship = {"biased_attention": 9, "deform_conv": 16}
+    n_syn = CLI_VIDEOS * CLI_FRAMES
+    res, out["synthetic"], out_dir = run(
+        "synthetic", ["--dataset", syn, "--ckpt", ckpt, "--rf", "--multi_frame", "2", "--track", "--debug", "1"],
+        n_syn, flagship)
+    need = ["syn_keypoints.csv", "syn_pnp_results.csv", "syn_analysis_results.txt", "dt_and_gt.json",
+            "syn_2_pnp_results.csv", "syn_2_real_pnp_results.csv", "tracks.json"]
+    missing = [f for f in need if not os.path.exists(os.path.join(out_dir, f))]
+    debug = {f"{v:05d}_{f:04d}_{kind}.png" for v in range(CLI_VIDEOS) for f in range(CLI_FRAMES)
+             for kind in ("generic", "pred_hm", "pre_hm")}
+    if missing or set(os.listdir(os.path.join(out_dir, "debug"))) != debug:
+        raise AssertionError(f"cli synthetic: missing {missing} or debug images "
+                             f"{sorted(os.listdir(os.path.join(out_dir, 'debug')))}")
+    with open(os.path.join(out_dir, "dt_and_gt.json")) as f:
+        dt = json.load(f)
+    det = np.asarray(dt["detections"])
+    with open(os.path.join(out_dir, "tracks.json")) as f:
+        tracks = json.load(f)
+    if (len(dt["names"]) != n_syn or det.shape != (n_syn, 7, 2) or not np.isfinite(det).all()
+            or sorted(tracks) != [f"{v:05d}" for v in range(CLI_VIDEOS)]
+            or any(np.asarray(t).shape != (CLI_FRAMES, 7) for t in tracks.values())
+            or "multiframe_pnp_metrics" not in res):
+        raise AssertionError(f"cli synthetic: detections {det.shape}, tracks {sorted(tracks)}")
+    print(f"cli synthetic: {res['timing']['fps']:.2f} fps, stage seconds per video "
+          + json.dumps(res["timing"]["stage_s"]))
+
+    n_real = REAL_VIDEOS * REAL_FRAMES
+    res, out["real_mixed"], _ = run(
+        "real_mixed", ["--dataset", real, "--is_real", "panda-mixed", "--robot", "panda", "--ckpt", ckpt],
+        n_real, flagship)
+    km = res["keypoint_metrics"]
+    if res["timing"]["runners"] != 2 or km["num_gt_inframe"] + km["num_gt_outframe"] != n_real * 7:
+        raise AssertionError(f"cli real: {res['timing']} runners, GT counts {km}")
+
+    res, out["depth"], _ = run(
+        "depth", ["--dataset", depth, "--is_real", "panda-depth", "--depth"], DEPTH_FRAMES,
+        {"biased_attention": 3, "biased_attention_tiled": 6, "deform_conv": 16})
+    km = res["keypoint_metrics"]
+    if km["num_gt_inframe"] + km["num_gt_outframe"] != DEPTH_FRAMES * DEPTH_CLASSES:
+        raise AssertionError(f"cli depth: GT counts {km}")
+
+    # card against CPU on a 2-frame copy of the first synthetic video: with
+    # the phase-11 checkpoint, and with its hm bias at 0 (the heatmaps sit
+    # mid-range and peaks decode); there only frame 0 is held to the
+    # keypoint bar, since frame 1's prior PnP on such detections is the
+    # degenerate EPnP case (ROADMAP Queue 3)
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    payload["model"]["hm.Conv_1.bias"].zero_()
+    ckpt_hm0 = os.path.join(work, "hm_bias_0.pt")
+    torch.save(payload, ckpt_hm0)
+    out["card_vs_cpu"] = {}
+    for tag, weights, frames in (("train_demo", ckpt, [0, 1]), ("hm_bias_0", ckpt_hm0, [0])):
+        argv = ["--dataset", syn2, "--ckpt", weights, "--track", "--debug", "1", "--max_videos", "1"]
+        side = {}
+        for device in ("cuda", "cpu"):
+            _, rec, out_dir = run(f"two_frames_{tag}_{device}", argv, 2, flagship if device == "cuda" else {},
+                                  device)
+            with open(os.path.join(out_dir, "dt_and_gt.json")) as f:
+                rec["det"] = np.asarray(json.load(f)["detections"])[frames]
+            with open(os.path.join(out_dir, "tracks.json")) as f:
+                rec["tracks"] = json.load(f)["00000"]
+            rec["dir"] = out_dir
+            side[device] = rec
+        a, b = side["cuda"]["det"], side["cpu"]["det"]
+        va, vb = (a > KP_SENTINEL).all(-1), (b > KP_SENTINEL).all(-1)
+        kp_err = float(np.abs(a[va] - b[vb]).max()) if va.any() and (va == vb).all() else 0.0
+        tracks_equal = [side["cuda"]["tracks"][f] for f in frames] == [side["cpu"]["tracks"][f] for f in frames]
+        blend_err = 0
+        for name in sorted(os.listdir(os.path.join(side["cpu"]["dir"], "debug"))):
+            # {video}_{frame}_{kind}.png: the heatmap blends of the compared frames
+            if not name.endswith("_generic.png") and int(name.split("_")[1]) in frames:
+                imgs = [np.asarray(Image.open(os.path.join(side[d]["dir"], "debug", name))).astype(np.int16)
+                        for d in ("cuda", "cpu")]
+                blend_err = max(blend_err, int(np.abs(imgs[0] - imgs[1]).max()))
+        cmp = {"frames_compared": frames, "valid_detections": int(va.sum()), "keypoint_max_abs_err_px": kp_err,
+               "blend_max_abs_err": blend_err, "tracks_equal": tracks_equal,
+               "cpu_wall_s": side["cpu"]["wall_s_with_setup_and_eval"]}
+        out["card_vs_cpu"][tag] = cmp
+        print(f"cli card vs cpu, 2 frames, {tag}: " + json.dumps(cmp))
+        if (va != vb).any() or kp_err > CLI_KP_TOL or blend_err > CLI_BLEND_TOL or not tracks_equal:
+            raise AssertionError(f"cli card vs cpu ({tag}): {cmp} (bars {CLI_KP_TOL} px, {CLI_BLEND_TOL} levels)")
     return out
 
 

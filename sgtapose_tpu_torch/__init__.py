@@ -13,12 +13,15 @@ JAX package:
               bf16, backward in float32): the nvcc build, the ctypes
               bindings and the launch counters
   decode/     peak finding + sub-pixel decode (batched over videos)
-  infer/      streaming video detectors: exact, feature-cache, batched
+  infer/      streaming video detectors: exact, feature-cache, batched; the
+              tracker's association pass
   eval/       metrics, set-level analysis, the synthetic-video harness
-  data/       synthetic sequences, the training-batch pipeline
+  data/       synthetic sequences and the on-disk fixture writers, the
+              dataset loaders, the training-batch pipeline
   train/      loss, schedules, phases, the float32 trainer
-  cli/        train_demo
-  utils/      flax-variable and train-state loader, bf16 serving (precision.py)
+  cli/        train_demo, infer (datasets on disk)
+  utils/      flax-variable and train-state loader, bf16 serving (precision.py),
+              the debug images (debugger.py, visualize.py), StageTimer
 
 A bf16 model (`utils.precision.bf16_inference_model`) serves as the JAX
 package's `bf16_inference_variables` + `make_bf16_apply` do: bf16 weights and

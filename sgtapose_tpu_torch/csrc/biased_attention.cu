@@ -367,6 +367,125 @@ int fwd(const void* q, const void* k, const void* v, const void* bias, void* out
   }
 }
 
+// ---- key-tiled float32 forward: any n ----------------------------------
+// The design above holds a head's whole K and V and a tile's whole bias rows
+// in shared memory, which caps n (about 2400 at d = 4, 1800 at d = 8). A
+// 42-keypoint model at the flagship windows has n = 42 x 13^2 = 7098 at
+// level 0 (d = 4) and 42 x 7^2 = 2058 at level 1 (d = 8): its bias alone is
+// 1.6 GB. There the work is still reading the bias once, so this kernel
+// streams it straight from device memory, one coalesced 128-byte read per
+// warp and 32 keys, and stages only K and V, in chunks of kTileKeys keys
+// shared by the block's 8 rows. One block per (batch, head, 8 query rows),
+// one warp per row, lane t taking keys t, t+32, ... as above. Each lane runs
+// an online softmax over the chunks: per chunk it takes its own max of the
+// chunk's logits (held in registers), rescales its running sums once when
+// the max grows, and adds p = 2^(s log2 e - max log2 e) and p v; the lanes'
+// sums are merged at the end relative to the row max. One exponential per
+// element, plus one per lane and chunk.
+constexpr int kTileKeys = 256;
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    biased_attention_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ bias,
+                                  float* __restrict__ out, int heads, int n, int tiles,
+                                  float scale) {
+  extern __shared__ __align__(16) float tile_smem[];
+  float* ks = tile_smem;  // [kTileKeys][D]
+  float* vs = tile_smem + kTileKeys * D;
+  const int bh = blockIdx.x / tiles;
+  const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
+  const int i = (blockIdx.x % tiles) * RS + warp;
+  const int row = min(i, n - 1);  // a warp past n computes a copy and stores nothing
+  float qr[D];
+  load_row<D, float, true>(reinterpret_cast<const unsigned char*>(q + ((size_t)bh * n + row) * D), qr);
+  const float* brow = bias + ((size_t)(bh % heads) * n + row) * n;
+  const float4* kg = reinterpret_cast<const float4*>(k + (size_t)bh * n * D);
+  const float4* vg = reinterpret_cast<const float4*>(v + (size_t)bh * n * D);
+
+  float m = -INFINITY, l = 0.f, acc[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] = 0.f;
+  for (int j0 = 0; j0 < n; j0 += kTileKeys) {
+    const int cnt = min(kTileKeys, n - j0);
+    __syncthreads();  // the previous chunk's K and V are read
+    for (int e = threadIdx.x; e < cnt * D / 4; e += kThreads) {
+      reinterpret_cast<float4*>(ks)[e] = kg[j0 * D / 4 + e];
+      reinterpret_cast<float4*>(vs)[e] = vg[j0 * D / 4 + e];
+    }
+    __syncthreads();
+    float s[kTileKeys / 32];
+    float cm = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kTileKeys / 32; ++u) {
+      const int j = 32 * u + lt;
+      s[u] = -INFINITY;
+      if (j < cnt) {
+        s[u] = logit<D, float, false>(qr, reinterpret_cast<const unsigned char*>(ks + j * D), scale,
+                                      __ldg(brow + j0 + j));
+        cm = fmaxf(cm, s[u]);
+      }
+    }
+    const float mn = fmaxf(m, cm);
+    if (mn == -INFINITY) continue;  // this lane has no key yet
+    const float f = exp2_ftz((m - mn) * kLog2e);  // 0 while m is -inf
+    l *= f;
+#pragma unroll
+    for (int c = 0; c < D; ++c) acc[c] *= f;
+    const float neg_m2 = -mn * kLog2e;
+#pragma unroll
+    for (int u = 0; u < kTileKeys / 32; ++u) {
+      const int j = 32 * u + lt;
+      if (j < cnt) {
+        const float p = exp2_ftz(fmaf(s[u], kLog2e, neg_m2));
+        l += p;
+        float vr[D];
+        load_row<D, float, false>(reinterpret_cast<const unsigned char*>(vs + j * D), vr);
+#pragma unroll
+        for (int c = 0; c < D; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
+      }
+    }
+    m = mn;
+  }
+  float mx = m;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float f = m == -INFINITY ? 0.f : exp2_ftz((m - mx) * kLog2e);
+  l *= f;
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] *= f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+#pragma unroll
+    for (int c = 0; c < D; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+  }
+  if (i < n) {
+    float* oi = out + ((size_t)bh * n + i) * D;
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      if ((c & 31) == lt) oi[c] = acc[c] * inv;
+  }
+}
+
+template <int D>
+int launch_tiled(const float* q, const float* k, const float* v, const float* bias, float* out, int B,
+                 int heads, int n, cudaStream_t stream) {
+  const int tiles = (n + RS - 1) / RS;
+  const long long items = (long long)B * heads * tiles;
+  if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const int smem = 2 * kTileKeys * D * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(biased_attention_tiled_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  biased_attention_tiled_kernel<D><<<(int)items, kThreads, smem, stream>>>(
+      q, k, v, bias, out, heads, n, tiles, 1.f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // float32 q, k, v, bias
@@ -381,4 +500,28 @@ extern "C" int biased_attention_bf16_fwd(const void* q, const void* k, const voi
                                          int d, int q_bf16, void* stream) {
   if (q_bf16) return fwd<uint16_t, uint16_t>(q, k, v, bias, out, B, heads, n, d, stream);
   return fwd<uint16_t, float>(q, k, v, bias, out, B, heads, n, d, stream);
+}
+
+// float32 q, k, v, bias, any n: the key-tiled kernel
+extern "C" int biased_attention_tiled_fwd(const void* q, const void* k, const void* v,
+                                          const void* bias, void* out, int B, int heads, int n,
+                                          int d, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(bias) & 3) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 4: return launch_tiled<4>(qf, kf, vf, bf, of, B, heads, n, s);
+    case 8: return launch_tiled<8>(qf, kf, vf, bf, of, B, heads, n, s);
+    case 16: return launch_tiled<16>(qf, kf, vf, bf, of, B, heads, n, s);
+    case 32: return launch_tiled<32>(qf, kf, vf, bf, of, B, heads, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

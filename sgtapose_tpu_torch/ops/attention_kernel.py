@@ -1,8 +1,11 @@
 """Biased attention softmax(q k^T / sqrt(d) + bias) v: the CUDA kernels
-(`csrc/biased_attention.cu`, one forward design instantiated for float32 and
-for bf16 serving; `csrc/biased_attention_bwd.cu`, the float32 backward: one
-cluster launch where a (batch, head) problem fits in a block's shared memory,
-as at training's level 2, else two passes) and their plain PyTorch versions.
+(`csrc/biased_attention.cu`: one forward design instantiated for float32 and
+for bf16 serving, which holds a head's K, V and a tile's bias rows in shared
+memory, and a key-tiled float32 forward for the n beyond that, as a
+42-keypoint model's levels 0 and 1 have; `csrc/biased_attention_bwd.cu`: the
+float32 backward, one cluster launch where a (batch, head) problem fits in a
+block's shared memory, as at training's level 2, else two passes) and their
+plain PyTorch versions.
 
 Counterpart of `sgtapose_tpu/ops/attention_kernel.py:fused_biased_attention`
 (a Pallas TPU kernel) and of its custom VJP `_bwd_rule` (a recompute through
@@ -34,6 +37,7 @@ from sgtapose_tpu_torch.ops import build
 
 KERNEL = "biased_attention"
 KERNEL_BF16 = "biased_attention_bf16"
+KERNEL_TILED = "biased_attention_tiled"
 BWD_KERNEL = "biased_attention_bwd"
 SUPPORTED_HEAD_DIMS = (4, 8, 16, 32)
 # the kernel's layout (csrc/biased_attention.cu): blocks of 8 warps, one
@@ -50,6 +54,12 @@ def kernel_smem_bytes(n: int, d: int, elem_bytes: int = 4) -> int:
     def span(elems):
         return 16 * ((elem_bytes * elems + 31 - elem_bytes) // 16)
     return 2 * span(n * d) + _STAGES * span(_ROWS * n)
+
+
+def fits_smem(n: int, d: int, elem_bytes: int = 4) -> bool:
+    """Whether the shared-memory kernel takes (n, d); beyond it float32 runs
+    the key-tiled kernel."""
+    return kernel_smem_bytes(n, d, elem_bytes) <= _SMEM_LIMIT
 
 
 def plain_biased_attention(q, k, v, bias):
@@ -105,9 +115,46 @@ def split_lane_attention(q, k, v, bias):
     return lane_acc.sum(dim=-2) / lane_l.sum(dim=-1, keepdim=True)
 
 
-def _check(q, k, v, bias, bf16: bool = False):
+TILE_KEYS = 256  # keys per chunk of the key-tiled kernel
+
+
+def key_tiled_attention(q, k, v, bias, tile_keys: int = TILE_KEYS):
+    """The key-tiled kernel's arithmetic in plain PyTorch: keys in chunks of
+    `tile_keys`, lane t of a row taking keys t, t+32, ... of each chunk; per
+    chunk each lane takes its own max, rescales its running sums of p and p v
+    by 2^((old max - new max) log2 e) and adds the chunk's terms relative to
+    the new max; the lanes' sums are merged relative to the row max. Same
+    function as `plain_biased_attention`."""
+    d, n = q.shape[-1], q.shape[-2]
+    lanes = ROW_LANES
+    log2e = 1.0 / math.log(2.0)
+    s = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(d) + bias
+    lead = s.shape[:-1]
+    m = torch.full(lead + (lanes,), -math.inf, dtype=q.dtype, device=q.device)
+    l = torch.zeros(lead + (lanes,), dtype=q.dtype, device=q.device)
+    acc = torch.zeros(lead + (lanes, d), dtype=q.dtype, device=q.device)
+    for j0 in range(0, n, tile_keys):
+        cnt = min(tile_keys, n - j0)
+        pad = -cnt % lanes
+        sc = torch.nn.functional.pad(s[..., j0:j0 + cnt], (0, pad), value=-math.inf)
+        vc = torch.nn.functional.pad(v[..., j0:j0 + cnt, :], (0, 0, 0, pad))
+        sc = sc.unflatten(-1, (-1, lanes))  # (..., key // 32, lane)
+        vc = vc.unflatten(-2, (-1, lanes))  # (b, h, key // 32, lane, d)
+        mn = torch.maximum(m, sc.amax(dim=-2))
+        f = torch.where(mn == -math.inf, torch.ones_like(m), torch.exp2((m - mn) * log2e))
+        p = torch.exp2(sc * log2e - torch.where(mn == -math.inf, torch.zeros_like(mn), mn)[..., None, :] * log2e)
+        l = l * f + p.sum(dim=-2)
+        acc = acc * f[..., None] + torch.einsum("bhiul,bhuld->bhild", p, vc)
+        m = mn
+    mx = m.amax(dim=-1, keepdim=True)
+    f = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp2((m - mx) * log2e))
+    return (acc * f[..., None]).sum(dim=-2) / (l * f).sum(dim=-1, keepdim=True)
+
+
+def _check(q, k, v, bias, bf16: bool = False, smem: bool = True):
     """Shapes, devices, dtypes (float32; or bf16 k, v, bias with a bf16 or
-    float32 q), contiguity and the kernel's limits."""
+    float32 q), contiguity and the kernel's limits (with smem, the
+    shared-memory kernel's)."""
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q, k, v must share one (B, heads, n, d) shape, got {q.shape}, {k.shape}, {v.shape}")
     B, h, n, d = q.shape
@@ -124,9 +171,9 @@ def _check(q, k, v, bias, bf16: bool = False):
             raise ValueError(f"{name} must be contiguous")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported by the CUDA kernel {SUPPORTED_HEAD_DIMS}")
-    smem = kernel_smem_bytes(n, d, 2 if bf16 else 4)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"n={n}, d={d} needs {smem} B of shared memory, more than the kernel's {_SMEM_LIMIT}")
+    need = kernel_smem_bytes(n, d, 2 if bf16 else 4)
+    if smem and need > _SMEM_LIMIT:
+        raise ValueError(f"n={n}, d={d} needs {need} B of shared memory, more than the kernel's {_SMEM_LIMIT}")
 
 
 def biased_attention_cuda(q, k, v, bias):
@@ -145,6 +192,27 @@ def biased_attention_cuda(q, k, v, bias):
                  B, h, n, d, stream)
     build.check(KERNEL, err)
     build.count_launch(KERNEL)
+    return out
+
+
+def biased_attention_tiled_cuda(q, k, v, bias):
+    """Launch the float32 key-tiled kernel on the current stream (CUDA
+    tensors only): any n, K and V staged in chunks, the bias read straight
+    from device memory."""
+    _check(q, k, v, bias, smem=False)
+    if q.device.type != "cuda":
+        raise ValueError("biased_attention_tiled_cuda needs CUDA tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as float4)")
+    B, h, n, d = q.shape
+    out = torch.empty_like(q)
+    fn = build.kernel_fn(KERNEL_TILED)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 B, h, n, d, stream)
+    build.check(KERNEL_TILED, err)
+    build.count_launch(KERNEL_TILED)
     return out
 
 
@@ -252,16 +320,21 @@ def biased_attention_bwd_cuda(q, k, v, bias, out, dout):
 
 
 class _BiasedAttention(torch.autograd.Function):
-    """Forward through the kernel of the inputs' dtype (plain on the CPU);
-    backward through `biased_attention_bwd_cuda` (plain on the CPU)."""
+    """Forward through the kernel of the inputs' dtype and size (plain on
+    the CPU); backward through `biased_attention_bwd_cuda` (plain on the
+    CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
         bf16 = k.dtype == torch.bfloat16
         if q.device.type == "cpu":
             out = plain_biased_attention_bf16(q, k, v, bias) if bf16 else plain_biased_attention(q, k, v, bias)
+        elif bf16:
+            out = biased_attention_bf16_cuda(q, k, v, bias)
+        elif fits_smem(q.shape[-2], q.shape[-1]):
+            out = biased_attention_cuda(q, k, v, bias)
         else:
-            out = biased_attention_bf16_cuda(q, k, v, bias) if bf16 else biased_attention_cuda(q, k, v, bias)
+            out = biased_attention_tiled_cuda(q, k, v, bias)
         ctx.save_for_backward(q, k, v, bias, out)
         return out
 
@@ -280,6 +353,7 @@ def fused_biased_attention(q, k, v, bias):
     """softmax(q k^T / sqrt(d) + bias) v with q, k, v (B, heads, n, d) and a
     (heads, n, n) bias shared across the batch; float32, or bf16 k, v, bias
     (module docstring), always returning float32. Differentiable (float32).
-    CUDA tensors go through the hand-written kernels of their dtype (or
-    raise); CPU tensors take the plain versions."""
+    CUDA tensors go through the hand-written kernels of their dtype (float32
+    beyond the shared-memory kernel's n: the key-tiled kernel; bf16 there
+    raises); CPU tensors take the plain versions."""
     return _BiasedAttention.apply(q, k, v, bias)

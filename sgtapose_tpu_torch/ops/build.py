@@ -32,7 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 
 # kernel name -> source file under csrc/ (the bf16 kernels are the second
-# instantiation of their float32 kernel's design, in the same source)
+# instantiation of their float32 kernel's design, in the same source; the
+# key-tiled attention shares the attention source)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -42,6 +43,7 @@ KERNEL_SOURCES = {
     "biased_attention_bwd": "biased_attention_bwd.cu",
     "deform_sample_bwd": "deform_sample_bwd.cu",
     "deform_conv_dgrad": "deform_conv_bwd.cu",
+    "biased_attention_tiled": "biased_attention.cu",
 }
 
 NVCC_FLAGS = (
@@ -70,6 +72,8 @@ _SIGNATURES = {
     "deform_sample_bwd": ("deform_sample_bwd", [_P] * 6 + [_I, _I, _I, _I, _P]),
     # x, om, weight, wsplit (scratch), dy, dx, dom, B, H, W, C, O, stream
     "deform_conv_dgrad": ("deform_conv_dgrad", [_P] * 7 + [_I, _I, _I, _I, _I, _P]),
+    # q, k, v, bias, out, B, heads, n, d, stream
+    "biased_attention_tiled": ("biased_attention_tiled_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

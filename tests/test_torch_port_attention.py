@@ -51,6 +51,33 @@ def test_kernel_split_and_merge_matches_jax(n, d):
     np.testing.assert_allclose(port, np.asarray(_xla_attention(q, k, v, bias)), atol=2e-4)
 
 
+@pytest.mark.parametrize("n,d,tile_keys", [(600, 4, 256), (70, 8, 32), (5, 16, 256), (378, 16, 64)])
+def test_key_tiled_arithmetic_matches_jax(n, d, tile_keys):
+    """The key-tiled kernel's arithmetic (per-lane online softmax over key
+    chunks, lanes merged at the row max) against the Pallas kernel in
+    interpret mode and the XLA formulation, at ragged chunks and n below 32;
+    a bias of scale 3 makes a lane's max grow from chunk to chunk."""
+    rs = np.random.RandomState(200 + n)
+    q, k, v = (rs.randn(2, 8, n, d).astype(np.float32) for _ in range(3))
+    bias = (3.0 * rs.randn(8, n, n)).astype(np.float32)
+    port = tkern.key_tiled_attention(_t(q), _t(k), _t(v), _t(bias), tile_keys).numpy()
+    np.testing.assert_allclose(port, np.asarray(jax_fused(q, k, v, bias, True)), atol=2e-4)
+    np.testing.assert_allclose(port, np.asarray(_xla_attention(q, k, v, bias)), atol=2e-4)
+
+
+def test_large_n_goes_to_the_key_tiled_kernel():
+    """A 42-keypoint model's levels 0 and 1 at the flagship windows,
+    (42 x 13^2, 4) and (42 x 7^2, 8), exceed the shared-memory kernel; the
+    7-keypoint flagship's shapes and level 2 of the 42-keypoint model fit."""
+    for n, d in ((1183, 4), (343, 8), (63, 16), (378, 16)):
+        assert tkern.fits_smem(n, d)
+    for n, d in ((7098, 4), (2058, 8)):
+        assert not tkern.fits_smem(n, d)
+    q = torch.zeros(1, 8, 2058, 8)
+    with pytest.raises(ValueError):  # CPU tensors; the size itself is no error here
+        tkern.biased_attention_tiled_cuda(q, q, q, torch.zeros(8, 2058, 2058))
+
+
 def test_kernel_layout_fits_the_flagship_shapes():
     for n, d in ((1183, 4), (343, 8), (63, 16)):
         assert tkern.kernel_smem_bytes(n, d) <= 227 * 1024

@@ -30,6 +30,8 @@ KERNEL_MODULES = {
                           "deform_sample_bwd_cuda"),
     "deform_conv_dgrad": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv_dgrad",
                           "deform_conv_dgrad_cuda"),
+    "biased_attention_tiled": ("sgtapose_tpu_torch.ops.attention_kernel", "plain_biased_attention",
+                               "biased_attention_tiled_cuda"),
 }
 
 
@@ -54,6 +56,6 @@ def test_every_kernel_has_its_plain_version(name):
     mod = importlib.import_module(module)
     assert callable(getattr(mod, plain)) and callable(getattr(mod, wrapper))
     names = {getattr(mod, a, None)
-             for a in ("KERNEL", "KERNEL_BF16", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
+             for a in ("KERNEL", "KERNEL_BF16", "KERNEL_TILED", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
                       "DGRAD_KERNEL")}
     assert name in names

@@ -40,6 +40,28 @@ def test_biased_attention_kernel_matches_plain(dev, n, d):
     assert (out - ref).abs().max().item() <= 2e-4
 
 
+@pytest.mark.parametrize("n,d,B", [(7098, 4, 1), (2058, 8, 1), (2058, 8, 2), (3000, 16, 1), (100, 8, 2),
+                                   (1, 4, 1), (33, 32, 2)])
+def test_biased_attention_tiled_kernel_matches_plain(dev, n, d, B):
+    """The key-tiled kernel at a 42-keypoint model's levels 0 and 1 and at
+    ragged n; the autograd Function routes n beyond the shared-memory kernel
+    to it. A bias of scale 3 makes a lane's max grow from chunk to chunk."""
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    q, k, v = (torch.randn(B, 8, n, d, generator=g, device=dev) for _ in range(3))
+    bias = 3.0 * torch.randn(8, n, n, generator=g, device=dev)
+    before = build.launch_counts()
+    out = attention_kernel.biased_attention_tiled_cuda(q, k, v, bias)
+    torch.cuda.synchronize()
+    ref = attention_kernel.plain_biased_attention(q, k, v, bias)
+    assert (out - ref).abs().max().item() <= 2e-4
+    routed = attention_kernel.fused_biased_attention(q, k, v, bias)
+    tiled = not attention_kernel.fits_smem(n, d)
+    after = build.launch_counts()
+    assert after["biased_attention_tiled"] == before["biased_attention_tiled"] + 1 + tiled
+    assert after["biased_attention"] == before["biased_attention"] + (not tiled)
+    assert (routed - ref).abs().max().item() <= 2e-4
+
+
 @pytest.mark.parametrize("H,C", [(15, 512), (30, 256), (60, 128), (120, 64), (9, 6)])
 def test_deform_sample_kernel_matches_plain(dev, H, C):
     g = torch.Generator(device=dev).manual_seed(H)
@@ -313,3 +335,53 @@ def test_deform_conv_dgrad_kernel_matches_plain(dev, B, H, W, C, O, span):
     assert _rel_err(dom, rdom) <= BWD_REL, _rel_err(dom, rdom)
     _, again = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
     assert torch.equal(dom, again)  # dom has no atomics: reproducible
+
+
+def test_infer_cli_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`cli.infer.main` with --device cuda against --device cpu at the tiny
+    config (64x64, 3x3 windows), on 2 synthetic videos of 2 frames written by
+    the port's writer, weights seeded with the hm bias at 0 so the heatmaps
+    sit mid-range and some peaks decode: the kernels launch once per frame
+    and layer on the card and never on the CPU; frame 0 of each video (frame
+    1's prior PnP on random-weight detections is the degenerate EPnP case)
+    has debug heatmap blends within 2 uint8 levels, the same sentinel
+    pattern and keypoints within 0.05 px."""
+    import json
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from sgtapose_tpu_torch.cli import infer
+    from sgtapose_tpu_torch.data import synthetic
+    from sgtapose_tpu_torch.infer.detector import KP_SENTINEL
+    from sgtapose_tpu_torch.train import trainer
+
+    synthetic.write_synthetic_dataset(str(tmp_path / "syn"), n_videos=2, n_frames=2, seed=2)
+    argv = ["--dataset", str(tmp_path / "syn"), "--input_res", "64", "--kernel_list", "3,3,3,1,1,1",
+            "--track", "--debug", "1"]
+    state = trainer.create_train_state(infer.make_config(infer.parse_args(argv)), 0, device="cpu")
+    with torch.no_grad():
+        state.model.hm.Conv_1.bias.zero_()
+    trainer.save_checkpoint(str(tmp_path / "m.pt"), state)
+    det = {}
+    for device in ("cuda", "cpu"):
+        build.reset_launch_counts()
+        out = str(tmp_path / device)
+        infer.main(argv + ["--ckpt", str(tmp_path / "m.pt"), "--output_dir", out, "--device", device])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in build.launch_counts().items() if v}
+        expect = {"biased_attention": 9 * 4, "deform_conv": 16 * 4} if device == "cuda" else {}
+        assert counts == expect, (device, counts)
+        with open(f"{out}/dt_and_gt.json") as f:
+            det[device] = np.asarray(json.load(f)["detections"])[[0, 2]]
+    names = sorted(os.listdir(tmp_path / "cpu" / "debug"))
+    assert names == sorted(os.listdir(tmp_path / "cuda" / "debug")) and len(names) == 4 * 3
+    for name in names:  # {video}_{frame}_{kind}.png: frame 0's heatmap blends
+        if not name.endswith("_generic.png") and name.split("_")[1] == "0000":
+            a, b = (np.asarray(Image.open(tmp_path / d / "debug" / name)).astype(np.int16)
+                    for d in ("cuda", "cpu"))
+            assert np.abs(a - b).max() <= 2, name
+    va, vb = (det["cuda"] > KP_SENTINEL).all(-1), (det["cpu"] > KP_SENTINEL).all(-1)
+    assert (va == vb).all() and va.any(), (det["cuda"], det["cpu"])
+    assert np.abs(det["cuda"][va] - det["cpu"][vb]).max() <= 0.05, (det["cuda"], det["cpu"])

@@ -39,7 +39,11 @@ def test_port_imports_no_jax_and_builds_nothing():
                 "sgtapose_tpu_torch.eval.analysis", "sgtapose_tpu_torch.eval.synthetic_eval",
                 "sgtapose_tpu_torch.data.pipeline", "sgtapose_tpu_torch.train.loss",
                 "sgtapose_tpu_torch.train.schedule", "sgtapose_tpu_torch.train.phases",
-                "sgtapose_tpu_torch.train.trainer", "sgtapose_tpu_torch.cli.train_demo"}
+                "sgtapose_tpu_torch.train.trainer", "sgtapose_tpu_torch.cli.train_demo",
+                "sgtapose_tpu_torch.cli.infer", "sgtapose_tpu_torch.data.loaders",
+                "sgtapose_tpu_torch.data.synthetic", "sgtapose_tpu_torch.infer.tracker",
+                "sgtapose_tpu_torch.utils.profiling", "sgtapose_tpu_torch.utils.visualize",
+                "sgtapose_tpu_torch.utils.debugger"}
     assert expected <= set(res["modules"])
 
 

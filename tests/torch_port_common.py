@@ -23,12 +23,12 @@ from sgtapose_tpu_torch.config import ModelConfig as PortModelConfig
 TINY = dict(input_res=(64, 64), kernel_list=(3, 3, 3, 1, 1, 1))
 
 
-def jax_cfg(dla_node: str = "dcn") -> JaxModelConfig:
-    return JaxModelConfig(dla_node=dla_node, **TINY)
+def jax_cfg(dla_node: str = "dcn", num_classes: int = 7) -> JaxModelConfig:
+    return JaxModelConfig(dla_node=dla_node, num_classes=num_classes, **TINY)
 
 
-def port_cfg(dla_node: str = "dcn") -> PortModelConfig:
-    return PortModelConfig(dla_node=dla_node, **TINY)
+def port_cfg(dla_node: str = "dcn", num_classes: int = 7) -> PortModelConfig:
+    return PortModelConfig(dla_node=dla_node, num_classes=num_classes, **TINY)
 
 
 def perturb(variables, seed: int = 0):
@@ -62,7 +62,7 @@ def perturb(variables, seed: int = 0):
     return jax.tree_util.tree_map_with_path(one, variables)
 
 
-def model_inputs(seed: int = 0, zero_priors: bool = False):
+def model_inputs(seed: int = 0, zero_priors: bool = False, num_classes: int = 7):
     """Six NHWC numpy inputs of the tiny SGTAPose (batch 1)."""
     rs = np.random.RandomState(seed)
     H, W = TINY["input_res"]
@@ -74,19 +74,19 @@ def model_inputs(seed: int = 0, zero_priors: bool = False):
         rs.randn(1, H, W, 3).astype(f),
         rs.rand(1, H, W, 1).astype(f),
         rs.rand(1, H, W, 1).astype(f),
-        np.asarray(cls((1, Ho, Wo, 7)), f),
-        np.asarray(cls((1, Ho, Wo, 7)), f),
+        np.asarray(cls((1, Ho, Wo, num_classes)), f),
+        np.asarray(cls((1, Ho, Wo, num_classes)), f),
     ]
 
 
 @functools.lru_cache(maxsize=None)
-def flax_model_and_variables(dla_node: str = "dcn"):
+def flax_model_and_variables(dla_node: str = "dcn", num_classes: int = 7):
     """(flax module, numpy variables) of the tiny SGTAPose: the tree's
     structure from `jax.eval_shape` of flax's init (no compile), its values
     seeded numpy draws (kernels ~ N(0, 1/fan_in), so the up-conv kernels are
     asymmetric), then `perturb`ed."""
-    model = JaxSGTAPose(jax_cfg(dla_node))
-    inputs = [jnp.asarray(a) for a in model_inputs()]
+    model = JaxSGTAPose(jax_cfg(dla_node, num_classes))
+    inputs = [jnp.asarray(a) for a in model_inputs(num_classes=num_classes)]
     shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), *inputs))
     rs = np.random.RandomState(0)
 
