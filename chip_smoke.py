@@ -64,9 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. training (float32, the train_demo path): the attention backward
      kernel against its plain version at every flagship (n, d) at the
      training batch of 8, at level 2 and a ragged (100, 8) also at batch 1
-     and 2 (the cluster path), every output the same bit for bit in two
-     runs, with cold / plain times, bounds and SDPA's backward as the
-     yardstick;
+     and 2 (the cluster path), and at a 42-keypoint model's level 2, (378,
+     16), at phase 13's --depth batch of 2 (the two-pass path), every output
+     the same bit for bit in two runs, with cold / plain times, bounds and
+     SDPA's backward as the yardstick;
      one full-width train-step gradient (480x480, batch 1, dropout off) on
      the card and on the CPU in float32, both held against a CPU float64
      reference (GRAD_WORST_TOL, GRAD_L2_TOL); the same gradient with
@@ -98,7 +99,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      checkpoint and with its hm bias at 0 (peaks decode; frame 0 only):
      sentinel patterns and track ids equal, keypoints within CLI_KP_TOL px,
      debug heatmap blends within CLI_BLEND_TOL levels;
- 13. a `{"kernels": [...]}` line, the card line, and last the device line
+ 13. the training CLI, `cli/train.main --device cuda` at the flagship
+     config, on sets the port's writers make: (A) synthetic, 2 videos x 6
+     frames (640x360), a validation video of 5 frames, batch 4, --lr_step 2
+     --log_every 1 --image_log_every 1, 2 epochs; then --resume from epoch
+     2's checkpoint to epoch 3 (the step goes on from 4 to 6 at 0.1x the
+     learning rate); then `cli/infer.main` on epoch 3's checkpoint; (B)
+     --depth, 42 joints, 6 frames, batch 2, 1 epoch. Launches asserted one
+     call at a time: per train step 9 biased_attention, 3 attention
+     backward, 16 deform_conv, 16 deform_conv_dgrad, 16 deform_sample (B: 3
+     biased_attention and 6 biased_attention_tiled, the backward on its
+     two-pass path), per mosaic or validation forward 9 (B: 3 + 6 tiled)
+     attention and 16 deform_conv, and nothing else; the checkpoints,
+     metrics.jsonl records and viz/ images checked; ms per step by stage
+     (loader wait, batch build, forward, backward, optimizer) from CUDA
+     events, steps/s, validation seconds, peak device memory, and the
+     hand-written kernels' device ms per step from torch.profiler over the
+     resumed run's steps;
+ 14. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 The detector runs of phase 9 take 8 frames each (16 before the training
@@ -188,6 +206,13 @@ REAL_VIDEOS, REAL_FRAMES = 2, 3
 DEPTH_FRAMES, DEPTH_CLASSES = 4, 42
 CLI_KP_TOL = 0.05
 CLI_BLEND_TOL = 2
+# phase 13, the training CLI on the card: (A) synthetic training videos x
+# frames at batch 4 (10 pairs: 2 steps an epoch), a validation video of 5
+# frames (4 pairs: one batch), 2 epochs with the step decay at epoch 2, then
+# a resume to epoch 3; (B) --depth, 6 frames (5 pairs) at batch 2, 1 epoch
+TRAIN_CLI_VIDEOS, TRAIN_CLI_FRAMES, TRAIN_CLI_VAL_FRAMES = 2, 6, 5
+TRAIN_CLI_BATCH, TRAIN_CLI_DEPTH_BATCH, TRAIN_CLI_DEPTH_FRAMES = 4, 2, 6
+CLI_STAGES = ("loader", "batch", "forward", "backward", "optimizer")
 # (H, C_in, C_out, nodes per frame) of the 16 decoder DCN nodes at 480x480
 DCN_NODES = [(15, 512, 256, 1), (30, 256, 256, 1), (30, 256, 128, 2), (30, 256, 64, 1),
              (60, 128, 128, 2), (60, 128, 64, 4), (120, 64, 64, 5)]
@@ -778,10 +803,13 @@ def main() -> int:
         report["training"] = train
         cli = cli_phase(torch, ckpt, work, no_launches)
         report["cli"] = cli
+        # ---- 13. the training CLI ------------------------------------------
+        train_cli = train_cli_phase(torch, work, no_launches)
+        report["train_cli"] = train_cli
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 13. kernels line --------------------------------------------------
+    # ---- 14. kernels line --------------------------------------------------
     def per_frame(rows, key, unit="per_frame"):
         """Sum over the shapes one frame (or one training step) runs."""
         vals = [r[key] for r in rows if r[unit]]
@@ -817,6 +845,9 @@ def main() -> int:
             "library_ms": per_frame(rows, "library_ms"),
             "profiled_ms_per_frame": prof["profiled"]["kernel_ms_per_frame"][name],
         }
+        if name in ("biased_attention", "deform_conv"):
+            entry["train_cli_launches_per_step"] = train_cli["synthetic"]["launches_per_step"][name]
+            entry["train_cli_profiled_ms_per_step"] = train_cli["resumed"]["kernel_ms_per_step_profiled"][name]
         if name.startswith("biased_attention"):
             entry["warm_ms"] = per_frame(rows, "warm_ms")
             entry["clean_ms"] = per_frame(rows, "clean_ms")
@@ -837,6 +868,7 @@ def main() -> int:
         "bound_ms": per_frame(tiled_rows, "bound_ms"), "bound_by": tiled_rows[0]["bound_by"],
         "bound_rate": "3.35 TB/s HBM" if tiled_rows[0]["bound_by"] == "bytes" else rates["biased_attention"],
         "library_ms": per_frame(tiled_rows, "library_ms"),
+        "train_cli_depth_launches_per_step": train_cli["depth"]["launches_per_step"]["biased_attention_tiled"],
         "shapes_note": "levels 0 and 1 of a 42-keypoint model (phase 12's depth run), per frame"})
     # the training kernels, read from the train_demo run (per step)
     # (deform_sample_bwd launches 0 times per step since deform_conv_dgrad;
@@ -866,6 +898,18 @@ def main() -> int:
             "library_ms": per_frame(rows, "library_ms", "per_step"),
             "profiled_ms_per_step": train["profiled"]["kernel_ms_per_step"][name],
         }
+        entry["train_cli_launches_per_step"] = train_cli["synthetic"]["launches_per_step"].get(name, 0)
+        entry["train_cli_profiled_ms_per_step"] = train_cli["resumed"]["kernel_ms_per_step_profiled"][name]
+        if name == "biased_attention_bwd":
+            two_pass = [r for r in rows if r["depth_per_step"]]
+            entry["depth_two_pass"] = {
+                key: per_frame(two_pass, key, "depth_per_step")
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            entry["depth_two_pass"].update(
+                shape=[(r["n"], r["d"], r["B"]) for r in two_pass], bound_by=two_pass[0]["bound_by"],
+                max_abs_err=max(r["max_abs_err"] for r in two_pass),
+                launches_per_depth_step=train_cli["depth"]["launches_per_step"][name],
+                note="level 2 of a 42-keypoint model at phase 13's --depth batch, per --depth step")
         if name == "deform_conv_dgrad":
             entry["pair_ms"] = per_frame(rows, "pair_ms", "per_step")
             entry["matmul_ms"] = per_frame(rows, "matmul_ms", "per_step")
@@ -918,16 +962,20 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt):
     # decoder starts at level 2), so autograd runs only level 2's backward,
     # once per tied layer
     # level 2 and the ragged (100, 8) take the cluster path, also at B = 1, 2
+    # level 2 of a 42-keypoint model, (378, 16), takes the two-pass path at
+    # phase 13's --depth batch of 2: its 3 launches per --depth step are
+    # counted in `depth_per_step`
     shapes = []
     for i in range(3):
         kernel = cfg.model.kernel_list[i]
         n = cfg.model.num_classes * cfg.model.k_list[i] * (1 + 2 * (kernel // 2)) ** 2
-        shapes.append((n, 4 * 2 ** i, n_layers if i == 2 else 0, TRAIN_BATCH))
+        shapes.append((n, 4 * 2 ** i, n_layers if i == 2 else 0, TRAIN_BATCH, 0))
         if i == 2:
-            shapes += [(n, 16, 0, 1), (n, 16, 0, 2)]
-    shapes += [(100, 8, 0, B) for B in (1, 2, TRAIN_BATCH)]  # ragged n, not on the main path
+            shapes += [(n, 16, 0, 1, 0), (n, 16, 0, 2, 0)]
+    shapes.append((DEPTH_CLASSES * 9, 16, 0, TRAIN_CLI_DEPTH_BATCH, n_layers))
+    shapes += [(100, 8, 0, B, 0) for B in (1, 2, TRAIN_BATCH)]  # ragged n, not on the main path
     rows = []
-    for n, d, per_step, B in shapes:
+    for n, d, per_step, B, depth_per_step in shapes:
         q, k, v, dout = (torch.randn(B, h, n, d, generator=gen, device=dev) for _ in range(4))
         bias = 0.3 * torch.randn(h, n, n, generator=gen, device=dev)
         o = attention_kernel.biased_attention_cuda(q, k, v, bias)
@@ -948,7 +996,8 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt):
         # once; ~10d + 5 FLOPs per (b, head, i, j) (S and dP recomputed, dS,
         # three d-long products)
         b_ms, b_by = bound_ms(4 * (2 * h * n * n + 8 * B * h * n * d), B * h * n * n * (10 * d + 5))
-        row = dict(n=n, d=d, B=B, per_step=per_step, rel_err=errs, dbias_bitwise_equal=True,
+        row = dict(n=n, d=d, B=B, per_step=per_step, depth_per_step=depth_per_step, rel_err=errs,
+                   dbias_bitwise_equal=True,
                    path="cluster" if attention_kernel.bwd_uses_cluster(n, d) else "two_pass",
                    max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
                    ms=cold_ms(lambda: attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)),
@@ -1302,6 +1351,185 @@ def cli_phase(torch, ckpt, work, no_launches):
         print(f"cli card vs cpu, 2 frames, {tag}: " + json.dumps(cmp))
         if (va != vb).any() or kp_err > CLI_KP_TOL or blend_err > CLI_BLEND_TOL or not tracks_equal:
             raise AssertionError(f"cli card vs cpu ({tag}): {cmp} (bars {CLI_KP_TOL} px, {CLI_BLEND_TOL} levels)")
+    return out
+
+
+def train_cli_phase(torch, work, no_launches):
+    """Phase 13 (module docstring): `cli.train.main --device cuda` at the
+    flagship config on sets the port's writers put in `work`. (A) synthetic,
+    with validation, the step decay and the image log: 2 epochs, then a
+    resume to epoch 3, then `cli.infer.main` on epoch 3's checkpoint; (B)
+    --depth, 42 joints, 1 epoch. The launches of every train step, mosaic
+    forward and validation forward are asserted one call at a time, the
+    artifacts checked; ms per step by stage from CUDA events, the
+    hand-written kernels' device ms per step from torch.profiler over the
+    resumed run's steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgtapose_tpu_torch.cli import infer, train as train_cli
+    from sgtapose_tpu_torch.data import synthetic
+    from sgtapose_tpu_torch.ops import attention_kernel, build
+    from sgtapose_tpu_torch.train import trainer
+
+    out = {}
+    syn, val, depth = (os.path.join(work, d) for d in ("train_syn", "train_val", "train_depth"))
+    synthetic.write_synthetic_dataset(syn, TRAIN_CLI_VIDEOS, TRAIN_CLI_FRAMES, seed=7)
+    synthetic.write_synthetic_dataset(val, 1, TRAIN_CLI_VAL_FRAMES, seed=8)
+    synthetic.write_depth_dataset(depth, "panda-depth", TRAIN_CLI_DEPTH_FRAMES, seed=9)
+    if attention_kernel.bwd_uses_cluster(DEPTH_CLASSES * 9, 16):
+        raise AssertionError("a 42-keypoint level 2 (378, 16) should take the two-pass backward")
+
+    # launches of each call of the trainer's entry points the CLI makes
+    calls, lrs = [], []
+    profiling = {"on": False, "kernel_ms": {}, "steps": 0}
+    real = {name: getattr(trainer, name) for name in ("train_step", "predict_step", "eval_predict_step")}
+
+    def counted(name):
+        def call(*args, **kw):
+            if name == "train_step":
+                state = args[0]
+                lrs.append((state.step, state.schedule(state.schedule_count)))
+            before = build.launch_counts()
+            if name == "train_step" and profiling["on"]:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    res = real[name](*args, **kw)
+                    torch.cuda.synchronize()
+                dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+                for kn, fn in DEVICE_NAMES.items():
+                    profiling["kernel_ms"][kn] = profiling["kernel_ms"].get(kn, 0.0) + sum(
+                        e.time_range.elapsed_us() for e in dev_events if fn in e.name) / 1e3
+                profiling["steps"] += 1
+            else:
+                res = real[name](*args, **kw)
+            after = build.launch_counts()
+            calls.append((name, {kn: after[kn] - before[kn] for kn in after}))
+            return res
+        return call
+
+    step_expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16,
+                       deform_conv_dgrad=16, deform_sample=16)
+    fwd_expect = dict(no_launches, biased_attention=9, deform_conv=16)
+
+    def run(name, argv, expect):
+        """One CLI run, the counters reset just before it and read just
+        after, every call's launches asserted; returns (result, record)."""
+        calls.clear()
+        timer = StageTimer()
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_cli.main(argv + ["--device", "cuda"], stage_timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = build.launch_counts()
+        by_kind = {}
+        for kind, launched in calls:
+            if launched != expect[kind]:
+                raise AssertionError(f"train cli {name}: a {kind} call launched {launched}, expected {expect[kind]}")
+            by_kind[kind] = by_kind.get(kind, 0) + 1
+        total = {kn: sum(launched[kn] for _, launched in calls) for kn in counts}
+        if counts != total or not by_kind.get("train_step"):
+            raise AssertionError(f"train cli {name}: launches {counts} outside the trainer's calls {total}")
+        steps = by_kind["train_step"]
+        stage_ms = timer.per_frame_ms(steps)
+        step_ms = sum(stage_ms.get(st, 0.0) for st in CLI_STAGES)
+        rec = {"steps": steps, "calls": by_kind, "wall_s_with_setup": wall, "launches": counts,
+               "launches_per_step": {kn: sum(launched[kn] for kind, launched in calls if kind == "train_step")
+                                     / steps for kn in counts if expect["train_step"][kn]},
+               "stage_ms_per_step": {st: stage_ms.get(st, 0.0) for st in CLI_STAGES},
+               "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+               "validation_s": [s_.elapsed_time(e_) / 1e3 for n_, s_, e_ in timer.events if n_ == "validation"],
+               # one entry per call: a run's first step pays first-use costs
+               # (cuDNN's choices at a new batch size, Adam's moments)
+               "stage_ms_by_call": {st: [s_.elapsed_time(e_) for n_, s_, e_ in timer.events if n_ == st]
+                                    for st in CLI_STAGES},
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"train cli {name}: " + json.dumps(rec))
+        return res, rec
+
+    for name in real:
+        setattr(trainer, name, counted(name))
+    try:
+        # (A) train 2 epochs with validation, then resume to epoch 3
+        exp = os.path.join(work, "train_exp")
+        argv = ["--dataset", syn, "--val_dataset", val, "--output_dir", exp, "--batch_size", str(TRAIN_CLI_BATCH),
+                "--lr_step", "2", "--log_every", "1", "--image_log_every", "1"]
+        expect = {"train_step": step_expect, "predict_step": fwd_expect, "eval_predict_step": fwd_expect}
+        res, out["synthetic"] = run("synthetic", argv + ["--num_epochs", "2"], expect)
+        iters = res["iters_per_epoch"]
+        if iters != 2 or res["state"].step != 4 or out["synthetic"]["calls"] != {
+                "train_step": 4, "predict_step": 4, "eval_predict_step": 2}:
+            raise AssertionError(f"train cli synthetic: {iters} iterations an epoch, step {res['state'].step}, "
+                                 f"calls {out['synthetic']['calls']}")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss_keys = {"tot", "hm", "reg", "tracking"}
+        kp_keys = {"kp_found_inframe", "kp_missing_inframe", "kp_l2_mean_px", "kp_pck_auc_12px"}
+        train_recs = [r for r in recs if r["prefix"] == "train"]
+        val_recs = [r for r in recs if r["prefix"] == "val"]
+        if ([r["step"] for r in train_recs] != [1, 2, 3, 4] or [r["step"] for r in val_recs] != [2, 4]
+                or any(set(r) != {"ts", "step", "prefix"} | loss_keys for r in train_recs)
+                or any(set(r) != {"ts", "step", "prefix"} | loss_keys | kp_keys for r in val_recs)
+                or not all(math.isfinite(r[k]) for r in recs for k in loss_keys)
+                or any(r["kp_found_inframe"] + r["kp_missing_inframe"] != TRAIN_CLI_BATCH * 7 for r in val_recs)):
+            raise AssertionError(f"train cli synthetic: metrics.jsonl records {recs}")
+        out["synthetic"]["records"] = recs
+        profiling["on"] = True
+        res, out["resumed"] = run("resumed", argv + ["--num_epochs", "3", "--resume",
+                                                     os.path.join(exp, "ckpt", "epoch_2.pt")], expect)
+        profiling["on"] = False
+        state = res["state"]
+        base = train_cli.parse_args(["--dataset", syn]).lr
+        lr_last = state.optimizer.param_groups[0]["lr"]
+        if (state.step != 6 or [s for s, _ in lrs] != list(range(6))
+                or any(abs(lr - base) > 1e-6 * base for _, lr in lrs[:4])
+                or any(abs(lr - 0.1 * base) > 1e-6 * base for _, lr in lrs[4:] + [(None, lr_last)])):
+            raise AssertionError(f"train cli resume: step {state.step}, learning rates {lrs}")
+        out["resumed"]["learning_rates"] = lrs
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        viz = sorted(os.listdir(os.path.join(exp, "viz")))
+        if ckpts != ["epoch_1.pt", "epoch_2.pt", "epoch_3.pt"] or viz != [
+                f"train_mosaic_{st:07d}.png" for st in range(1, 7)]:
+            raise AssertionError(f"train cli: checkpoints {ckpts}, images {viz}")
+        out["resumed"]["kernel_ms_per_step_profiled"] = {kn: ms / profiling["steps"]
+                                                         for kn, ms in profiling["kernel_ms"].items()}
+        print("train cli resumed, profiled kernel ms per step: "
+              + json.dumps(out["resumed"]["kernel_ms_per_step_profiled"]))
+        del res, state
+
+        # (B) --depth: 42 joints; levels 0 and 1 through the key-tiled kernel,
+        # level 2's backward on the two-pass path
+        depth_step = dict(step_expect, biased_attention=3, biased_attention_tiled=6)
+        depth_fwd = dict(fwd_expect, biased_attention=3, biased_attention_tiled=6)
+        res, out["depth"] = run("depth", ["--dataset", os.path.join(depth, "panda-depth"), "--depth", "--output_dir",
+                                          os.path.join(work, "train_depth_exp"), "--num_epochs", "1",
+                                          "--batch_size", str(TRAIN_CLI_DEPTH_BATCH), "--log_every", "1",
+                                          "--image_log_every", "1"],
+                                {"train_step": depth_step, "predict_step": depth_fwd})
+        if res["state"].step != 2 or out["depth"]["calls"] != {"train_step": 2, "predict_step": 2}:
+            raise AssertionError(f"train cli depth: step {res['state'].step}, calls {out['depth']['calls']}")
+        del res
+    finally:
+        for name, fn in real.items():
+            setattr(trainer, name, fn)
+
+    # train then infer: the resumed run's last checkpoint through the
+    # inference CLI on the validation video
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = infer.main(["--dataset", val, "--ckpt", os.path.join(exp, "ckpt", "epoch_3.pt"), "--output_dir",
+                      os.path.join(work, "train_infer"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    expect = dict(fwd_expect, biased_attention=9 * TRAIN_CLI_VAL_FRAMES, deform_conv=16 * TRAIN_CLI_VAL_FRAMES)
+    km = res["keypoint_metrics"]
+    if counts != expect or km["num_gt_inframe"] + km["num_gt_outframe"] != TRAIN_CLI_VAL_FRAMES * 7:
+        raise AssertionError(f"train then infer: launches {counts} (expected {expect}), GT counts {km}")
+    out["infer"] = {"seconds": time.perf_counter() - t0, "launches": counts, "keypoint_metrics": km,
+                    "pnp_metrics": res["pnp_metrics"]}
+    print("train cli, then infer on epoch 3: " + json.dumps(out["infer"]))
     return out
 
 

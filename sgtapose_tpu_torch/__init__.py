@@ -17,11 +17,15 @@ JAX package:
               tracker's association pass
   eval/       metrics, set-level analysis, the synthetic-video harness
   data/       synthetic sequences and the on-disk fixture writers, the
-              dataset loaders, the training-batch pipeline
-  train/      loss, schedules, phases, the float32 trainer
-  cli/        train_demo, infer (datasets on disk)
+              dataset loaders and discovery, the threaded batch loader, the
+              training-batch pipeline
+  train/      loss, schedules, phases, the float32 trainer and validation
+  parallel/   data-parallel ranks (torch.distributed): global-batch
+              BatchNorm and dropout, the gradient mean
+  cli/        train_demo, train and infer (datasets on disk)
   utils/      flax-variable and train-state loader, bf16 serving (precision.py),
-              the debug images (debugger.py, visualize.py), StageTimer
+              the debug images (debugger.py, visualize.py), StageTimer,
+              MetricsLogger
 
 A bf16 model (`utils.precision.bf16_inference_model`) serves as the JAX
 package's `bf16_inference_variables` + `make_bf16_apply` do: bf16 weights and

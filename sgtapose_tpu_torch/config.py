@@ -115,6 +115,8 @@ class TrainConfig:
     # (the reference's live renderer has the block commented out)
     fp_disturb: float = 0.1
     fp_disturb_active: bool = False
+    # sequence window remap of the training pairs (data/discovery.py)
+    seq_frame: int = 3
 
 
 @dataclass(frozen=True)

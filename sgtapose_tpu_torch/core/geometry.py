@@ -228,6 +228,15 @@ def render_prior_heatmap_cls(
     )
 
 
+def render_teaser_heatmap(kp_projs_raw, trans_input, input_w, input_h, raw_width, raw_height) -> torch.Tensor:
+    """Display-quality prior heatmap (H_in, W_in): sigma 6, radius 12, the
+    Gaussians centred at the SUB-PIXEL keypoint positions (the training
+    renderer truncates them)."""
+    pts = affine_transform_and_clip(kp_projs_raw, trans_input, input_w, input_h, raw_width, raw_height)
+    conf = torch.ones(pts.shape[:-1], dtype=torch.float32, device=pts.device)
+    return render_gaussian_heatmap(pts, conf, input_h, input_w, radius=12, sigma=6.0, subpixel=True)
+
+
 def render_noised_prior_heatmap(
     noise, keep_u, fp_u, fp_noise, kp_projs_raw, trans_input, input_w, input_h, raw_width,
     raw_height, hm_disturb: float, lost_disturb: float, fp_disturb: float = 0.0,

@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sgtapose_tpu_torch.ops.attention_kernel import fused_biased_attention
+from sgtapose_tpu_torch.parallel import mesh
 
 
 def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +112,10 @@ class Dropout(nn.Module):
     probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; in eval
     mode (or at rate 0) the identity. The keep mask is drawn from
     `self.generator`, a torch.Generator on the input's device that the
-    trainer sets (`set_dropout_generator`); train mode without one raises."""
+    trainer sets (`set_dropout_generator`); train mode without one raises.
+    Under several data-parallel ranks each draws the mask of the global
+    batch and keeps its own rows (`parallel/mesh.global_rand`), as JAX draws
+    one mask for the global array."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -124,7 +128,7 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("train-mode dropout needs a generator: models.attention.set_dropout_generator")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        keep = mesh.global_rand(x.shape, self.generator, x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

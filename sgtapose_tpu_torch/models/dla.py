@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sgtapose_tpu_torch.models.deform_conv import DeformConv2d
+from sgtapose_tpu_torch.parallel import mesh
 
 BN_MOMENTUM = 0.9  # flax convention: running = 0.9 running + 0.1 batch
 
@@ -31,7 +32,9 @@ class BatchNorm(nn.BatchNorm2d):
     the running statistics, as `nn.BatchNorm2d`. Train mode: the batch's
     statistics over N*H*W, its BIASED variance both for normalising and for
     the running average, running = 0.9 running + 0.1 batch (nn.BatchNorm2d
-    feeds the unbiased variance into running_var)."""
+    feeds the unbiased variance into running_var). Under several
+    data-parallel ranks the statistics are the global batch's
+    (`parallel/mesh.global_moments`), as the JAX mesh step computes them."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5)
@@ -39,9 +42,16 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if mesh.world_size() > 1:
+            mean, var = mesh.global_moments(x, (0, 2, 3))
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            out = (x - mean[None, :, None, None]) * scale[None, :, None, None] + self.bias[None, :, None, None]
+            mean, var = mean.detach(), var.detach()
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(self.running_mean.dtype), alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var.to(self.running_var.dtype), alpha=1 - BN_MOMENTUM)
         return out

@@ -15,19 +15,28 @@ sets the learning rate of each update to schedule(schedule_count) before
 `optimizer.step()` and increments the count after, the same sequence.
 Dropout draws from a generator on the model's device reseeded from
 (seed, step) at each step, as the JAX step folds the step into its key.
+
+Under several data-parallel ranks (`parallel/mesh.py`) `train_step` is the
+JAX mesh step over the global batch: BatchNorm and dropout act on the global
+batch inside the model, the gradients and the returned loss terms are the
+ranks' means. `validate` is the training CLI's per-epoch validation.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
+import numpy as np
 import torch
 
 from sgtapose_tpu_torch.config import Config
+from sgtapose_tpu_torch.decode.peaks import decode_heatmaps_batch
+from sgtapose_tpu_torch.eval.metrics import keypoint_metrics
 from sgtapose_tpu_torch.models.attention import set_dropout_generator
 from sgtapose_tpu_torch.models.sgta import SGTAPose, create_model
+from sgtapose_tpu_torch.parallel import mesh
 from sgtapose_tpu_torch.train.loss import sgta_loss
 from sgtapose_tpu_torch.train.phases import input_names, loss_weights, model_inputs
 from sgtapose_tpu_torch.train.schedule import warmup_poly_schedule
@@ -127,6 +136,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], hm_weight: flo
         for p in state.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mesh.all_reduce_mean_([p.grad for p in state.model.parameters()])
     with _timed(stage_timer, "optimizer"):
         lr = state.schedule(state.schedule_count)
         for group in state.optimizer.param_groups:
@@ -134,7 +144,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], hm_weight: flo
         state.optimizer.step()
     state.schedule_count += 1
     state.step += 1
-    return {k: v.detach() for k, v in stats.items()}
+    stats = {k: v.detach() for k, v in stats.items()}
+    terms = list(stats.values())
+    mesh.all_reduce_mean_(terms)
+    return dict(zip(stats, terms))
 
 
 @torch.no_grad()
@@ -167,6 +180,42 @@ def eval_predict_step(state: TrainState, batch, phase: str = "PlanA_win"
     out_f32 = {k: v.to(torch.float32) for k, v in out.items()}
     _, stats = sgta_loss(out_f32, batch, **loss_weights(phase))
     return stats, _prediction_heads(out_f32)
+
+
+def validate(state: TrainState, batches: Iterable[Dict[str, torch.Tensor]], cfg: Config,
+             phase: str = "PlanA_win") -> Dict[str, float]:
+    """The training CLI's validation: per batch one `eval_predict_step`, the
+    heads decoded with the `cfg.infer` settings, detections and ground truth
+    (kp_int + reg_target) in input pixels (x down_ratio). Returns the mean
+    loss terms over the batches and, over all frames and keypoints,
+    `keypoint_metrics`' counts of found and missing in-frame keypoints,
+    mean L2 error (-1.0 when there is none) and PCK AUC at 12 px (0.0 when
+    there is none). No batch: an empty dict."""
+    vals, det_all, gt_all = [], [], []
+    ratio = float(cfg.model.down_ratio)
+    inf = cfg.infer
+    for batch in batches:
+        stats, pred = eval_predict_step(state, batch, phase)
+        vals.append({k: v.item() for k, v in stats.items()})
+        dec = decode_heatmaps_batch(pred["hm"], pred["reg"], pred["tracking"], max_peaks=inf.max_peaks,
+                                    peak_thresh=inf.peak_thresh, ambiguity_gap=inf.ambiguity_gap,
+                                    peak_offset=inf.peak_offset, sigma=inf.peak_sigma, ref_sort=inf.ref_sort,
+                                    coord_mode=inf.decode_coord)
+        det_all.append(dec.coords.cpu().numpy() * ratio)
+        gt = batch["kp_int"].cpu().numpy().astype(np.float32) + batch["reg_target"].cpu().numpy()
+        gt_all.append(gt * ratio)
+    if not vals:
+        return {}
+    mean = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
+    H, W = cfg.model.input_res
+    km = keypoint_metrics(np.concatenate(det_all).reshape(-1, 2), np.concatenate(gt_all).reshape(-1, 2), (W, H))
+    mean.update({
+        "kp_found_inframe": km["num_found_gt_inframe"],
+        "kp_missing_inframe": km["num_missing_gt_inframe"],
+        "kp_l2_mean_px": km["l2_error_mean_px"] or -1.0,
+        "kp_pck_auc_12px": km["l2_error_auc"] or 0.0,
+    })
+    return mean
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:

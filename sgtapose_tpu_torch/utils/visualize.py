@@ -1,10 +1,11 @@
 """Host-side debug rendering with PIL: keypoint overlays, belief-map images,
 mosaics.
 
-Counterpart of the part of `sgtapose_tpu/utils/visualize.py` the per-frame
-debugger uses (`_DEFAULT_COLORS`, `overlay_points_on_image`,
-`image_from_belief_map`, `mosaic_images`), the same functions of the same
-inputs.
+Counterpart of `sgtapose_tpu/utils/visualize.py`, the same functions of the
+same inputs: what the per-frame debugger uses (`_DEFAULT_COLORS`,
+`overlay_points_on_image`, `image_from_belief_map`, `mosaic_images`), the
+training CLI's image log (`training_debug_mosaic`) and the prior teaser
+(`teaser_prior_image`).
 """
 
 from __future__ import annotations
@@ -70,3 +71,33 @@ def mosaic_images(images: List, rows: int, cols: int, inner_padding_px: int = 2)
         rr, cc = idx // cols, idx % cols
         canvas.paste(im.resize((w, h)), (cc * (w + pad), rr * (h + pad)))
     return canvas
+
+
+def training_debug_mosaic(next_img: np.ndarray, gt_belief: np.ndarray, pred_belief: np.ndarray):
+    """(input | GT heatmap max over classes | predicted heatmap max), side by
+    side: the training CLI's image log. next_img (H, W, 3) in [0, 255];
+    gt_belief, pred_belief (Ho, Wo, C)."""
+    from PIL import Image
+
+    img = Image.fromarray(np.asarray(np.clip(next_img, 0, 255), np.uint8))
+    gt = image_from_belief_map(np.max(gt_belief, axis=-1)).resize(img.size)
+    pr = image_from_belief_map(np.max(pred_belief, axis=-1)).resize(img.size)
+    return mosaic_images([img, gt, pr], 1, 3)
+
+
+def teaser_prior_image(kp_projs_raw, trans_input, input_wh, raw_wh, image=None) -> np.ndarray:
+    """The prior as a display image: `geometry.render_teaser_heatmap` (sigma
+    6, sub-pixel centres) on a heat ramp, blended over `image` (the warped
+    input, (H, W, 3) in [0, 255]) when given. Returns uint8 (H, W, 3)."""
+    import torch
+
+    from sgtapose_tpu_torch.core import geometry
+
+    in_w, in_h = input_wh
+    raw_w, raw_h = raw_wh
+    hm = geometry.render_teaser_heatmap(torch.as_tensor(np.asarray(kp_projs_raw), dtype=torch.float32),
+                                        torch.as_tensor(np.asarray(trans_input), dtype=torch.float32),
+                                        in_w, in_h, raw_w, raw_h).numpy()
+    heat = np.stack([hm * 255.0, hm * 64.0, (1.0 - hm) * 32.0], axis=-1)
+    out = heat if image is None else 0.55 * np.asarray(image, np.float32) + 0.45 * heat
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -228,10 +228,12 @@ def _rel_err(a, b):
 
 
 @pytest.mark.parametrize("n,d,B", [(1183, 4, 8), (343, 8, 8), (63, 16, 8), (100, 8, 2), (33, 8, 2),
-                                   (1, 4, 2), (63, 16, 1), (63, 16, 9), (100, 8, 8)])
+                                   (1, 4, 2), (63, 16, 1), (63, 16, 9), (100, 8, 8), (378, 16, 2)])
 def test_biased_attention_bwd_kernel_matches_plain(dev, n, d, B):
     """The flagship shapes at the training batch of 8, and ragged n; n <= 100
-    takes the cluster path (B = 9: a rank sums two batch elements)."""
+    takes the cluster path (B = 9: a rank sums two batch elements); (378,
+    16) is a 42-keypoint model's level 2 at the --depth training batch (two
+    passes)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(n * d + B)
     q, k, v, dout = (torch.randn(B, 8, n, d, generator=g, device=dev) for _ in range(4))
