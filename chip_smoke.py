@@ -103,8 +103,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      config, on sets the port's writers make: (A) synthetic, 2 videos x 6
      frames (640x360), a validation video of 5 frames, batch 4, --lr_step 2
      --log_every 1 --image_log_every 1, 2 epochs; then --resume from epoch
-     2's checkpoint to epoch 3 (the step goes on from 4 to 6 at 0.1x the
-     learning rate); then `cli/infer.main` on epoch 3's checkpoint; (B)
+     2's checkpoint with --num_epochs 1 (the JAX CLI's epoch loop restarts
+     at 1: one more epoch, numbered 1; the step goes on from 4 to 6 at 0.1x
+     the learning rate); then `cli/infer.main` on that resumed epoch's
+     checkpoint; (B)
      --depth, 42 joints, 6 frames, batch 2, 1 epoch. Launches asserted one
      call at a time: per train step 9 biased_attention, 3 attention
      backward, 16 deform_conv, 16 deform_conv_dgrad, 16 deform_sample (B: 3
@@ -116,7 +118,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      events, steps/s, validation seconds, peak device memory, and the
      hand-written kernels' device ms per step from torch.profiler over the
      resumed run's steps;
- 14. a `{"kernels": [...]}` line, the card line, and last the device line
+ 14. bf16 mixed-precision training (`train_step(bf16=True)`: bf16
+     parameters, activations and inputs; float32 masters, loss, gradients,
+     BatchNorm statistics and Adam moments): (a) the three bf16 backward
+     kernels against their plain versions at the training shapes, every
+     output the same bit for bit in two runs (but the data gradient's dx,
+     added with float atomics before its rounding: reruns counted), with
+     cold / plain times, bounds and SDPA's bf16 backward as the attention's
+     yardstick: the attention backward at level 2, batch 8, q bf16 and q
+     float32, and a ragged (100, 8); `deform_conv_dgrad_bf16` at every
+     decoder node at batch 8 with offsets at 0, +-3 and +-12 px and one
+     ragged shape; `deform_sample_bf16` at every decoder input shape; (b)
+     one 480x480 bf16 gradient, batch 1, BatchNorm in eval mode, the DCN
+     offset/mask convs perturbed, card against CPU bf16 (plain versions)
+     and against phase 11's CPU float64 (BF16_GRAD_* bars); (c) 5 bf16
+     `train_step`s at 480x480, batch 8 on one fixed batch (the loss must
+     fall; launches asserted per step: 9 biased_attention_bf16, 3
+     biased_attention_bwd_bf16, 16 deform_conv_bf16, 16
+     deform_conv_dgrad_bf16, 16 deform_sample_bf16, no float32 network
+     kernel; everything float32 after) and a profiled step; (d)
+     `cli/train_demo.main --bf16` for 20 steps (no eval: phase 11 runs it),
+     the same launches asserted per step, stage times, steps/s and peak
+     device memory; (e) `cli/train.main --bf16` for 1 epoch on phase 13's (A) set
+     with validation and mosaics, which run the float32 parameters;
+ 15. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 The detector runs of phase 9 take 8 frames each (16 before the training
@@ -196,6 +221,25 @@ GRAD_L2_TOL = 0.01
 # largest reference gradient, and over all gradients in L2:
 EVAL_GRAD_WORST_TOL = 1e-3
 EVAL_GRAD_L2_TOL = 1e-4
+# phase 14, bf16 training. The bf16 backward kernels against their plain bf16
+# versions: both compute in float32 from the same bf16 inputs and round each
+# output once, but a rounding can fall on the other side of a bf16 boundary
+# when float32 sums run in another order: two bf16 units in the last place
+# at the top of the range, 2^-6 of max(1, max|ref|) per output
+BWD_BF16_REL_TOL = 2.0 ** -6
+# The 480x480 bf16 gradient (batch 1, BatchNorm in eval mode, the DCN
+# offset/mask convs perturbed), per tensor relative to its largest reference
+# gradient, and over all gradients in L2: card bf16 against CPU bf16 (plain
+# versions; the same rounding points, other summation orders, so samples
+# near a pixel boundary can fall on either side of it), and card bf16
+# against CPU float64 (the cost of bf16 itself). Readings on an H100 80GB
+# HBM3 at 700 W (PERF.md §6): card vs CPU bf16 15.8 % worst, 2.9 % in L2;
+# card vs float64 30.0 % and 3.3 %; CPU bf16 vs float64 27.3 % and 2.4 %.
+# Bars:
+BF16_GRAD_VS_CPU_WORST_TOL = 0.5
+BF16_GRAD_VS_CPU_L2_TOL = 0.05
+BF16_GRAD_VS_F64_WORST_TOL = 0.5
+BF16_GRAD_VS_F64_L2_TOL = 0.05
 # phase 12, the inference CLI on the card: synthetic videos x frames (run A),
 # DREAM-real videos x frames (run B, the second video at twice the
 # resolution), depth frames (run C, 42 classes); card vs CPU on 2 frames:
@@ -209,7 +253,7 @@ CLI_BLEND_TOL = 2
 # phase 13, the training CLI on the card: (A) synthetic training videos x
 # frames at batch 4 (10 pairs: 2 steps an epoch), a validation video of 5
 # frames (4 pairs: one batch), 2 epochs with the step decay at epoch 2, then
-# a resume to epoch 3; (B) --depth, 6 frames (5 pairs) at batch 2, 1 epoch
+# a resume for 1 more epoch; (B) --depth, 6 frames (5 pairs) at batch 2, 1 epoch
 TRAIN_CLI_VIDEOS, TRAIN_CLI_FRAMES, TRAIN_CLI_VAL_FRAMES = 2, 6, 5
 TRAIN_CLI_BATCH, TRAIN_CLI_DEPTH_BATCH, TRAIN_CLI_DEPTH_FRAMES = 4, 2, 6
 CLI_STAGES = ("loader", "batch", "forward", "backward", "optimizer")
@@ -217,16 +261,37 @@ CLI_STAGES = ("loader", "batch", "forward", "backward", "optimizer")
 DCN_NODES = [(15, 512, 256, 1), (30, 256, 256, 1), (30, 256, 128, 2), (30, 256, 64, 1),
              (60, 128, 128, 2), (60, 128, 64, 4), (120, 64, 64, 5)]
 RAGGED_DCN = (9, 6, 5, 0)  # 9x11 map, C % 8 != 0, O below one tile; off the path
-# device function of each kernel, as the profiler names it
+# device functions of each kernel, as the profiler names them (a substring;
+# each bf16 instantiation has a __global__ name of its own, and the bf16
+# data gradient's three launches, weight split, kernel and dx rounding, share
+# the prefix deform_conv_dgrad_bf16_)
 DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "deform_conv_kernel",
                 "deform_sample": "deform_sample_kernel",
                 "biased_attention_bf16": "biased_attention_bf16_kernel",
                 "deform_conv_bf16": "deform_conv_bf16_kernel",
                 "biased_attention_bwd": "biased_attention_bwd_", "deform_sample_bwd": "deform_sample_bwd_kernel",
                 "deform_conv_dgrad": "deform_conv_dgrad_kernel",
-                "biased_attention_tiled": "biased_attention_tiled_kernel"}
+                "biased_attention_tiled": "biased_attention_tiled_kernel",
+                "biased_attention_bwd_bf16": "biased_attention_bf16_bwd_kernel",
+                "deform_conv_dgrad_bf16": "deform_conv_dgrad_bf16_",
+                "deform_sample_bf16": "deform_sample_bf16_kernel"}
+
+
+def kernel_device_ms(events, kernel: str) -> float:
+    """Device ms of `kernel`'s functions among profiler events."""
+    return sum(e.time_range.elapsed_us() for e in events if DEVICE_NAMES[kernel] in e.name) / 1e3
+
+
 TRAIN_STAGES = ("batch", "forward", "backward", "optimizer")
 STAGE_NAMES = ("pnp", "render", "trunk", "fuse", "decode")
+
+
+def shape_sum(rows, key, unit="per_frame"):
+    """Sum over the shapes one frame (or one training step) runs."""
+    vals = [r[key] for r in rows if r[unit]]
+    if any(v is None for v in vals):
+        return None
+    return sum(r[key] * r[unit] for r in rows if r[unit])
 
 
 def rel_err(a, b) -> float:
@@ -799,23 +864,23 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         ckpt = os.path.join(work, "train_demo.pt")
-        train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt)
+        ref64 = {}
+        train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, ref64)
         report["training"] = train
         cli = cli_phase(torch, ckpt, work, no_launches)
         report["cli"] = cli
         # ---- 13. the training CLI ------------------------------------------
         train_cli = train_cli_phase(torch, work, no_launches)
         report["train_cli"] = train_cli
+        # ---- 14. bf16 training ---------------------------------------------
+        bf16_train = bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
+        report["bf16_training"] = bf16_train
+        del ref64
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 14. kernels line --------------------------------------------------
-    def per_frame(rows, key, unit="per_frame"):
-        """Sum over the shapes one frame (or one training step) runs."""
-        vals = [r[key] for r in rows if r[unit]]
-        if any(v is None for v in vals):
-            return None
-        return sum(r[key] * r[unit] for r in rows if r[unit])
+    # ---- 15. kernels line --------------------------------------------------
+    per_frame = shape_sum
 
     rates = {"biased_attention": "67 TFLOP/s float32 FMA", "deform_sample": "67 TFLOP/s float32 FMA",
              "deform_conv": "165 TFLOP/s 3xTF32 (495 / 3)",
@@ -924,6 +989,7 @@ def main() -> int:
         else:
             entry["library_ms_note"] = "backward of F.scaled_dot_product_attention with a float mask"
         kernels.append(entry)
+    kernels += bf16_kernel_rows(bf16_train, per_frame)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -937,11 +1003,12 @@ def main() -> int:
     return 0
 
 
-def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt):
+def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, keep):
     """Phase 11 (module docstring): the attention backward kernel against
     its plain version, the full-width gradients card vs CPU (train mode and
     eval mode), the fixed-batch steps, the train_demo run with its eval
-    (its trained state saved to `ckpt`), and a profiled step."""
+    (its trained state saved to `ckpt`), and a profiled step. `keep`: see
+    `eval_mode_gradient_check`."""
     import copy
 
     import torch.nn.functional as F
@@ -1058,7 +1125,7 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt):
     if not math.isfinite(worst) or worst > GRAD_WORST_TOL or not cmp["card"]["l2"] <= GRAD_L2_TOL:
         raise AssertionError(f"train-step gradients, card vs float64: {cmp['card']} (bars {GRAD_WORST_TOL} "
                              f"per tensor, {GRAD_L2_TOL} in L2)")
-    out["grad_eval_mode_vs_float64"] = eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches)
+    out["grad_eval_mode_vs_float64"] = eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep)
     del model_cpu, model_gpu, model_64, grads, batch_cpu, batch_64
 
     # the train_demo path, float32, 480x480, batch 8: FIXED_STEPS steps on one
@@ -1091,8 +1158,7 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt):
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / 2
     out["profiled"] = {
-        "kernel_ms_per_step": {name: sum(e.time_range.elapsed_us() for e in device if fn in e.name) / 1e3 / 2
-                               for name, fn in DEVICE_NAMES.items()},
+        "kernel_ms_per_step": {name: kernel_device_ms(device, name) / 2 for name in DEVICE_NAMES},
         "device_kernel_ms_per_step": device_ms, "profiled_wall_ms_per_step": wall_ms,
         "device_busy_share": device_ms / wall_ms,
         "launches_per_step": len(_launch_events(events)) / 2}
@@ -1100,8 +1166,10 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt):
     del state, fixed, raw
 
     # train_demo.main: TRAIN_STEPS steps on fresh batches, then its eval
+    # (peak memory from here: phase 14 reads bf16 training's the same way)
     timer = StageTimer()
     build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = train_demo.main(argv, stage_timer=timer)
     torch.cuda.synchronize()
@@ -1142,12 +1210,14 @@ def grad_errors(got, ref, live):
     return {"worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3], "l2": l2}
 
 
-def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches):
+def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep):
     """0b of phase 11: the loss's parameter gradients at 480x480, batch 1,
     BatchNorm in eval mode (running statistics), seeded weights with the
     zero-initialised ones perturbed, DCN offset/mask convs included: the
     card in float32 against the CPU in float64 (plain versions), at
-    EVAL_GRAD_WORST_TOL per tensor and EVAL_GRAD_L2_TOL in L2."""
+    EVAL_GRAD_WORST_TOL per tensor and EVAL_GRAD_L2_TOL in L2. The float64
+    gradients and the batch are left in `keep` (a dict) for phase 14's bf16
+    gradient."""
     from sgtapose_tpu_torch.models.sgta import create_model
     from sgtapose_tpu_torch.ops import build
     from sgtapose_tpu_torch.train.loss import sgta_loss
@@ -1176,6 +1246,7 @@ def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches):
     if launched != expect:
         raise AssertionError(f"eval-mode gradient launches {launched}, expected {expect}")
     ref = grads["cpu_float64"]
+    keep.update(grads=ref, batch=batch_cpu)
     if set(grads["card"]) != set(ref):
         raise AssertionError("card and reference reach different parameters")
     live = [name for name, g in ref.items() if g.abs().max().item() > 1e-6]
@@ -1358,7 +1429,8 @@ def train_cli_phase(torch, work, no_launches):
     """Phase 13 (module docstring): `cli.train.main --device cuda` at the
     flagship config on sets the port's writers put in `work`. (A) synthetic,
     with validation, the step decay and the image log: 2 epochs, then a
-    resume to epoch 3, then `cli.infer.main` on epoch 3's checkpoint; (B)
+    resume for 1 more epoch (numbered 1 again, as the JAX CLI numbers it),
+    then `cli.infer.main` on its checkpoint; (B)
     --depth, 42 joints, 1 epoch. The launches of every train step, mosaic
     forward and validation forward are asserted one call at a time, the
     artifacts checked; ms per step by stage from CUDA events, the
@@ -1397,9 +1469,8 @@ def train_cli_phase(torch, work, no_launches):
                     res = real[name](*args, **kw)
                     torch.cuda.synchronize()
                 dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-                for kn, fn in DEVICE_NAMES.items():
-                    profiling["kernel_ms"][kn] = profiling["kernel_ms"].get(kn, 0.0) + sum(
-                        e.time_range.elapsed_us() for e in dev_events if fn in e.name) / 1e3
+                for kn in DEVICE_NAMES:
+                    profiling["kernel_ms"][kn] = profiling["kernel_ms"].get(kn, 0.0) + kernel_device_ms(dev_events, kn)
                 profiling["steps"] += 1
             else:
                 res = real[name](*args, **kw)
@@ -1452,7 +1523,7 @@ def train_cli_phase(torch, work, no_launches):
     for name in real:
         setattr(trainer, name, counted(name))
     try:
-        # (A) train 2 epochs with validation, then resume to epoch 3
+        # (A) train 2 epochs with validation, then resume for --num_epochs 1
         exp = os.path.join(work, "train_exp")
         argv = ["--dataset", syn, "--val_dataset", val, "--output_dir", exp, "--batch_size", str(TRAIN_CLI_BATCH),
                 "--lr_step", "2", "--log_every", "1", "--image_log_every", "1"]
@@ -1477,7 +1548,7 @@ def train_cli_phase(torch, work, no_launches):
             raise AssertionError(f"train cli synthetic: metrics.jsonl records {recs}")
         out["synthetic"]["records"] = recs
         profiling["on"] = True
-        res, out["resumed"] = run("resumed", argv + ["--num_epochs", "3", "--resume",
+        res, out["resumed"] = run("resumed", argv + ["--num_epochs", "1", "--resume",
                                                      os.path.join(exp, "ckpt", "epoch_2.pt")], expect)
         profiling["on"] = False
         state = res["state"]
@@ -1490,7 +1561,7 @@ def train_cli_phase(torch, work, no_launches):
         out["resumed"]["learning_rates"] = lrs
         ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
         viz = sorted(os.listdir(os.path.join(exp, "viz")))
-        if ckpts != ["epoch_1.pt", "epoch_2.pt", "epoch_3.pt"] or viz != [
+        if ckpts != ["epoch_1.pt", "epoch_2.pt"] or viz != [
                 f"train_mosaic_{st:07d}.png" for st in range(1, 7)]:
             raise AssertionError(f"train cli: checkpoints {ckpts}, images {viz}")
         out["resumed"]["kernel_ms_per_step_profiled"] = {kn: ms / profiling["steps"]
@@ -1519,7 +1590,7 @@ def train_cli_phase(torch, work, no_launches):
     # inference CLI on the validation video
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    res = infer.main(["--dataset", val, "--ckpt", os.path.join(exp, "ckpt", "epoch_3.pt"), "--output_dir",
+    res = infer.main(["--dataset", val, "--ckpt", os.path.join(exp, "ckpt", "epoch_1.pt"), "--output_dir",
                       os.path.join(work, "train_infer"), "--device", "cuda"])
     torch.cuda.synchronize()
     counts = build.launch_counts()
@@ -1529,7 +1600,387 @@ def train_cli_phase(torch, work, no_launches):
         raise AssertionError(f"train then infer: launches {counts} (expected {expect}), GT counts {km}")
     out["infer"] = {"seconds": time.perf_counter() - t0, "launches": counts, "keypoint_metrics": km,
                     "pnp_metrics": res["pnp_metrics"]}
-    print("train cli, then infer on epoch 3: " + json.dumps(out["infer"]))
+    print("train cli, then infer on the resumed epoch's checkpoint: " + json.dumps(out["infer"]))
+    return out
+
+
+def bf16_kernel_rows(bf16_train, per_step_sum):
+    """The kernels-line entries of phase 14's three bf16 backward kernels:
+    launches from its train_demo --bf16 run, times and bounds summed over
+    one training step's shapes."""
+    out = []
+    for name, rows, source, replaces, rate, library_note in (
+        ("biased_attention_bwd_bf16", bf16_train["attention_bwd_bf16_shapes"],
+         "sgtapose_tpu_torch/csrc/biased_attention_bwd.cu", "sgtapose_tpu/ops/attention_kernel.py:145",
+         "67 TFLOP/s float32 FMA", "backward of F.scaled_dot_product_attention in bf16 with a float mask"),
+        ("deform_conv_dgrad_bf16", bf16_train["deform_conv_dgrad_bf16_shapes"],
+         "sgtapose_tpu_torch/csrc/deform_conv_bwd.cu", "sgtapose_tpu/models/deform_conv.py:188",
+         "989 TFLOP/s dense bf16", "no single PyTorch call computes this function"),
+        ("deform_sample_bf16", bf16_train["deform_sample_bf16_shapes"],
+         "sgtapose_tpu_torch/csrc/deform_sample.cu", "sgtapose_tpu/models/deform_conv.py:104",
+         "67 TFLOP/s float32 FMA", "no single PyTorch call computes this function"),
+    ):
+        bounds = [r["bound_by"] for r in rows if r["per_step"]]
+        bound_by = max(set(bounds), key=bounds.count)
+        launches = bf16_train["launches"][name]
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "launches_per_step": launches / TRAIN_STEPS, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per_step_sum(rows, "ms", "per_step"), "plain_ms": per_step_sum(rows, "plain_ms", "per_step"),
+            "bound_ms": per_step_sum(rows, "bound_ms", "per_step"), "bound_by": bound_by,
+            "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else rate,
+            "library_ms": per_step_sum(rows, "library_ms", "per_step"), "library_ms_note": library_note,
+            "profiled_ms_per_step": bf16_train["profiled"]["kernel_ms_per_step"][name],
+            "train_cli_launches_per_step": bf16_train["train_cli"]["launches"][name] / 2,
+            "shapes_note": "bf16 training (train_demo --bf16, 480x480, batch 8), per step"})
+    return out
+
+
+def _counting_calls(trainer, names, calls):
+    """Wrap the trainer's entry points `names` so each call appends (name,
+    the launches it made) to `calls`; returns the originals to restore."""
+    from sgtapose_tpu_torch.ops import build
+
+    real = {name: getattr(trainer, name) for name in names}
+
+    def counted(name):
+        def call(*args, **kw):
+            before = build.launch_counts()
+            res = real[name](*args, **kw)
+            after = build.launch_counts()
+            calls.append((name, {kn: after[kn] - before[kn] for kn in after}))
+            return res
+        return call
+
+    for name in names:
+        setattr(trainer, name, counted(name))
+    return real
+
+
+def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64):
+    """Phase 14 (module docstring): bf16 mixed-precision training. (a) the
+    three bf16 backward kernels against their plain versions at the
+    training shapes, bit for bit in two runs (dx of the data gradient is
+    added with float atomics before its rounding: its reruns are counted);
+    (b) the 480x480 bf16 gradient, card against CPU bf16 and CPU float64
+    (`ref64`: phase 11's float64 gradients and batch); (c) 5 bf16 train steps on a
+    fixed batch, launches per step, float32 state, a profiled step; (d)
+    `train_demo.main --bf16`, 20 steps (no eval), launches per step;
+    (e) `cli/train.main --bf16` for 1 epoch with validation and mosaics (in
+    float32) on phase 13's (A) set in `work`."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgtapose_tpu_torch.cli import train as train_cli, train_demo
+    from sgtapose_tpu_torch.data import pipeline, synthetic
+    from sgtapose_tpu_torch.models import deform_conv
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.ops import attention_kernel, build
+    from sgtapose_tpu_torch.train import trainer
+    from sgtapose_tpu_torch.train.loss import sgta_loss
+    from sgtapose_tpu_torch.train.phases import model_inputs
+    from sgtapose_tpu_torch.utils.precision import bf16_forward
+
+    bf = torch.bfloat16
+    out = {}
+    h = cfg.model.n_heads
+    n_layers = cfg.model.num_decoder_layers
+    t_phase = time.perf_counter()
+
+    # ---- (a) the bf16 backward kernels against their plain versions -------
+    # level 2 at the training batch: its 3 tied layers a step, q bf16 on the
+    # first and float32 (after the float32 LayerNorm) on the other two; a
+    # ragged (100, 8) off the path
+    kernel = cfg.model.kernel_list[2]
+    n2 = cfg.model.num_classes * cfg.model.k_list[2] * (1 + 2 * (kernel // 2)) ** 2
+    attn_rows = []
+    for n, d, q_dtype, per_step in ((n2, 16, bf, 1), (n2, 16, torch.float32, n_layers - 1),
+                                    (100, 8, bf, 0), (100, 8, torch.float32, 0)):
+        B = TRAIN_BATCH
+        q = torch.randn(B, h, n, d, generator=gen, device=dev).to(q_dtype)
+        k, v = (torch.randn(B, h, n, d, generator=gen, device=dev).to(bf) for _ in range(2))
+        bias = (0.3 * torch.randn(h, n, n, generator=gen, device=dev)).to(bf)
+        dout = torch.randn(B, h, n, d, generator=gen, device=dev)
+        o = attention_kernel.biased_attention_bf16_cuda(q, k, v, bias)
+        got = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, o, dout)
+        torch.cuda.synchronize()
+        ref = attention_kernel.plain_biased_attention_backward_bf16(q, k, v, bias, o, dout)
+        names = ("dq", "dk", "dv", "dbias")
+        errs = {name: rel_err(a.float(), r.float()) for name, a, r in zip(names, got, ref)}
+        if any(a.dtype != r.dtype for a, r in zip(got, ref)) or not all(
+                math.isfinite(e) and e <= BWD_BF16_REL_TOL for e in errs.values()):
+            raise AssertionError(f"bf16 attention backward n={n} d={d} q {q_dtype}: rel errors {errs} > "
+                                 f"{BWD_BF16_REL_TOL} (or dtypes {[a.dtype for a in got]})")
+        again = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, o, dout)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"bf16 attention backward n={n} d={d}: two runs differ (no atomics)")
+        # SDPA in bf16 with a float mask that requires grad: its backward alone
+        qs, ks, vs, bs = (t.detach().clone().requires_grad_() for t in (q.to(bf), k, v, bias))
+        y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bs)
+        dy16 = dout.to(bf)
+        # read the bias, q, k, v, O and dO once, write dbias, dq, dk and dv
+        # once, each at its own width (q and dq bf16 or float32, O and dO
+        # float32, the rest bf16); ~10d + 5 float32 FLOPs per (b, head, i, j)
+        qb = q.element_size()
+        b_ms, b_by = bound_ms(2 * 2 * h * n * n + B * h * n * d * (2 * qb + 2 * 4 + 4 * 2),
+                              B * h * n * n * (10 * d + 5))
+        row = dict(n=n, d=d, B=B, q_dtype=str(q_dtype).replace("torch.", ""), per_step=per_step, rel_err=errs,
+                   bitwise_equal_rerun=True,
+                   max_abs_err=max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)),
+                   ms=cold_ms(lambda: attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, o, dout)),
+                   plain_ms=cold_ms(lambda: attention_kernel.plain_biased_attention_backward_bf16(
+                       q, k, v, bias, o, dout)),
+                   library_ms=cold_ms(lambda: y.backward(dy16, retain_graph=True)),
+                   bound_ms=b_ms, bound_by=b_by)
+        attn_rows.append(row)
+        print("attention_bwd_bf16 " + json.dumps(row))
+        del q, k, v, bias, dout, o, got, again, ref, qs, ks, vs, bs, y
+    out["attention_bwd_bf16_shapes"] = attn_rows
+
+    # the data gradient at every decoder node at the training batch, offsets
+    # at zero, within the halo tile (+-3) and beyond it (+-12); times at +-3
+    # (and the kernel's at zero offsets)
+    dgrad_rows = []
+    for (H, C, O, per_step), span in [(node, span) for node in DCN_NODES + [RAGGED_DCN]
+                                      for span in (0.0, 3.0, 12.0)]:
+        B, W = (TRAIN_BATCH, H) if per_step else (2, H + 2)
+        x = torch.randn(B, H, W, C, generator=gen, device=dev).to(bf)
+        om = torch.cat([(torch.rand(B, H, W, 18, generator=gen, device=dev) * 2 - 1) * span,
+                        2 * torch.randn(B, H, W, 9, generator=gen, device=dev)], dim=-1).to(bf)
+        weight = (torch.randn(O, 9 * C, generator=gen, device=dev) / math.sqrt(9 * C)).to(bf)
+        dy = torch.randn(B, H, W, O, generator=gen, device=dev).to(bf)
+        dx, dom = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+        torch.cuda.synchronize()
+        rdx, rdom = deform_conv.plain_deform_conv_dgrad(x, om, weight, dy)
+        errs = {"dx": rel_err(dx.float(), rdx.float()), "dom": rel_err(dom.float(), rdom.float())}
+        if dx.dtype != bf or dom.dtype != bf or not all(math.isfinite(e) and e <= BWD_BF16_REL_TOL
+                                                          for e in errs.values()):
+            raise AssertionError(f"bf16 deform_conv_dgrad B={B} H={H} C={C} O={O} offsets +-{span}: "
+                                 f"rel errors {errs} > {BWD_BF16_REL_TOL}")
+        dx2, dom2 = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+        if not torch.equal(dom, dom2):
+            raise AssertionError(f"bf16 deform_conv_dgrad H={H} C={C} O={O}: two runs give another dom")
+        M = B * H * W
+        # dY, x, om and the weight read once, dx and dom written once, 2
+        # bytes an element; the product's 2 M O 9C operations at the dense
+        # bf16 rate (the float32 scatter not counted)
+        b_ms, b_by = bound_ms(2 * (M * O + 2 * M * C + 2 * M * 27 + O * 9 * C), 2 * M * O * 9 * C, BF16_OPS_PER_S)
+        row = dict(B=B, H=H, W=W, C=C, O=O, offsets=span, per_step=per_step if span == 3.0 else 0, rel_err=errs,
+                   dx_rerun_elements_differing=int((dx != dx2).sum().item()),
+                   max_abs_err=max((dx.float() - rdx.float()).abs().max().item(),
+                                   (dom.float() - rdom.float()).abs().max().item()),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if span == 0.0:
+            row["ms"] = cold_ms(lambda: deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy))
+        if span == 3.0:
+            row.update(ms=cold_ms(lambda: deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)),
+                       plain_ms=cold_ms(lambda: deform_conv.plain_deform_conv_dgrad(x, om, weight, dy),
+                                        iters=5, warmup=1))
+        dgrad_rows.append(row)
+        print("deform_conv_dgrad_bf16 " + json.dumps(row))
+        del x, om, weight, dy, dx, dom, dx2, dom2, rdx, rdom
+    out["deform_conv_dgrad_bf16_shapes"] = dgrad_rows
+
+    # the sampler: the columns of dW at every decoder input shape
+    sample_shapes = {}
+    for H, C, _, nodes in DCN_NODES + [RAGGED_DCN]:
+        sample_shapes[(H, C)] = sample_shapes.get((H, C), 0) + nodes
+    sample_rows = []
+    for (H, C), per_step in sample_shapes.items():
+        B, W = (TRAIN_BATCH, H) if per_step else (2, H + 2)
+        feat = torch.randn(B, H, W, C, generator=gen, device=dev).to(bf)
+        offsets = torch.rand(B, H, W, 18, generator=gen, device=dev) * 6 - 3
+        masks = torch.rand(B, H, W, 9, generator=gen, device=dev)
+        cols = deform_conv.deform_sample_cuda(feat, offsets, masks)
+        torch.cuda.synchronize()
+        ref = deform_conv.plain_deform_sample(feat, offsets, masks)
+        err = rel_err(cols.float(), ref.float())
+        if cols.dtype != bf or not math.isfinite(err) or err > DCN_BF16_REL_TOL:
+            raise AssertionError(f"bf16 deform_sample B={B} H={H} C={C}: rel err {err} > {DCN_BF16_REL_TOL}")
+        if not torch.equal(cols, deform_conv.deform_sample_cuda(feat, offsets, masks)):
+            raise AssertionError(f"bf16 deform_sample H={H} C={C}: two runs differ")
+        M = B * H * W
+        # feat (2 bytes), offsets and masks (float32) read once, the columns
+        # written once (2 bytes); ~9 FLOPs per output element
+        b_ms, b_by = bound_ms(2 * M * C + 4 * M * 27 + 2 * M * 9 * C, M * 9 * C * 9)
+        row = dict(B=B, H=H, W=W, C=C, per_step=per_step, rel_err=err, bitwise_equal_rerun=True,
+                   max_abs_err=(cols.float() - ref.float()).abs().max().item(),
+                   ms=cold_ms(lambda: deform_conv.deform_sample_cuda(feat, offsets, masks)),
+                   plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample(feat, offsets, masks)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        sample_rows.append(row)
+        print("deform_sample_bf16 " + json.dumps(row))
+        del feat, offsets, masks, cols, ref
+    out["deform_sample_bf16_shapes"] = sample_rows
+    out["kernel_checks_seconds"] = time.perf_counter() - t_phase
+
+    # ---- (b) the 480x480 bf16 gradient: card vs CPU bf16 and CPU float64 ----
+    model_cpu = create_model(cfg.model, device="cpu", seed=0)
+    perturb_zero_init(model_cpu, torch.Generator().manual_seed(1))
+    model_cpu.eval()
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    batch_cpu = ref64["batch"]
+    grads, seconds = {}, {}
+    for where, model, batch in (("card", model_gpu, {k: v.to(dev) for k, v in batch_cpu.items()}),
+                                ("cpu_bf16", model_cpu, batch_cpu)):
+        t0 = time.perf_counter()
+        build.reset_launch_counts()
+        heads = bf16_forward(model, [x.to(bf) for x in model_inputs("PlanA_win", batch)])
+        loss, _ = sgta_loss({k: v.float() for k, v in heads.items()}, batch)
+        loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+            launched = build.launch_counts()
+        seconds[where] = time.perf_counter() - t0
+        grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
+    step_launches = dict(no_launches, biased_attention_bf16=3 * n_layers, biased_attention_bwd_bf16=n_layers,
+                         deform_conv_bf16=16, deform_conv_dgrad_bf16=16, deform_sample_bf16=16)
+    if launched != step_launches:
+        raise AssertionError(f"bf16 gradient launches {launched}, expected {step_launches}")
+    ref = ref64["grads"]
+    if not set(grads["card"]) == set(grads["cpu_bf16"]) == set(ref):
+        raise AssertionError("card, CPU and reference reach different parameters")
+    live = [name for name, g in ref.items() if g.abs().max().item() > 1e-6]
+    cmp = {"card_vs_cpu_bf16": grad_errors(grads["card"], grads["cpu_bf16"], live),
+           "card_vs_float64": grad_errors(grads["card"], ref, live),
+           "cpu_bf16_vs_float64": grad_errors(grads["cpu_bf16"], ref, live)}
+    out["grad_bf16"] = dict(cmp, tensors=len(live), seconds=seconds, input="480x480, batch 1, BN eval mode",
+                            bars={"vs_cpu_bf16": [BF16_GRAD_VS_CPU_WORST_TOL, BF16_GRAD_VS_CPU_L2_TOL],
+                                  "vs_float64": [BF16_GRAD_VS_F64_WORST_TOL, BF16_GRAD_VS_F64_L2_TOL]})
+    print("bf16 gradient 480x480 batch 1, BN eval mode: " + json.dumps(out["grad_bf16"]))
+    for key, (worst_tol, l2_tol) in (("card_vs_cpu_bf16", (BF16_GRAD_VS_CPU_WORST_TOL, BF16_GRAD_VS_CPU_L2_TOL)),
+                                     ("card_vs_float64", (BF16_GRAD_VS_F64_WORST_TOL, BF16_GRAD_VS_F64_L2_TOL))):
+        worst = cmp[key]["worst"][0][1]
+        if not math.isfinite(worst) or worst > worst_tol or not cmp[key]["l2"] <= l2_tol:
+            raise AssertionError(f"bf16 gradient {key}: {cmp[key]} (bars {worst_tol} per tensor, {l2_tol} in L2)")
+    del model_cpu, model_gpu, grads, ref, heads, loss
+
+    # ---- (c) bf16 steps on one fixed batch ----------------------------------
+    # no eval: it is phase 11's (the bf16 exact runner on the float32
+    # masters), and the script keeps inside half its time limit
+    argv = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--eval_videos", "0", "--log_every", "5",
+            "--bf16"]
+    args = train_demo.parse_args(argv)
+    tcfg = train_demo.make_config(args)
+    state = trainer.create_train_state(tcfg, args.seed, max_iters=FIXED_STEPS, device=dev)
+    raw = synthetic.make_raw_batch(train_demo.step_generator(args.seed, 0, 0), TRAIN_BATCH, device=dev)
+    fixed = pipeline.make_batch_fn(tcfg, synthetic.camera_K())(train_demo.step_generator(args.seed, 0, 1), raw)
+    losses = []
+    for _ in range(FIXED_STEPS):
+        build.reset_launch_counts()
+        losses.append(trainer.train_step(state, fixed, bf16=True)["tot"].item())
+        torch.cuda.synchronize()
+        if build.launch_counts() != step_launches:
+            raise AssertionError(f"bf16 step launches {build.launch_counts()}, expected {step_launches}")
+    out["fixed_batch_losses"] = losses
+    print(f"bf16 fixed batch, {FIXED_STEPS} steps: losses {losses}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 fixed-batch training: losses {losses} are not finite or do not fall")
+    dtypes = {str(t.dtype) for t in state.model.state_dict().values() if t.is_floating_point()}
+    dtypes |= {str(v.dtype) for p in state.model.parameters() for key, v in state.optimizer.state[p].items()
+               if key != "step"}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"bf16 training left masters, statistics or Adam moments in {dtypes}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_step(state, fixed, bf16=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms_step = sum(e.time_range.elapsed_us() for e in device) / 1e3 / 2
+    out["profiled"] = {"kernel_ms_per_step": {name: kernel_device_ms(device, name) / 2 for name in DEVICE_NAMES},
+                       "device_kernel_ms_per_step": device_ms_step, "profiled_wall_ms_per_step": wall_ms,
+                       "device_busy_share": device_ms_step / wall_ms,
+                       "launches_per_step": len(_launch_events(events)) / 2}
+    print("profiled bf16 train step: " + json.dumps(out["profiled"]))
+    del state, fixed, raw
+
+    # ---- (d) train_demo.main --bf16: 20 steps on fresh batches -------------
+    calls = []
+    real = _counting_calls(trainer, ("train_step",), calls)
+    timer = StageTimer()
+    try:
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_demo.main(argv, stage_timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(trainer, name, fn)
+    counts = build.launch_counts()
+    if len(calls) != TRAIN_STEPS or any(launched != step_launches for _, launched in calls):
+        raise AssertionError(f"train_demo --bf16: per-step launches {[c for _, c in calls]}, expected "
+                             f"{TRAIN_STEPS} x {step_launches}")
+    expect = {kn: n * TRAIN_STEPS for kn, n in step_launches.items()}
+    if counts != expect:
+        raise AssertionError(f"train_demo --bf16 launches {counts}, expected {expect}")
+    losses = [e["tot"] for e in res["logged"]]
+    if not all(math.isfinite(x) for x in losses) or res["results"] is not None:
+        raise AssertionError(f"train_demo --bf16: losses {losses}")
+    stage_ms = timer.per_frame_ms(TRAIN_STEPS)
+    train_ms = sum(stage_ms[st] for st in TRAIN_STAGES)
+    out["train_demo"] = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "wall_s_with_setup": wall,
+                         "stage_ms_per_step": stage_ms, "step_ms": train_ms, "steps_per_s": 1e3 / train_ms,
+                         "launches": counts, "launches_per_step": step_launches, "logged": res["logged"],
+                         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["launches"] = counts
+    print("train_demo --bf16 480x480 batch 8: " + json.dumps(out["train_demo"]))
+    del res
+
+    # ---- (e) cli/train.main --bf16 on phase 13's (A) set, 1 epoch -----------
+    syn, val = os.path.join(work, "train_syn"), os.path.join(work, "train_val")
+    exp = os.path.join(work, "train_bf16_exp")
+    calls = []
+    real = _counting_calls(trainer, ("train_step", "predict_step", "eval_predict_step"), calls)
+    timer = StageTimer()
+    try:
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_cli.main(["--dataset", syn, "--val_dataset", val, "--output_dir", exp, "--batch_size",
+                              str(TRAIN_CLI_BATCH), "--num_epochs", "1", "--log_every", "1", "--image_log_every",
+                              "1", "--bf16", "--device", "cuda"], stage_timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(trainer, name, fn)
+    # validation and the mosaics run the float32 parameters
+    fwd32 = dict(no_launches, biased_attention=3 * n_layers, deform_conv=16)
+    expect = {"train_step": step_launches, "predict_step": fwd32, "eval_predict_step": fwd32}
+    by_kind = {}
+    for kind, launched in calls:
+        if launched != expect[kind]:
+            raise AssertionError(f"train cli --bf16: a {kind} call launched {launched}, expected {expect[kind]}")
+        by_kind[kind] = by_kind.get(kind, 0) + 1
+    counts = build.launch_counts()
+    total = {kn: sum(launched[kn] for _, launched in calls) for kn in counts}
+    if counts != total or by_kind != {"train_step": 2, "predict_step": 2, "eval_predict_step": 1}:
+        raise AssertionError(f"train cli --bf16: calls {by_kind}, launches {counts} (in the calls: {total})")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if ([r["prefix"] for r in recs] != ["train", "train", "val"] or not os.path.exists(
+            os.path.join(exp, "ckpt", "epoch_1.pt"))
+            or not all(math.isfinite(r[k]) for r in recs for k in ("tot", "hm", "reg", "tracking"))):
+        raise AssertionError(f"train cli --bf16: records {recs}")
+    stage_ms = timer.per_frame_ms(2)
+    step_ms = sum(stage_ms.get(st, 0.0) for st in CLI_STAGES)
+    out["train_cli"] = {"steps": 2, "calls": by_kind, "wall_s_with_setup": wall, "launches": counts,
+                        "stage_ms_per_step": {st: stage_ms.get(st, 0.0) for st in CLI_STAGES},
+                        "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+                        "validation_s": [s_.elapsed_time(e_) / 1e3 for n_, s_, e_ in timer.events
+                                         if n_ == "validation"],
+                        "stage_ms_by_call": {st: [s_.elapsed_time(e_) for n_, s_, e_ in timer.events if n_ == st]
+                                             for st in CLI_STAGES},
+                        "records": recs, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("train cli --bf16: " + json.dumps(out["train_cli"]))
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1674,8 +2125,7 @@ def profile_frames(detector, video, torch):
     # device kernels run on one stream, so their durations do not overlap
     device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in STAGE_NAMES]
     device_us = sum(e.time_range.elapsed_us() for e in device)
-    kernel_ms = {name: sum(e.time_range.elapsed_us() for e in device if fn in e.name) / 1e3 / frames
-                 for name, fn in DEVICE_NAMES.items()}
+    kernel_ms = {name: kernel_device_ms(device, name) / frames for name in DEVICE_NAMES}
     return {"frames": frames, "launches_per_frame_by_stage": per_stage,
             "kernel_ms_per_frame": kernel_ms,
             "launches_per_frame": len(launches) / frames,

@@ -7,18 +7,21 @@ Counterpart of `sgtapose_tpu/cli/train.py`:
 
 Host threads only read files (`data/loader.py:SeqBatchLoader`); each batch
 goes to the card on the main thread, where `data/pipeline.py` augments it
-and renders its priors; `train/trainer.train_step` runs the float32 step
-through the hand-written forward and backward kernels (--device, default
-cuda, which raises without a card). Per epoch: a checkpoint
+and renders its priors; `train/trainer.train_step` runs the float32 step, or
+with --bf16 the bf16 mixed-precision step, through the hand-written forward
+and backward kernels (--device, default cuda, which raises without a card).
+Validation and the training mosaics run the float32 parameters under --bf16
+too, as the JAX CLI's `eval_predict_step` and `predict_step` do. Per epoch: a checkpoint
 output_dir/ckpt/epoch_{e}.pt (`trainer.save_checkpoint`, what `cli/infer.py
 --ckpt` reads) and, with --val_dataset, the validation loss and keypoint
 metrics (`trainer.validate`) in metrics.jsonl; every --image_log_every
 iterations a training mosaic under viz/.
 
 --resume restores the step, the schedule count and Adam from a checkpoint of
-this CLI and goes on with the epoch after the checkpoint's, up to
---num_epochs (the JAX CLI restarts its epoch count at 1); with --lr_step the
-schedule, a function of the step, replays the decay.
+this CLI; the epoch loop then runs epochs 1 to --num_epochs, as the JAX CLI
+does (`sgtapose_tpu/cli/train.py:267-269`, `:307`), each epoch's checkpoint
+written under its loop number (a resumed run writes epoch_1.pt again, ...);
+with --lr_step the schedule, a function of the step, replays the decay.
 
 Randomness: the weights come from --seed, dropout from (seed + 1, step),
 each step's augmentation draws from (seed + 2, step); validation batches are
@@ -32,9 +35,11 @@ writes logs and checkpoints; validation and image logs are skipped, as in
 the JAX CLI.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP.md Queue 1
-item that brings each: --bf16 (4), --init_backbone(_stem) (5), --phase other
-than PlanA_win and --arch other than dlapawdl3new_34 (6), --dcn_chunks > 1
-and --dcn_remat (9), an orbax checkpoint directory as --resume (5).
+item that brings each: --init_backbone(_stem) (5), --phase other than
+PlanA_win and --arch other than dlapawdl3new_34 (6), --dcn_chunks > 1 and
+--dcn_remat (9), --bf16 with --depth (10: a 42-keypoint model's levels 0
+and 1 need a bf16 key-tiled forward, its level 2 the two-pass bf16
+backward), an orbax checkpoint directory as --resume (5).
 """
 
 from __future__ import annotations
@@ -99,7 +104,9 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=4, help="loader IO threads")
     p.add_argument("--depth", action="store_true",
                    help="42-joint depth-variant training (flat png+json dir)")
-    p.add_argument("--bf16", action="store_true", help="not ported: bf16 training")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 mixed-precision training (float32 masters, loss and gradients; "
+                        "validation in float32); not with --depth yet")
     p.add_argument("--phase", default="PlanA_win", help="only PlanA_win is ported")
     p.add_argument("--resume", default=None,
                    help="checkpoint file of this CLI (restores the step, the schedule count and Adam)")
@@ -117,7 +124,7 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     unported = [
-        ("--bf16", args.bf16, 4),
+        ("--bf16 --depth", args.bf16 and args.depth, 10),
         ("--init_backbone", args.init_backbone is not None, 5),
         ("--init_backbone_stem", args.init_backbone_stem, 5),
         (f"--phase {args.phase}", args.phase != "PlanA_win", 6),
@@ -185,7 +192,8 @@ def main(argv=None, stage_timer=None):
     if args.num_devices is not None and args.num_devices != world:
         raise SystemExit(f"--num_devices {args.num_devices}: the port runs one rank per card, and this "
                          f"run has {world} rank(s)")
-    # float32 training means float32: cuDNN convolutions default to TF32
+    # float32 training (and bf16 training's float32 parts) means float32:
+    # cuDNN convolutions default to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timed = stage_timer or (lambda name: contextlib.nullcontext())
@@ -231,8 +239,6 @@ def main(argv=None, stage_timer=None):
                 "Queue 1 item 5")
         trainer.load_checkpoint(path, state)
         print(f"resumed from {args.resume} at step {state.step}")
-    # a resumed run goes on with the epoch after its checkpoint's
-    first_epoch = state.step // max(iters_per_epoch, 1) + 1
 
     batch_fn = make_batch_fn(cfg, camera_K)
     mean = torch.tensor(IMAGE_MEAN)
@@ -245,12 +251,12 @@ def main(argv=None, stage_timer=None):
         mosaic = training_debug_mosaic(img, one["gt_belief_maps"][0].cpu().numpy(), pred["hm"][0].cpu().numpy())
         logger.log_image(step, "train_mosaic", mosaic)
 
-    for epoch in range(first_epoch, args.num_epochs + 1):
+    for epoch in range(1, args.num_epochs + 1):
         t0 = time.time()
         for it, raw in enumerate(_timed_batches(loader.epoch(epoch), timed)):
             with timed("batch"):
                 batch = batch_fn(batch_generator(args.seed, state.step), to_device(raw, dev))
-            stats = trainer.train_step(state, batch, stage_timer=stage_timer)
+            stats = trainer.train_step(state, batch, bf16=args.bf16, stage_timer=stage_timer)
             if it % args.log_every == 0:
                 s = {k: v.item() for k, v in stats.items()}
                 logger.log(state.step, s)

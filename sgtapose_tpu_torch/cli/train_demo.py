@@ -6,13 +6,19 @@ Counterpart of `sgtapose_tpu/cli/train_demo.py`:
 
   python -m sgtapose_tpu_torch.cli.train_demo --steps 20 --batch 8 --eval_videos 1 --eval_frames 8
 
-Training runs float32 (TF32 off for matmuls and convolutions) through the
-hand-written forward and backward kernels; the eval runs the trained weights
-in bf16, as the JAX CLI does. Each step draws its raw batch and its
-augmentation from generators seeded from (seed + 1, step). Flags not ported
-yet raise: --bf16, --quant_train, --init_backbone(_stem), --dcn_chunks > 1,
---dcn_remat. --fused_attention is accepted and changes nothing: the port
-always runs its attention kernel. Checkpoints are `torch.save` files
+  python -m sgtapose_tpu_torch.cli.train_demo --steps 600 --batch 8 --bf16
+
+Training runs float32 (TF32 off for matmuls and convolutions), or with
+--bf16 bf16 mixed precision (bf16 parameters, activations and model inputs;
+float32 masters, loss, gradients and BatchNorm statistics:
+`train/trainer.train_step`), through the hand-written forward and backward
+kernels of its dtype; the eval runs the trained weights in bf16, as the JAX
+CLI does. Each step draws its raw batch and its augmentation from
+generators seeded from (seed + 1, step). Flags not ported yet raise:
+--quant_train, --init_backbone(_stem), --dcn_chunks > 1, --dcn_remat.
+--fused_attention is accepted and changes nothing: the port always runs its
+attention kernel, which computes the JAX default (einsum) form, under
+--bf16 too. Checkpoints are `torch.save` files
 (`train/trainer.py:save_checkpoint`).
 """
 
@@ -37,11 +43,13 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=600)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--bf16", action="store_true", help="not ported: bf16 training")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 mixed-precision training (float32 masters, loss and gradients)")
     p.add_argument("--input_res", type=int, default=480)
     p.add_argument("--dla_node", default="dcn")
     p.add_argument("--fused_attention", action="store_true",
-                   help="accepted; the port always runs its attention kernel")
+                   help="accepted; the port always runs its attention kernel, which computes the "
+                        "JAX default (einsum) form, also under --bf16")
     p.add_argument("--dcn_chunks", type=int, default=1, help="not ported above 1")
     p.add_argument("--dcn_remat", action="store_true", help="not ported")
     p.add_argument("--eval_frames", type=int, default=16)
@@ -72,7 +80,7 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    unported = {"--bf16": args.bf16, "--quant_train": args.quant_train,
+    unported = {"--quant_train": args.quant_train,
              "--init_backbone": args.init_backbone is not None,
              "--init_backbone_stem": args.init_backbone_stem,
              "--dcn_chunks > 1": args.dcn_chunks > 1, "--dcn_remat": args.dcn_remat}
@@ -107,7 +115,8 @@ def train_loop(state, cfg: Config, args, device, stage_timer=None):
         with timed("batch"):
             raw = synthetic.make_raw_batch(step_generator(args.seed, it, 0), args.batch, device=device)
             batch = batch_fn(step_generator(args.seed, it, 1), raw)
-        stats = trainer.train_step(state, batch, reg_weight=args.reg_weight, stage_timer=stage_timer)
+        stats = trainer.train_step(state, batch, reg_weight=args.reg_weight, bf16=args.bf16,
+                                   stage_timer=stage_timer)
         if it % args.log_every == 0 or it == args.steps - 1:
             s = {k: v.item() for k, v in stats.items()}
             logged.append(dict(step=it, **s))
@@ -137,7 +146,8 @@ def main(argv=None, stage_timer=None):
     args = parse_args(argv)
     _refuse_unported(args)
     dev = resolve_device(args.device)
-    # float32 training means float32: cuDNN convolutions default to TF32
+    # float32 training (and bf16 training's float32 parts) means float32:
+    # cuDNN convolutions default to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = make_config(args)
@@ -151,7 +161,7 @@ def main(argv=None, stage_timer=None):
             trainer.resume_schedule_state(state, args.resume_step)
             print(f"schedule resumed at step {args.resume_step}", flush=True)
 
-    print(f"training {args.steps} steps, batch {args.batch}, float32, on {dev}")
+    print(f"training {args.steps} steps, batch {args.batch}, {'bf16' if args.bf16 else 'float32'}, on {dev}")
     t0 = time.time()
     logged = train_loop(state, cfg, args, dev, stage_timer=stage_timer)
     print(f"training done in {time.time() - t0:.0f}s")

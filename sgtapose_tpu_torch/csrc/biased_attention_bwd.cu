@@ -1,7 +1,13 @@
-// Biased attention backward (float32): the gradients of
+// Biased attention backward: the gradients of
 //   O = softmax(S) v,   S = q k^T / sqrt(d) + bias
 // with respect to q, k, v (B, heads, n, d) and the (heads, n, n) bias shared
 // across the batch, given dO (B, heads, n, d) and the forward's output O.
+// float32 (biased_attention_bwd), and bf16 training's instantiation of the
+// cluster path (biased_attention_bwd_bf16): bf16 k, v and bias, q bf16 or
+// float32, O and dO float32, float32 arithmetic inside, each output rounded
+// once (with a bf16 q the q.k logit and its cotangent dS / sqrt(d) are
+// rounded as the JAX default attention's autodiff rounds them under bf16:
+// ops/attention_kernel.py:plain_biased_attention_backward_bf16).
 //
 // Replaces the custom VJP of the Pallas TPU kernel,
 // sgtapose_tpu/ops/attention_kernel.py:141-153 (_bwd_rule, a recompute
@@ -332,19 +338,47 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // shared-memory floats of the cluster path (ops/attention_kernel.py:
-// bwd_cluster_smem_bytes mirrors it)
+// bwd_cluster_smem_bytes mirrors it); the bf16 instantiation stages its
+// inputs as float32, so both share it
 size_t cluster_floats(int n, int d) {
   return 2 * (size_t)n * (d + 4) + 3 * (size_t)n * d + 4 * (size_t)n * n + n;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kCThreads)
-    biased_attention_bwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                        const float* __restrict__ v, const float* __restrict__ bias,
-                                        const float* __restrict__ out, const float* __restrict__ dout,
-                                        float* __restrict__ dq, float* __restrict__ dk,
-                                        float* __restrict__ dv, float* __restrict__ dbias, int B,
-                                        int heads, int n, float scale) {
+// one element of T (float, or bf16 held as uint16_t) into shared memory as
+// float32: float32 by an asynchronous copy, bf16 widened (a 16-bit shift)
+__device__ __forceinline__ void stage1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void stage1(float* dst, const uint16_t* src) { *dst = bf16f(__ldg(src)); }
+// four consecutive elements starting on a 16-byte line (float32) or an
+// 8-byte one (bf16)
+__device__ __forceinline__ void stage4(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void stage4(float* dst, const uint16_t* src) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
+  *reinterpret_cast<float4*>(dst) = make_float4(bf_lo(w.x), bf_hi(w.x), bf_lo(w.y), bf_hi(w.y));
+}
+// a float32 result stored as T: float32 as it is, bf16 rounded once
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store1(uint16_t* dst, float v) { *dst = to_bf16(v); }
+__device__ __forceinline__ float round_bf16(float v) { return bf16f(to_bf16(v)); }
+
+// TQ: q and dq; TKV: k, v, the bias and their gradients. float32 training
+// runs <float, float>. bf16 training runs TKV = bf16 with TQ = bf16 (the
+// first tied layer: the q.k logit is rounded to bf16 in the forward, so its
+// cotangent dS / sqrt(d) is rounded to bf16 before the dq and dk products)
+// or TQ = float (the later layers: dq float32, dk and dv rounded once). O
+// and dO are float32 in both (the bf16 forward returns float32). All
+// arithmetic is float32; every output is rounded once, dbias after the
+// rank-ordered sum of float32 dS.
+template <int D, typename TQ, typename TKV>
+__device__ __forceinline__ void cluster_body(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                                             const TKV* __restrict__ v,
+                                             const TKV* __restrict__ bias,
+                                             const float* __restrict__ out,
+                                             const float* __restrict__ dout, TQ* __restrict__ dq,
+                                             TKV* __restrict__ dk, TKV* __restrict__ dv,
+                                             TKV* __restrict__ dbias, int B, int heads, int n,
+                                             float scale) {
+  constexpr bool QB = sizeof(TQ) == 2;  // q bf16: logits and their cotangent rounded
+  constexpr bool F32 = sizeof(TKV) == 4 && !QB;
   constexpr int DP = D + 4;  // padded K and V rows
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;          // [n][DP]
@@ -354,14 +388,14 @@ __global__ void __launch_bounds__(kCThreads)
   float* gs = os + n * D;    // [n][D] dO
   float* bs = gs + n * D;    // [n][n] the head's bias
   float* ps = bs + n * n;    // [n][n] P of the current b
-  float* dss = ps + n * n;   // [n][n] dS of the current b
+  float* dss = ps + n * n;   // [n][n] dS of the current b (bf16 q: dS / sqrt(d), rounded)
   float* acc = dss + n * n;  // [n][n] this block's dbias: dS summed over its b
   const int rank = blockIdx.x, cs = gridDim.x;  // one cluster spans the x extent
   const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lt = tid & 31;
-  const float* bias_h = bias + (size_t)h * n * n;
+  const TKV* bias_h = bias + (size_t)h * n * n;
   for (int e = tid; e < n * n; e += kCThreads) {
-    cp_async4(bs + e, bias_h + e);
+    stage1(bs + e, bias_h + e);
     acc[e] = 0.f;
   }
   for (int b = rank; b < B; b += cs) {
@@ -370,11 +404,11 @@ __global__ void __launch_bounds__(kCThreads)
     for (int e = tid; e < n * D / 4; e += kCThreads) {
       const int row = 4 * e / D, c = 4 * e % D;
       const size_t at = bh * n * D + 4 * e;
-      cp_async16(qs + 4 * e, q + at);
+      stage4(qs + 4 * e, q + at);
       cp_async16(os + 4 * e, out + at);
       cp_async16(gs + 4 * e, dout + at);
-      cp_async16(ks + row * DP + c, k + at);
-      cp_async16(vs + row * DP + c, v + at);
+      stage4(ks + row * DP + c, k + at);
+      stage4(vs + row * DP + c, v + at);
     }
     cp_async_wait();  // this b's rows (and the first time, the bias)
     __syncthreads();
@@ -392,7 +426,9 @@ __global__ void __launch_bounds__(kCThreads)
       float* arow = acc + i * n;
       float m = -INFINITY;
       for (int j = lt; j < n; j += 32) {
-        const float s = fmaf(dot4<D>(qr, ks + j * DP), scale, brow[j]);
+        float e = dot4<D>(qr, ks + j * DP);
+        if constexpr (QB) e = round_bf16(e);  // the forward's bf16 logit
+        const float s = fmaf(e, scale, brow[j]);
         prow[j] = s;
         m = fmaxf(m, s);
       }
@@ -411,7 +447,8 @@ __global__ void __launch_bounds__(kCThreads)
         const float p = prow[j] * inv_l;
         const float ds = p * (dot4<D>(gr, vs + j * DP) - dlt);
         prow[j] = p;
-        drow[j] = ds;
+        if constexpr (QB) drow[j] = round_bf16(ds * scale);  // the bf16 logit's cotangent
+        else drow[j] = ds;
         arow[j] += ds;
       }
     }
@@ -439,19 +476,28 @@ __global__ void __launch_bounds__(kCThreads)
           a[4 * c + 3] = fmaf(w, u.w, a[4 * c + 3]);
         }
       }
-      float* dst = (which == 0 ? dq : (which == 1 ? dk : dv)) + (bh * n + r) * D;
-      const float mul = which == 2 ? 1.f : scale;
+      const float mul = (which == 2 || QB) ? 1.f : scale;
+      if constexpr (F32) {
+        float* dst = (which == 0 ? dq : (which == 1 ? dk : dv)) + (bh * n + r) * D;
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c)
-        reinterpret_cast<float4*>(dst)[c] =
-            make_float4(a[4 * c] * mul, a[4 * c + 1] * mul, a[4 * c + 2] * mul, a[4 * c + 3] * mul);
+        for (int c = 0; c < D / 4; ++c)
+          reinterpret_cast<float4*>(dst)[c] =
+              make_float4(a[4 * c] * mul, a[4 * c + 1] * mul, a[4 * c + 2] * mul, a[4 * c + 3] * mul);
+      } else if (which == 0) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) store1(dq + (bh * n + r) * D + c, a[c] * mul);
+      } else {
+        TKV* dst = (which == 1 ? dk : dv) + (bh * n + r) * D;
+#pragma unroll
+        for (int c = 0; c < D; ++c) store1(dst + c, a[c] * mul);
+      }
     }
   }
   // dbias: rank r adds the ranks' tiles over its band of rows in rank order
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int r0 = n * rank / cs, r1 = n * (rank + 1) / cs;
-  float* dbias_h = dbias + (size_t)h * n * n;
+  TKV* dbias_h = dbias + (size_t)h * n * n;
   for (int e = r0 * n + tid; e < r1 * n; e += kCThreads) {
     float part[kMaxCluster];
 #pragma unroll
@@ -459,19 +505,48 @@ __global__ void __launch_bounds__(kCThreads)
     float s = part[0];
 #pragma unroll
     for (int r = 1; r < kMaxCluster; ++r) s += part[r];
-    dbias_h[e] = s;
+    store1(dbias_h + e, s);
   }
   cluster.sync();  // no block leaves while another reads its tile
 }
 
+// one kernel name per precision, as profilers list them
 template <int D>
-int launch_cluster(const float* q, const float* k, const float* v, const float* bias,
-                   const float* out, const float* dout, float* dq, float* dk, float* dv,
-                   float* dbias, int B, int heads, int n, cudaStream_t stream) {
+__global__ void __launch_bounds__(kCThreads)
+    biased_attention_bwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v, const float* __restrict__ bias,
+                                        const float* __restrict__ out, const float* __restrict__ dout,
+                                        float* __restrict__ dq, float* __restrict__ dk,
+                                        float* __restrict__ dv, float* __restrict__ dbias, int B,
+                                        int heads, int n, float scale) {
+  cluster_body<D, float, float>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
+}
+
+template <int D, typename TQ>
+__global__ void __launch_bounds__(kCThreads)
+    biased_attention_bf16_bwd_kernel(const TQ* __restrict__ q, const uint16_t* __restrict__ k,
+                                     const uint16_t* __restrict__ v,
+                                     const uint16_t* __restrict__ bias,
+                                     const float* __restrict__ out, const float* __restrict__ dout,
+                                     TQ* __restrict__ dq, uint16_t* __restrict__ dk,
+                                     uint16_t* __restrict__ dv, uint16_t* __restrict__ dbias, int B,
+                                     int heads, int n, float scale) {
+  cluster_body<D, TQ, uint16_t>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
+}
+
+template <int D, typename TQ, typename TKV>
+int launch_cluster(const TQ* q, const TKV* k, const TKV* v, const TKV* bias, const float* out,
+                   const float* dout, TQ* dq, TKV* dk, TKV* dv, TKV* dbias, int B, int heads, int n,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * cluster_floats(n, D);
   if (smem > 227 * 1024 || heads > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(biased_attention_bwd_cluster_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  void (*kern)(const TQ*, const TKV*, const TKV*, const TKV*, const float*, const float*, TQ*, TKV*,
+               TKV*, TKV*, int, int, int, float);
+  if constexpr (sizeof(TKV) == 4)
+    kern = biased_attention_bwd_cluster_kernel<D>;
+  else
+    kern = biased_attention_bf16_bwd_kernel<D, TQ>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int cs = B < kMaxCluster ? B : kMaxCluster;
   cudaLaunchConfig_t cfg = {};
@@ -486,8 +561,8 @@ int launch_cluster(const float* q, const float* k, const float* v, const float* 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, biased_attention_bwd_cluster_kernel<D>, q, k, v, bias, out, dout,
-                         dq, dk, dv, dbias, B, heads, n, 1.f / sqrtf((float)D));
+  e = cudaLaunchKernelEx(&cfg, kern, q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n,
+                         1.f / sqrtf((float)D));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -542,10 +617,53 @@ extern "C" int biased_attention_bwd(const void* q, const void* k, const void* v,
   switch (d) {
 #define CASE(DD)                                                                                 \
   case DD:                                                                                       \
-    return cluster ? launch_cluster<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2],   \
-                                        o[3], B, heads, n, s)                                    \
+    return cluster ? launch_cluster<DD, float, float>(a[0], a[1], a[2], a[3], a[4], a[5], o[0],   \
+                                                      o[1], o[2], o[3], B, heads, n, s)          \
                    : launch<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2], o[3], o[4], \
                                 o[5], B, heads, n, s);
+    CASE(4)
+    CASE(8)
+    CASE(16)
+    CASE(32)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 training's backward, the cluster path only (cluster_floats(n, d) * 4
+// bytes within a block's shared memory, as at the flagship's level 2): k, v,
+// bias bf16 (B, heads, n, d) and (heads, n, n); q bf16 when q_bf16, else
+// float32; out and dout float32 -> dq in q's dtype, dk, dv and dbias bf16
+extern "C" int biased_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                         const void* bias, const void* out, const void* dout,
+                                         void* dq, void* dk, void* dv, void* dbias, int B, int heads,
+                                         int n, int d, int q_bf16, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  // q, k, v rows are read in groups of 4 elements: 8-byte lines in bf16,
+  // 16-byte ones for a float32 q; O and dO as float4
+  if (((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 7) != 0 ||
+      (reinterpret_cast<uintptr_t>(q) & (q_bf16 ? 7 : 15)) != 0 ||
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(dout)) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(bias) & 1) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  using bf = uint16_t;
+  const bf* kb = static_cast<const bf*>(k);
+  const bf* vb = static_cast<const bf*>(v);
+  const bf* bb = static_cast<const bf*>(bias);
+  const float* o = static_cast<const float*>(out);
+  const float* g = static_cast<const float*>(dout);
+  bf* dkb = static_cast<bf*>(dk);
+  bf* dvb = static_cast<bf*>(dv);
+  bf* dbb = static_cast<bf*>(dbias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define CASE(DD)                                                                                   \
+  case DD:                                                                                         \
+    return q_bf16 ? launch_cluster<DD, bf, bf>(static_cast<const bf*>(q), kb, vb, bb, o, g,       \
+                                               static_cast<bf*>(dq), dkb, dvb, dbb, B, heads, n, s) \
+                  : launch_cluster<DD, float, bf>(static_cast<const float*>(q), kb, vb, bb, o, g,  \
+                                                  static_cast<float*>(dq), dkb, dvb, dbb, B, heads, \
+                                                  n, s);
     CASE(4)
     CASE(8)
     CASE(16)

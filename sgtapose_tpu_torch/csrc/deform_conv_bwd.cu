@@ -66,6 +66,18 @@
 //   * pixel, channel and output edges are masked, so any H, W, C and O run
 //     (C or O not a multiple of 4, or unaligned pointers, take a scalar-load
 //     variant).
+//
+// bf16 training (deform_conv_dgrad_bf16): the same design instantiated for
+// bf16 x, om, weight and dY. dY W runs on wgmma m64n72k16 in bf16 with
+// float32 accumulators (one product where float32 issues three, BK = 64
+// outputs a step: half the steps), from a bf16 copy of the weight laid out
+// as the B tiles (no split). Everything after the product stays float32:
+// the x halo tile is widened from bf16 as it is staged, the scatter and the
+// item sums run in float32, dx is added with float atomics into a float32
+// buffer that a second kernel of the same launch rounds once to bf16, and
+// dom is rounded once as it is written (still the same bit for bit in every
+// run). Bound: the product's 2 M O 9C operations at 989 TFLOP/s, or the
+// bytes at 2 per element, whichever is larger.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -83,7 +95,6 @@ constexpr int BM = T * T;         // pixels per block: the wgmma M of 64
 constexpr int CC = 16;            // channels per chunk
 constexpr int BN = 9 * CC;        // GEMM columns per chunk, (tap, channel)
 constexpr int WN = BN / 2;        // 72 per warpgroup
-constexpr int BK = 32;            // output channels (GEMM depth) per step: one 128-byte row
 constexpr int kThreads = 384;     // three warpgroups: two run the products, all three the rest
 constexpr int kGemmThreads = 256;
 constexpr int kMaxSplits = 8;     // portable cluster size
@@ -108,8 +119,21 @@ static_assert(NA == 2, "each thread loads A rows rr and rr + 32");
 static_assert(WN % 8 == 0 && CC % 4 == 0, "wgmma N and float4 channel groups");
 static_assert(HR >= HS && ITEMS < 65536, "padded halo rows; 16-bit item indices");
 
+// output channels (the GEMM depth) per step: one 128-byte row of 8 chunks,
+// 32 float32 or 64 bf16 (T: float, or bf16 held as uint16_t)
+template <typename E>
+__host__ __device__ constexpr int bk() {
+  return 8 * (16 / (int)sizeof(E));
+}
+// u32 of the pre-split weight per (chunk, step) tile: float32 keeps a hi and
+// a lo tf32 plane, bf16 one plane
+template <typename E>
+__host__ __device__ constexpr int b_tile_words() {
+  return sizeof(E) == 4 ? 2 * B_TILE : B_TILE;
+}
+
 struct Stage {
-  uint32_t a[2][PLANE_A];  // [hi, lo]: dY rows (pixels), K-major
+  uint32_t a[2][PLANE_A];  // [hi, lo]: dY rows (pixels), K-major (bf16: plane 0 only)
   uint32_t b[2][PLANE_B];  // [hi, lo]: weight columns (tap, channel), K-major
 };
 static_assert(ITEMS * GS * sizeof(float) <= sizeof(Stage), "dcols fit in a ring stage");
@@ -118,7 +142,7 @@ struct Smem {
   // a 3-stage ring; after a chunk's last step its stage holds the chunk's
   // dcols, [pixel][tap][channel] in rows of GS, and at the end the item sums
   Stage ring[3];
-  float xh[HP * GS];          // x on the halo tile, this chunk's channels
+  float xh[HP * GS];          // x on the halo tile, this chunk's channels (float32)
   int start[HP + 1];          // the contributions landing in halo cell h: list[start[h] .. start[h+1])
   int fill[HP];
   uint16_t item[LIST];        // (pixel, tap) of each listed contribution, sorted by halo cell
@@ -154,7 +178,7 @@ __device__ __forceinline__ uint64_t desc(const uint32_t* p) {
 
 // asynchronous copies global -> shared (16 or 4 bytes), waited for before
 // the barrier that publishes them
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src)
@@ -188,8 +212,26 @@ __device__ __forceinline__ void wgmma_tf32_n72(float (&d)[36], uint64_t da, uint
       : "l"(da), "l"(db));
 }
 
-// 4 floats at p, those at or past `lim` (elements left in the row) zero; VEC:
-// a whole aligned float4 the caller knows is in range
+// d (64 x 72, f32) += A (64 x 16) * B (72 x 16)^T, both bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_n72(float (&d)[36], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+      "%36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(da), "l"(db));
+}
+
+// 4 elements at p as floats, those at or past `lim` (elements left in the
+// row) zero; VEC: a whole aligned group (16 bytes of float32, 8 of bf16)
+// the caller knows is in range
 template <bool VEC>
 __device__ __forceinline__ float4 load4(const float* p, int lim) {
   if constexpr (VEC) {
@@ -199,10 +241,39 @@ __device__ __forceinline__ float4 load4(const float* p, int lim) {
                        lim > 2 ? __ldg(p + 2) : 0.f, lim > 3 ? __ldg(p + 3) : 0.f);
   }
 }
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const uint16_t* p, int lim) {
+  if constexpr (VEC) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(bf_lo(w.x), bf_hi(w.x), bf_lo(w.y), bf_hi(w.y));
+  } else {
+    return make_float4(lim > 0 ? bf16f(__ldg(p)) : 0.f, lim > 1 ? bf16f(__ldg(p + 1)) : 0.f,
+                       lim > 2 ? bf16f(__ldg(p + 2)) : 0.f, lim > 3 ? bf16f(__ldg(p + 3)) : 0.f);
+  }
+}
+
+// the 8 bf16 of a 16-byte chunk at p (dY outputs o .. o + 7), those at or
+// past `lim` zero; VEC: a whole aligned chunk in range
+template <bool VEC>
+__device__ __forceinline__ uint4 load8(const uint16_t* p, int lim) {
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    uint32_t h[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = i < lim ? (uint32_t)__ldg(p + i) : 0u;
+    return make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
+                      h[6] | (h[7] << 16));
+  }
+}
 
 __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
 }
+
+// a float32 result stored as E: float32 as it is, bf16 rounded once
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store1(uint16_t* dst, float v) { *dst = to_bf16(v); }
 
 // sample coordinates of (pixel, tap) from o = its (dy, dx, mask logit): the 4 corners (00, 01, 10, 11), each
 // either a halo-tile cell (loc >= 0) or, outside the halo, -1 - its image
@@ -240,35 +311,51 @@ __device__ __forceinline__ Tap tap_coords(const float* o, int img, int pix, int 
   return t;
 }
 
-// The weight, split into tf32 hi and lo planes and laid out per (chunk,
-// step) as the B planes of shared memory without their pad slots: B row
-// r = (tap, channel) of chunk ch is weight column tap * C + ch * CC + r % CC,
-// K column k of step ks is output ks * BK + k; zero past C and O. Every
-// block copies its tiles from here in 16-byte pieces, with no conversion.
-__global__ void __launch_bounds__(256)
-    deform_conv_dgrad_split_kernel(const float* __restrict__ wt, float* __restrict__ wsplit, int C,
-                                   int O, int KS, long long total) {
+// The weight laid out per (chunk, step) as the B planes of shared memory
+// without their pad slots: B row r = (tap, channel) of chunk ch is weight
+// column tap * C + ch * CC + r % CC, K column k of step ks is output
+// ks * BK + k; zero past C and O. float32: split into tf32 hi and lo planes;
+// bf16: one plane of the weight's own bits, two outputs to a 32-bit word.
+// Every block copies its tiles from here in 16-byte pieces, with no
+// conversion.
+template <typename E>
+__device__ __forceinline__ void split_body(const E* __restrict__ wt, uint32_t* __restrict__ wsplit,
+                                           int C, int O, int KS, long long total) {
+  constexpr int BK = bk<E>();
   for (long long e = blockIdx.x * 256ll + threadIdx.x; e < total; e += (long long)gridDim.x * 256) {
-    // e = ((tile * B_PIECES + piece) * 4 + u), tile = ch * KS + ks
+    // e = ((tile * B_PIECES + piece) * 4 + u), tile = ch * KS + ks; u is a
+    // 32-bit word of the piece: one float32, or two bf16
     const int u = (int)(e & 3), piece = (int)((e >> 2) % B_PIECES);
     const long long tile = (e >> 2) / B_PIECES;
     const int ks = (int)(tile % KS), ch = (int)(tile / KS);
-    const int r = (piece >> 6) * 8 + (piece & 7), k = ((piece >> 3) & 7) * 4 + u;
-    const int c = ch * CC + r % CC, o = ks * BK + k;
-    const float v = (c < C && o < O) ? __ldg(wt + (size_t)o * 9 * C + (size_t)(r / CC) * C + c) : 0.f;
-    const uint32_t hi = tf32(v);
-    float* dst = wsplit + tile * 2 * B_TILE + 4 * piece + u;
-    dst[0] = __uint_as_float(hi);
-    dst[B_TILE] = __uint_as_float(tf32(v - __uint_as_float(hi)));
+    const int r = (piece >> 6) * 8 + (piece & 7);
+    const int c = ch * CC + r % CC;
+    const size_t col = (size_t)(r / CC) * C + c;
+    uint32_t* dst = wsplit + tile * b_tile_words<E>() + 4 * piece + u;
+    if constexpr (sizeof(E) == 4) {
+      const int o = ks * BK + ((piece >> 3) & 7) * 4 + u;
+      const float v = (c < C && o < O) ? __ldg(wt + (size_t)o * 9 * C + col) : 0.f;
+      const uint32_t hi = tf32(v);
+      dst[0] = hi;
+      dst[B_TILE] = tf32(v - __uint_as_float(hi));
+    } else {
+      const int o = ks * BK + ((piece >> 3) & 7) * 8 + 2 * u;
+      const uint32_t lo = (c < C && o < O) ? (uint32_t)__ldg(wt + (size_t)o * 9 * C + col) : 0u;
+      const uint32_t hi = (c < C && o + 1 < O) ? (uint32_t)__ldg(wt + (size_t)(o + 1) * 9 * C + col) : 0u;
+      dst[0] = lo | (hi << 16);
+    }
   }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads, 1)
-    deform_conv_dgrad_kernel(const float* __restrict__ x, const float* __restrict__ om,
-                             const float* __restrict__ wsplit, const float* __restrict__ dy,
-                             float* __restrict__ dx, float* __restrict__ dom, int H, int W, int C,
-                             int O, int tiles_x, int tiles_per_img) {
+template <typename E, bool VEC>
+__device__ __forceinline__ void dgrad_body(const E* __restrict__ x, const E* __restrict__ om,
+                                           const uint32_t* __restrict__ wsplit,
+                                           const E* __restrict__ dy, float* __restrict__ dx,
+                                           E* __restrict__ dom, int H, int W, int C, int O,
+                                           int tiles_x, int tiles_per_img) {
+  constexpr bool F32 = sizeof(E) == 4;
+  constexpr int BK = bk<E>();
+  constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
@@ -287,23 +374,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int py = ty0 + r / T, px = tx0 + r % T;
     return (py < H && px < W) ? (img * H + py) * W + px : -1;
   };
-  auto load_halo = [&](int ch) {  // asynchronous: waited for before the chunk's scatter
+  // float32: asynchronous, waited for before the chunk's scatter; bf16:
+  // widened and stored, published by the barrier before the scatter
+  auto load_halo = [&](int ch) {
     const int c0 = ch * CC;
     for (int e = tid; e < HP * (CC / 4); e += kThreads) {
       const int hp = e / (CC / 4), c = 4 * (e % (CC / 4));
       if (hp % HR >= HS) continue;  // a pad cell
       const int yy = hy0 + hp / HR, xx = hx0 + hp % HR;
       float* dst = &sm.xh[hp * GS + c];
-      const float* src = x + ((size_t)(img * H + yy) * W + xx) * C + c0 + c;
+      const E* src = x + ((size_t)(img * H + yy) * W + xx) * C + c0 + c;
       const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      if (VEC && in && c0 + c < C) {
-        cp_async16(dst, src);
-      } else {
+      if constexpr (F32) {
+        if (VEC && in && c0 + c < C) {
+          cp_async16(dst, src);
+        } else {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (in && c0 + c + u < C) cp_async4(dst + u, src + u);
-          else dst[u] = 0.f;
+          for (int u = 0; u < 4; ++u) {
+            if (in && c0 + c + u < C) cp_async4(dst + u, src + u);
+            else dst[u] = 0.f;
+          }
         }
+      } else {
+        *reinterpret_cast<float4*>(dst) = (in && c0 + c < C) ? load4<VEC>(src, C - c0 - c)
+                                                             : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
   };
@@ -318,11 +412,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int e = tid; e < ITEMS; e += kThreads) {
     const int pix = pixel(e / 9), tap = e % 9;
     if (pix < 0) continue;
-    const float* o = om + (size_t)pix * 27;
+    const E* o = om + (size_t)pix * 27;
     float* mine = &sm.om[3 * e];
-    mine[0] = __ldg(o + 2 * tap);
-    mine[1] = __ldg(o + 2 * tap + 1);
-    mine[2] = __ldg(o + 18 + tap);
+    mine[0] = to_float(__ldg(o + 2 * tap));
+    mine[1] = to_float(__ldg(o + 2 * tap + 1));
+    mine[2] = to_float(__ldg(o + 18 + tap));
     const Tap t = tap_coords(mine, img, pix, tap, H, W, hy0, hx0);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -366,18 +460,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // ---- operand staging: step s is (chunk ch_begin + s / KS, outputs (s % KS) * BK ..) ----
-  // A (dY rows, one pixel each) through registers, split as it is stored; B
-  // copied asynchronously from the pre-split, pre-tiled weight
+  // A (dY rows, one pixel each) through registers (float32: split as it is
+  // stored); B copied asynchronously from the pre-split, pre-tiled weight
   const int q = tid & 7, rr = tid >> 3;
-  float4 ga[NA];
+  float4 gaf[NA];  // float32: chunk q of rows rr, rr + 32
+  uint4 gab[NA];   // bf16: the same chunks
   auto load_step = [&](int s) {
     if (tid >= kGemmThreads) return;
     const int o0 = (s % KS) * BK;
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
-      const int pix = pixel(rr + 32 * i), o = o0 + 4 * q;
-      ga[i] = (pix >= 0 && o < O) ? load4<VEC>(dy + (size_t)pix * O + o, O - o)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      const int pix = pixel(rr + 32 * i), o = o0 + EPC * q;
+      const bool in = pix >= 0 && o < O;
+      if constexpr (F32)
+        gaf[i] = in ? load4<VEC>(dy + (size_t)pix * O + o, O - o) : make_float4(0.f, 0.f, 0.f, 0.f);
+      else
+        gab[i] = in ? load8<VEC>(dy + (size_t)pix * O + o, O - o) : make_uint4(0, 0, 0, 0);
     }
   };
   auto store_step = [&](int st) {
@@ -385,16 +483,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const int r = rr + 32 * i;
-      store_split(sm.ring[st].a[0], sm.ring[st].a[1], ((r >> 3) * SBO + q * LBO + (r & 7) * 16) >> 2,
-                  ga[i]);
+      const int off = ((r >> 3) * SBO + q * LBO + (r & 7) * 16) >> 2;
+      if constexpr (F32) store_split(sm.ring[st].a[0], sm.ring[st].a[1], off, gaf[i]);
+      else *reinterpret_cast<uint4*>(&sm.ring[st].a[0][off]) = gab[i];
     }
   };
   auto copy_b = [&](int s, int st) {
-    const float* src = wsplit + (size_t)((ch_begin + s / KS) * KS + s % KS) * 2 * B_TILE;
-    for (int e = tid; e < 2 * B_PIECES; e += kThreads) {
+    constexpr int planes = F32 ? 2 : 1;
+    const uint32_t* src = wsplit + (size_t)((ch_begin + s / KS) * KS + s % KS) * b_tile_words<E>();
+    for (int e = tid; e < planes * B_PIECES; e += kThreads) {
       const int pl = e / B_PIECES, i = e % B_PIECES;
       const int off = (i >> 6) * (SBO / 4) + ((i >> 3) & 7) * (LBO / 4) + (i & 7) * 4;
-      cp_async16(reinterpret_cast<float*>(&sm.ring[st].b[pl][off]), src + (size_t)pl * B_TILE + 4 * i);
+      cp_async16(&sm.ring[st].b[pl][off], src + (size_t)pl * B_TILE + 4 * i);
     }
   };
 
@@ -505,14 +605,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (mma) {
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // a k8 product covers 2 chunks along K
+      for (int kk = 0; kk < 4; ++kk) {  // a k8 tf32 or k16 bf16 product covers 2 chunks along K
         const int k_off = kk * 2 * LBO / 4;
         const Stage& sg = sm.ring[st];
-        const uint64_t ah = desc(&sg.a[0][k_off]), al = desc(&sg.a[1][k_off]);
-        const uint64_t bh = desc(&sg.b[0][b_row + k_off]), bl = desc(&sg.b[1][b_row + k_off]);
-        wgmma_tf32_n72(acc, al, bh);
-        wgmma_tf32_n72(acc, ah, bl);
-        wgmma_tf32_n72(acc, ah, bh);
+        if constexpr (F32) {
+          const uint64_t ah = desc(&sg.a[0][k_off]), al = desc(&sg.a[1][k_off]);
+          const uint64_t bh = desc(&sg.b[0][b_row + k_off]), bl = desc(&sg.b[1][b_row + k_off]);
+          wgmma_tf32_n72(acc, al, bh);
+          wgmma_tf32_n72(acc, ah, bl);
+          wgmma_tf32_n72(acc, ah, bh);
+        } else {
+          wgmma_bf16_n72(acc, desc(&sg.a[0][k_off]), desc(&sg.b[0][b_row + k_off]));
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     }
@@ -526,8 +630,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     if ((s + 1) % KS != 0) continue;
     // ---- the chunk is done: dcols into the stage step s used, scatter ----
-    // accumulator of wgmma m64nNk8: warp w of the warpgroup holds rows 16w..;
-    // lane (g, t) holds d[4j + 2h + c] at (16w + g + 8h, 8j + 2t + c)
+    // accumulator of wgmma m64nNk8 / k16: warp w of the warpgroup holds rows
+    // 16w..; lane (g, t) holds d[4j + 2h + c] at (16w + g + 8h, 8j + 2t + c)
     const int ch = ch_begin + s / KS;
     float* g = reinterpret_cast<float*>(&sm.ring[st]);
     if (mma) {
@@ -578,27 +682,77 @@ __global__ void __launch_bounds__(kThreads, 1)
       dm += part[3 * e + 2];
     }
     const float mk = 1.f / (1.f + expf(-sm.om[3 * e + 2]));
-    float* d = dom + (size_t)pix * 27;
-    d[2 * tap] = gy;
-    d[2 * tap + 1] = gx;
-    d[18 + tap] = dm * mk * (1.f - mk);
+    E* d = dom + (size_t)pix * 27;
+    store1(d + 2 * tap, gy);
+    store1(d + 2 * tap + 1, gx);
+    store1(d + 18 + tap, dm * mk * (1.f - mk));
   }
   cluster.sync();  // no block leaves while another reads its sums
 }
 
+// one kernel name per precision, as profilers list them: the bf16 data
+// gradient's three launches share the prefix deform_conv_dgrad_bf16_
+__global__ void __launch_bounds__(256)
+    deform_conv_dgrad_split_kernel(const float* __restrict__ wt, uint32_t* __restrict__ wsplit,
+                                   int C, int O, int KS, long long total) {
+  split_body<float>(wt, wsplit, C, O, KS, total);
+}
+
+__global__ void __launch_bounds__(256)
+    deform_conv_dgrad_bf16_split_kernel(const uint16_t* __restrict__ wt,
+                                        uint32_t* __restrict__ wsplit, int C, int O, int KS,
+                                        long long total) {
+  split_body<uint16_t>(wt, wsplit, C, O, KS, total);
+}
+
 template <bool VEC>
-int launch(const float* x, const float* om, const float* wt, float* wsplit, const float* dy,
-           float* dx, float* dom, int B, int H, int W, int C, int O, cudaStream_t stream) {
-  const int KS = (O + BK - 1) / BK;
+__global__ void __launch_bounds__(kThreads, 1)
+    deform_conv_dgrad_kernel(const float* __restrict__ x, const float* __restrict__ om,
+                             const uint32_t* __restrict__ wsplit, const float* __restrict__ dy,
+                             float* __restrict__ dx, float* __restrict__ dom, int H, int W, int C,
+                             int O, int tiles_x, int tiles_per_img) {
+  dgrad_body<float, VEC>(x, om, wsplit, dy, dx, dom, H, W, C, O, tiles_x, tiles_per_img);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+    deform_conv_dgrad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ om,
+                                  const uint32_t* __restrict__ wsplit,
+                                  const uint16_t* __restrict__ dy, float* __restrict__ dx,
+                                  uint16_t* __restrict__ dom, int H, int W, int C, int O,
+                                  int tiles_x, int tiles_per_img) {
+  dgrad_body<uint16_t, VEC>(x, om, wsplit, dy, dx, dom, H, W, C, O, tiles_x, tiles_per_img);
+}
+
+// bf16 dx: the float32 sums rounded once
+__global__ void __launch_bounds__(256)
+    deform_conv_dgrad_bf16_round_kernel(const float* __restrict__ src, uint16_t* __restrict__ dst,
+                                        long long n) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n; i += (long long)gridDim.x * 256)
+    dst[i] = to_bf16(src[i]);
+}
+
+template <typename E, bool VEC>
+int launch(const E* x, const E* om, const E* wt, uint32_t* wsplit, const E* dy, float* dx,
+           E* dom, int B, int H, int W, int C, int O, cudaStream_t stream) {
+  const int KS = (O + bk<E>() - 1) / bk<E>();
   const long long split_total = (long long)((C + CC - 1) / CC) * KS * B_PIECES * 4;
   const long long split_blocks = (split_total + 255) / 256;
-  deform_conv_dgrad_split_kernel<<<(unsigned)(split_blocks < 4096 ? split_blocks : 4096), 256, 0,
-                                   stream>>>(wt, wsplit, C, O, KS, split_total);
+  const unsigned split_grid = (unsigned)(split_blocks < 4096 ? split_blocks : 4096);
+  if constexpr (sizeof(E) == 4)
+    deform_conv_dgrad_split_kernel<<<split_grid, 256, 0, stream>>>(wt, wsplit, C, O, KS, split_total);
+  else
+    deform_conv_dgrad_bf16_split_kernel<<<split_grid, 256, 0, stream>>>(wt, wsplit, C, O, KS,
+                                                                        split_total);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  void (*kern)(const E*, const E*, const uint32_t*, const E*, float*, E*, int, int, int, int, int, int);
+  if constexpr (sizeof(E) == 4)
+    kern = deform_conv_dgrad_kernel<VEC>;
+  else
+    kern = deform_conv_dgrad_bf16_kernel<VEC>;
   const int smem = (int)sizeof(Smem);
-  e = cudaFuncSetAttribute(deform_conv_dgrad_kernel<VEC>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
@@ -623,8 +777,8 @@ int launch(const float* x, const float* om, const float* wt, float* wsplit, cons
   attr[0].val.clusterDim.z = (unsigned)splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, deform_conv_dgrad_kernel<VEC>, x, om, (const float*)wsplit, dy, dx,
-                         dom, H, W, C, O, tiles_x, tiles_per_img);
+  e = cudaLaunchKernelEx(&cfg, kern, x, om, (const uint32_t*)wsplit, dy, dx, dom, H, W, C, O, tiles_x,
+                         tiles_per_img);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -634,7 +788,7 @@ int launch(const float* x, const float* om, const float* wt, float* wsplit, cons
 // float32 x (B,H,W,C), om (B,H,W,27), weight (O, 9C), dy (B,H,W,O) -> dx
 // (B,H,W,C), which must hold zeros (the kernel adds into it), and dom
 // (B,H,W,27), every element written; wsplit is 16-byte aligned scratch of
-// ceil(C / CC) * ceil(O / BK) * 2 * B_TILE floats (CC 16, BK 32, B_TILE 4608;
+// ceil(C / CC) * ceil(O / 32) * 2 * B_TILE floats (CC 16, B_TILE 4608;
 // models/deform_conv.py: dgrad_scratch_floats)
 extern "C" int deform_conv_dgrad(const void* x, const void* om, const void* weight, void* wsplit,
                                  const void* dy, void* dx, void* dom, int B, int H, int W, int C,
@@ -647,7 +801,7 @@ extern "C" int deform_conv_dgrad(const void* x, const void* om, const void* weig
   const float* xt = static_cast<const float*>(x);
   const float* omt = static_cast<const float*>(om);
   const float* wt = static_cast<const float*>(weight);
-  float* ws = static_cast<float*>(wsplit);
+  uint32_t* ws = static_cast<uint32_t*>(wsplit);
   const float* dyt = static_cast<const float*>(dy);
   float* dxt = static_cast<float*>(dx);
   float* domt = static_cast<float*>(dom);
@@ -655,6 +809,40 @@ extern "C" int deform_conv_dgrad(const void* x, const void* om, const void* weig
   // float4 loads need whole groups of 4 channels and outputs, and aligned rows
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) & 15) == 0;
   if (C % 4 == 0 && O % 4 == 0 && aligned)
-    return launch<true>(xt, omt, wt, ws, dyt, dxt, domt, B, H, W, C, O, s);
-  return launch<false>(xt, omt, wt, ws, dyt, dxt, domt, B, H, W, C, O, s);
+    return launch<float, true>(xt, omt, wt, ws, dyt, dxt, domt, B, H, W, C, O, s);
+  return launch<float, false>(xt, omt, wt, ws, dyt, dxt, domt, B, H, W, C, O, s);
+}
+
+// bf16 x, om, weight, dy -> bf16 dx and dom; dx32 is float32 scratch
+// (B,H,W,C) holding zeros (the scatter adds into it before dx is rounded
+// from it); wsplit is 16-byte aligned scratch of ceil(C / CC) * ceil(O / 64)
+// * B_TILE 32-bit words (models/deform_conv.py: dgrad_scratch_floats)
+extern "C" int deform_conv_dgrad_bf16(const void* x, const void* om, const void* weight, void* wsplit,
+                                      const void* dy, void* dx32, void* dx, void* dom, int B, int H,
+                                      int W, int C, int O, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * H * W;
+  if (M >= (1ll << 31) || (long long)O * 9 * C >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(wsplit) & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  using bf = uint16_t;
+  const bf* xt = static_cast<const bf*>(x);
+  const bf* omt = static_cast<const bf*>(om);
+  const bf* wt = static_cast<const bf*>(weight);
+  uint32_t* ws = static_cast<uint32_t*>(wsplit);
+  const bf* dyt = static_cast<const bf*>(dy);
+  float* acc = static_cast<float*>(dx32);
+  bf* domt = static_cast<bf*>(dom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 8-byte loads of 4 channels and 16-byte loads of 8 outputs need whole
+  // groups and aligned rows
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 7) == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+  const int err = (C % 4 == 0 && O % 8 == 0 && aligned)
+                      ? launch<bf, true>(xt, omt, wt, ws, dyt, acc, domt, B, H, W, C, O, s)
+                      : launch<bf, false>(xt, omt, wt, ws, dyt, acc, domt, B, H, W, C, O, s);
+  if (err != 0) return err;
+  const long long n = M * C;
+  const long long blocks = (n + 255) / 256;
+  deform_conv_dgrad_bf16_round_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
+      acc, static_cast<bf*>(dx), n);
+  return (int)cudaGetLastError();
 }

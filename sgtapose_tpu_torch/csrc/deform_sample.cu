@@ -20,25 +20,57 @@
 // coordinate math is repeated by the C/4 threads that share it (they read the
 // same offset/mask words, a broadcast), which is cheaper than staging it.
 // A scalar variant handles C % 4 != 0 or unaligned pointers.
+//
+// Two instantiations: float32 (deform_sample_fwd) and bf16 training's
+// (deform_sample_bf16_fwd), which the bf16 DCN backward launches to recompute
+// the columns of its weight gradient: bf16 features, the coordinates and the
+// sigmoided masks float32 (the offsets widened exactly from bf16, the mask
+// sigmoid taken in float32, as the bf16 fused forward forms them), each
+// column element formed in float32 and rounded once to bf16 (what the fused
+// forward feeds its product). Bytes bound it as in float32, at half the
+// output stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-template <int VEC>
+// VEC consecutive channels of T (float, or bf16 held as uint16_t) as floats,
+// and VEC floats stored as T (bf16: rounded once)
+template <typename T, int VEC>
 struct Vec;
 template <>
-struct Vec<1> {
-  using T = float;
-  static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
+struct Vec<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
 };
 template <>
-struct Vec<4> {
-  using T = float4;
-  static __device__ __forceinline__ T load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Vec<uint16_t, 1> {
+  static __device__ __forceinline__ void load(const uint16_t* p, float (&v)[1]) { v[0] = bf16f(__ldg(p)); }
+  static __device__ __forceinline__ void store(uint16_t* p, const float (&v)[1]) { *p = to_bf16(v[0]); }
+};
+template <>
+struct Vec<uint16_t, 4> {
+  static __device__ __forceinline__ void load(const uint16_t* p, float (&v)[4]) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf_lo(u.x); v[1] = bf_hi(u.x); v[2] = bf_lo(u.y); v[3] = bf_hi(u.y);
+  }
+  static __device__ __forceinline__ void store(uint16_t* p, const float (&v)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2((uint32_t)to_bf16(v[0]) | ((uint32_t)to_bf16(v[1]) << 16),
+                                              (uint32_t)to_bf16(v[2]) | ((uint32_t)to_bf16(v[3]) << 16));
   }
 };
 
@@ -52,11 +84,10 @@ __device__ __forceinline__ float combine(float v00, float v01, float v10, float 
   return r * mk;
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(256)
-    deform_sample_kernel(const float* __restrict__ feat, const float* __restrict__ offsets,
-                         const float* __restrict__ masks, float* __restrict__ out, int H, int W,
-                         int C, unsigned total) {
+template <typename T, int VEC>
+__device__ __forceinline__ void sample_body(const T* __restrict__ feat, const float* __restrict__ offsets,
+                                            const float* __restrict__ masks, T* __restrict__ out, int H,
+                                            int W, int C, unsigned total) {
   const int CV = C / VEC;
   for (unsigned idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += gridDim.x * blockDim.x) {
@@ -88,48 +119,79 @@ __global__ void __launch_bounds__(256)
     const int yc0 = min(max(y0, 0), H - 1), yc1 = min(max(y1, 0), H - 1);
     const int xc0 = min(max(x0, 0), W - 1), xc1 = min(max(x1, 0), W - 1);
 
-    const float* fb = feat + (size_t)b * H * W * C + (size_t)cv * VEC;
-    const auto v00 = Vec<VEC>::load(fb + ((size_t)yc0 * W + xc0) * C);
-    const auto v01 = Vec<VEC>::load(fb + ((size_t)yc0 * W + xc1) * C);
-    const auto v10 = Vec<VEC>::load(fb + ((size_t)yc1 * W + xc0) * C);
-    const auto v11 = Vec<VEC>::load(fb + ((size_t)yc1 * W + xc1) * C);
-    if constexpr (VEC == 4) {
-      float4 r;
-      r.x = combine(v00.x, v01.x, v10.x, v11.x, w00, w01, w10, w11, mk);
-      r.y = combine(v00.y, v01.y, v10.y, v11.y, w00, w01, w10, w11, mk);
-      r.z = combine(v00.z, v01.z, v10.z, v11.z, w00, w01, w10, w11, mk);
-      r.w = combine(v00.w, v01.w, v10.w, v11.w, w00, w01, w10, w11, mk);
-      reinterpret_cast<float4*>(out)[idx] = r;
-    } else {
-      out[idx] = combine(v00, v01, v10, v11, w00, w01, w10, w11, mk);
-    }
+    const T* fb = feat + (size_t)b * H * W * C + (size_t)cv * VEC;
+    float v00[VEC], v01[VEC], v10[VEC], v11[VEC], r[VEC];
+    Vec<T, VEC>::load(fb + ((size_t)yc0 * W + xc0) * C, v00);
+    Vec<T, VEC>::load(fb + ((size_t)yc0 * W + xc1) * C, v01);
+    Vec<T, VEC>::load(fb + ((size_t)yc1 * W + xc0) * C, v10);
+    Vec<T, VEC>::load(fb + ((size_t)yc1 * W + xc1) * C, v11);
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) r[u] = combine(v00[u], v01[u], v10[u], v11[u], w00, w01, w10, w11, mk);
+    Vec<T, VEC>::store(out + (size_t)idx * VEC, r);
   }
 }
 
+// one kernel name per precision, as profilers list them
 template <int VEC>
-int launch(const float* feat, const float* offsets, const float* masks, float* out, int B, int H,
-           int W, int C, cudaStream_t stream) {
+__global__ void __launch_bounds__(256)
+    deform_sample_kernel(const float* __restrict__ feat, const float* __restrict__ offsets,
+                         const float* __restrict__ masks, float* __restrict__ out, int H, int W,
+                         int C, unsigned total) {
+  sample_body<float, VEC>(feat, offsets, masks, out, H, W, C, total);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(256)
+    deform_sample_bf16_kernel(const uint16_t* __restrict__ feat, const float* __restrict__ offsets,
+                              const float* __restrict__ masks, uint16_t* __restrict__ out, int H,
+                              int W, int C, unsigned total) {
+  sample_body<uint16_t, VEC>(feat, offsets, masks, out, H, W, C, total);
+}
+
+template <typename T, int VEC>
+int launch(const T* feat, const float* offsets, const float* masks, T* out, int B, int H, int W,
+           int C, cudaStream_t stream) {
   const uint64_t total = (uint64_t)B * H * W * 9 * (C / VEC);
   if (total == 0) return (int)cudaSuccess;
   if (total >= (1ull << 31)) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  deform_sample_kernel<VEC><<<blocks, threads, 0, stream>>>(feat, offsets, masks, out, H, W, C,
-                                                            (unsigned)total);
+  if constexpr (sizeof(T) == 4)
+    deform_sample_kernel<VEC><<<blocks, threads, 0, stream>>>(feat, offsets, masks, out, H, W, C,
+                                                              (unsigned)total);
+  else
+    deform_sample_bf16_kernel<VEC><<<blocks, threads, 0, stream>>>(feat, offsets, masks, out, H, W,
+                                                                   C, (unsigned)total);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd(const void* feat, const void* offsets, const void* masks, void* out, int B, int H, int W,
+        int C, void* stream) {
+  const T* f = static_cast<const T*>(feat);
+  const float* o = static_cast<const float*>(offsets);
+  const float* m = static_cast<const float*>(masks);
+  T* dst = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  // VEC = 4: 4 channels a thread, read and written as one 16-byte (float32)
+  // or 8-byte (bf16) word
+  const uintptr_t line = 4 * sizeof(T) - 1;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(f) | reinterpret_cast<uintptr_t>(dst)) & line) == 0;
+  if (C % 4 == 0 && aligned) return launch<T, 4>(f, o, m, dst, B, H, W, C, s);
+  return launch<T, 1>(f, o, m, dst, B, H, W, C, s);
 }
 
 }  // namespace
 
+// float32 feat (B,H,W,C), offsets (B,H,W,18), masks (B,H,W,9) -> out (B,H,W,9C)
 extern "C" int deform_sample_fwd(const void* feat, const void* offsets, const void* masks,
                                  void* out, int B, int H, int W, int C, void* stream) {
-  const float* f = static_cast<const float*>(feat);
-  const float* o = static_cast<const float*>(offsets);
-  const float* m = static_cast<const float*>(masks);
-  float* dst = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(f) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
-  if (C % 4 == 0 && aligned) return launch<4>(f, o, m, dst, B, H, W, C, s);
-  return launch<1>(f, o, m, dst, B, H, W, C, s);
+  return fwd<float>(feat, offsets, masks, out, B, H, W, C, stream);
+}
+
+// the same with bf16 feat and out; offsets and masks float32
+extern "C" int deform_sample_bf16_fwd(const void* feat, const void* offsets, const void* masks,
+                                      void* out, int B, int H, int W, int C, void* stream) {
+  return fwd<uint16_t>(feat, offsets, masks, out, B, H, W, C, stream);
 }

@@ -16,8 +16,8 @@ kernel forms each sampled element in float32 from the bf16 inputs and rounds
 it once to bf16, and rounds the float32 product plus bias once; the JAX
 module rounds after every corner product and sum, and adds a bf16 bias to a
 bf16 product (`sgtapose_tpu/models/deform_conv.py:92-99`).
-`deform_conv` is a `torch.autograd.Function` (float32 training; a bf16
-backward raises). Its backward, the counterpart of the JAX custom VJP
+`deform_conv` is a `torch.autograd.Function`, differentiable in float32
+and in bf16 (bf16 training). Its backward, the counterpart of the JAX custom VJP
 `_dsb_bwd` / `_bwd_core` plus the 1x1 contraction's gradient that XLA
 derives: the data gradients (dx and the gradient of the raw offset/mask conv
 output) in one kernel, `csrc/deform_conv_bwd.cu` (`deform_conv_dgrad`: the
@@ -31,6 +31,16 @@ unfused route for the data gradient, the product dY W then
 the backward does not launch it. CPU tensors take the plain versions (the
 sampler mirrors the JAX `_sample_pieces`, its backward `_bwd_core`;
 `tiled_deform_scatter` mirrors the kernel's halo split).
+
+bf16 backward: dx and d(om) from the bf16 instantiation of the data-gradient
+kernel (dY W on bf16 tensor cores with float32 accumulators, the scatter in
+float32, each output rounded once to bf16); dW = cols^T dY, a bf16 product
+of the columns from the bf16 sampler (float32 coordinates and masks, each
+column element formed in float32 and rounded once, as the fused forward
+forms them) and dY; db = dY summed in float32, rounded once. The plain bf16
+forms compute in float32 from the bf16 inputs and round each output once.
+The JAX module under bf16 parameters rounds inside `_bwd_core` after every
+product and sum instead (the same bounded deviation as the forward's).
 """
 
 from __future__ import annotations
@@ -45,22 +55,31 @@ CONV_KERNEL = "deform_conv"
 CONV_KERNEL_BF16 = "deform_conv_bf16"
 BWD_KERNEL = "deform_sample_bwd"
 DGRAD_KERNEL = "deform_conv_dgrad"
+KERNEL_BF16 = "deform_sample_bf16"
+DGRAD_KERNEL_BF16 = "deform_conv_dgrad_bf16"
 # the data-gradient kernel's pixel tile side and the offsets its shared-memory
 # halo tile covers (csrc/deform_conv_bwd.cu: T, HALO)
 DGRAD_TILE, DGRAD_HALO = 8, 3
 
 
-def dgrad_scratch_floats(C: int, O: int) -> int:
-    """Floats of the data-gradient kernel's pre-split weight: a tf32 hi and
-    lo plane of 9 x 16 channels x 32 outputs (4608 floats each) per
-    16-channel chunk and 32-output step (csrc/deform_conv_bwd.cu: CC, BK,
-    B_TILE)."""
+def dgrad_scratch_floats(C: int, O: int, bf16: bool = False) -> int:
+    """32-bit words of the data-gradient kernel's pre-tiled weight: float32,
+    a tf32 hi and lo plane of 9 x 16 channels x 32 outputs (4608 words each)
+    per 16-channel chunk and 32-output step; bf16, one plane of 9 x 16
+    channels x 64 outputs (4608 words) per chunk and 64-output step
+    (csrc/deform_conv_bwd.cu: CC, bk, B_TILE)."""
+    if bf16:
+        return -(-C // 16) * -(-O // 64) * 4608
     return -(-C // 16) * -(-O // 32) * 2 * 4608
 
 
 def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """feat (B,H,W,C), offsets (B,H,W,18) as (dy, dx) per tap, masks (B,H,W,9)
-    already sigmoided -> (B,H,W,9*C). Zero padding outside the map."""
+    already sigmoided -> (B,H,W,9*C). Zero padding outside the map. A bf16
+    feat (the bf16 sampler's form: offsets and masks float32) is sampled in
+    float32 and each output element rounded once to bf16."""
+    if feat.dtype == torch.bfloat16:
+        return plain_deform_sample(feat.to(torch.float32), offsets, masks).to(torch.bfloat16)
     B, H, W, C = feat.shape
     dev = feat.device
     gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None, None]
@@ -94,7 +113,9 @@ def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.
 
 
 def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA sampling kernel on the current stream (CUDA tensors)."""
+    """Launch the CUDA sampling kernel of feat's dtype on the current stream
+    (CUDA tensors): float32, or bf16 feat and out with float32 offsets and
+    masks."""
     if feat.dim() != 4:
         raise ValueError(f"feat must be (B,H,W,C), got {tuple(feat.shape)}")
     B, H, W, C = feat.shape
@@ -102,21 +123,25 @@ def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.T
         raise ValueError(
             f"offsets/masks must be (B,H,W,18)/(B,H,W,9) for feat {tuple(feat.shape)}, "
             f"got {tuple(offsets.shape)}/{tuple(masks.shape)}")
-    for name, t in (("feat", feat), ("offsets", offsets), ("masks", masks)):
+    if feat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feat must be float32 or bf16, got {feat.dtype}")
+    name = KERNEL if feat.dtype == torch.float32 else KERNEL_BF16
+    for label, t, dtype in (("feat", feat, feat.dtype), ("offsets", offsets, torch.float32),
+                            ("masks", masks, torch.float32)):
         if t.device.type != "cuda" or t.device != feat.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {feat.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+            raise ValueError(f"{label} must be a CUDA tensor on {feat.device}, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{label} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    out = torch.empty((B, H, W, 9 * C), dtype=torch.float32, device=feat.device)
-    fn = build.kernel_fn(KERNEL)
+            raise ValueError(f"{label} must be contiguous")
+    out = torch.empty((B, H, W, 9 * C), dtype=feat.dtype, device=feat.device)
+    fn = build.kernel_fn(name)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(feat.data_ptr(), offsets.data_ptr(), masks.data_ptr(), out.data_ptr(),
                  B, H, W, C, stream)
-    build.check(KERNEL, err)
-    build.count_launch(KERNEL)
+    build.check(name, err)
+    build.count_launch(name)
     return out
 
 
@@ -257,8 +282,14 @@ def deform_conv_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
 def plain_deform_conv_dgrad(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                             dy: torch.Tensor):
     """The data gradients (dx (B,H,W,C), dom (B,H,W,27)) of `plain_deform_conv`
-    (float32) given dy (B,H,W,O): the columns' cotangent dy W, the sampling
-    backward, and the mask logits' sigmoid derivative."""
+    given dy (B,H,W,O): the columns' cotangent dy W, the sampling backward,
+    and the mask logits' sigmoid derivative. bf16 inputs (the bf16 kernel's
+    form): the float32 formulas from the widened inputs, dx and dom rounded
+    once to bf16."""
+    if x.dtype == torch.bfloat16:
+        f32 = torch.float32
+        dx, dom = plain_deform_conv_dgrad(x.to(f32), om.to(f32), weight.to(f32), dy.to(f32))
+        return dx.to(torch.bfloat16), dom.to(torch.bfloat16)
     B, H, W, C = x.shape
     masks = torch.sigmoid(om[..., 18:27])
     dcols = (dy.reshape(-1, weight.shape[0]) @ weight).reshape(B, H, W, 9 * C)
@@ -268,8 +299,12 @@ def plain_deform_conv_dgrad(x: torch.Tensor, om: torch.Tensor, weight: torch.Ten
 
 def deform_conv_dgrad_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                            dy: torch.Tensor):
-    """Launch the fused data-gradient kernel on the current stream (CUDA
-    tensors, float32): (dx, dom) of `plain_deform_conv_dgrad`."""
+    """Launch the fused data-gradient kernel of x's dtype (float32 or bf16;
+    all four tensors share it) on the current stream (CUDA tensors): (dx,
+    dom) of `plain_deform_conv_dgrad`, in x's dtype."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bf16, got {x.dtype}")
+    bf16 = x.dtype == torch.bfloat16
     if x.dim() != 4:
         raise ValueError(f"x must be (B,H,W,C), got {tuple(x.shape)}")
     B, H, W, C = x.shape
@@ -282,22 +317,25 @@ def deform_conv_dgrad_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tens
             raise ValueError(f"{name} must be {expect[name]} for x {tuple(x.shape)}, got {tuple(t.shape)}")
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"{name} must be {x.dtype} like x, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if B * H * W >= 2 ** 31 or O * 9 * C >= 2 ** 31:
         raise ValueError(f"x {tuple(x.shape)} with O={O} exceeds the kernel's 32-bit indices")
-    dx = torch.zeros_like(x)
-    dom = torch.empty((B, H, W, 27), dtype=torch.float32, device=x.device)
-    wsplit = torch.empty(dgrad_scratch_floats(C, O), dtype=torch.float32, device=x.device)
-    fn = build.kernel_fn(DGRAD_KERNEL)
+    name = DGRAD_KERNEL_BF16 if bf16 else DGRAD_KERNEL
+    dom = torch.empty((B, H, W, 27), dtype=x.dtype, device=x.device)
+    wsplit = torch.empty(dgrad_scratch_floats(C, O, bf16), dtype=torch.float32, device=x.device)
+    # the scatter adds into dx (float32), or, in bf16, into float32 sums the
+    # kernel rounds once into dx
+    dx = torch.empty_like(x) if bf16 else torch.zeros_like(x)
+    sums = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)] if bf16 else []
+    fn = build.kernel_fn(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), om.data_ptr(), weight.data_ptr(), wsplit.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), dom.data_ptr(), B, H, W, C, O, stream)
-    build.check(DGRAD_KERNEL, err)
-    build.count_launch(DGRAD_KERNEL)
+        err = fn(*(t.data_ptr() for t in [x, om, weight, wsplit, dy] + sums + [dx, dom]), B, H, W, C, O, stream)
+    build.check(name, err)
+    build.count_launch(name)
     return dx, dom
 
 
@@ -361,18 +399,26 @@ def tiled_deform_scatter(feat: torch.Tensor, offsets: torch.Tensor, masks: torch
 
 
 def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
-    """Gradients (dx, dom, dweight, dbias) of `plain_deform_conv` (float32)
-    given dy (B,H,W,O). CUDA tensors launch `deform_conv_dgrad` for dx and dom,
-    and the sampler for the columns of dweight (or raise); CPU tensors take
-    the plain versions. dweight and dbias are plain products (full float32
-    unless the caller turned TF32 matmuls on)."""
+    """Gradients (dx, dom, dweight, dbias) of `plain_deform_conv` given dy
+    (B,H,W,O), in x's dtype, float32 or bf16 (module docstring). CUDA tensors
+    launch the data-gradient kernel of their dtype for dx and dom, and the
+    sampler for the columns of dweight (or raise); CPU tensors take the
+    plain versions. dweight and dbias are plain products (float32: full
+    float32 unless the caller turned TF32 matmuls on)."""
     C = x.shape[-1]
     O = weight.shape[0]
-    masks = torch.sigmoid(om[..., 18:27]).contiguous()
-    cols = deform_sample(x, om[..., :18].contiguous(), masks).reshape(-1, 9 * C)
     dy2 = dy.reshape(-1, O)
+    if x.dtype == torch.bfloat16:
+        # float32 coordinates and masks, as the bf16 fused forward forms them
+        offsets = om[..., :18].to(torch.float32).contiguous()
+        masks = torch.sigmoid(om[..., 18:27].to(torch.float32)).contiguous()
+        dbias = dy2.sum(0, dtype=torch.float32).to(dy.dtype)
+    else:
+        offsets = om[..., :18].contiguous()
+        masks = torch.sigmoid(om[..., 18:27]).contiguous()
+        dbias = dy2.sum(0)
+    cols = deform_sample(x, offsets, masks).reshape(-1, 9 * C)
     dweight = dy2.t() @ cols
-    dbias = dy2.sum(0)
     if x.device.type == "cpu":
         dx, dom = plain_deform_conv_dgrad(x, om, weight, dy)
     else:
@@ -391,15 +437,13 @@ class _DeformConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, om, weight = ctx.saved_tensors
-        if x.dtype != torch.float32:
-            raise NotImplementedError("deform_conv backward: bf16 training is not ported (float32 only)")
         return deform_conv_backward(x, om, weight, dy.contiguous())
 
 
 def deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Modulated deformable conv from the offset/mask conv's raw output (see
-    `plain_deform_conv`), differentiable in float32. CUDA tensors go through
+    `plain_deform_conv`), differentiable in float32 and bf16. CUDA tensors go through
     the fused kernel of their dtype, float32 or bf16, and the backward
     kernels (or raise); CPU tensors take the plain versions. Any other dtype
     raises on both."""

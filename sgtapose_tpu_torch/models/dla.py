@@ -34,26 +34,39 @@ class BatchNorm(nn.BatchNorm2d):
     the running average, running = 0.9 running + 0.1 batch (nn.BatchNorm2d
     feeds the unbiased variance into running_var). Under several
     data-parallel ranks the statistics are the global batch's
-    (`parallel/mesh.global_moments`), as the JAX mesh step computes them."""
+    (`parallel/mesh.global_moments`), as the JAX mesh step computes them.
+
+    bf16 training (bf16 input and parameters, float32 running statistics,
+    `utils/precision.bf16_forward`): as flax computes it, the statistics,
+    the normalisation, scale and shift in float32 (`_compute_stats` promotes
+    to at least float32), the output rounded once to bf16, the running
+    averages updated in float32; in eval mode the float32 running
+    statistics. (bf16 serving casts the statistics too.)"""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5)
 
     def forward(self, x):
+        # the parameters in the statistics' dtype: a no-op but in bf16
+        # training, where batch_norm then takes a bf16 x with float32
+        # parameters and statistics and returns x's dtype
+        stat_dtype = self.running_mean.dtype
+        weight, bias = self.weight.to(stat_dtype), self.bias.to(stat_dtype)
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var, weight, bias, False, 0.0, self.eps)
         if mesh.world_size() > 1:
             mean, var = mesh.global_moments(x, (0, 2, 3))
-            scale = self.weight * torch.rsqrt(var + self.eps)
-            out = (x - mean[None, :, None, None]) * scale[None, :, None, None] + self.bias[None, :, None, None]
+            scale = weight * torch.rsqrt(var + self.eps)
+            out = (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
+            out = out.to(x.dtype)
             mean, var = mean.detach(), var.detach()
         else:
-            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            out = F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                var, mean = torch.var_mean(x.to(stat_dtype), dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(self.running_mean.dtype), alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var.to(self.running_var.dtype), alpha=1 - BN_MOMENTUM)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(stat_dtype), alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var.to(stat_dtype), alpha=1 - BN_MOMENTUM)
         return out
 
 

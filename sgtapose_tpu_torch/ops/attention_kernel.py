@@ -1,11 +1,11 @@
 """Biased attention softmax(q k^T / sqrt(d) + bias) v: the CUDA kernels
 (`csrc/biased_attention.cu`: one forward design instantiated for float32 and
-for bf16 serving, which holds a head's K, V and a tile's bias rows in shared
+for bf16, which holds a head's K, V and a tile's bias rows in shared
 memory, and a key-tiled float32 forward for the n beyond that, as a
 42-keypoint model's levels 0 and 1 have; `csrc/biased_attention_bwd.cu`: the
-float32 backward, one cluster launch where a (batch, head) problem fits in a
-block's shared memory, as at training's level 2, else two passes) and their
-plain PyTorch versions.
+backward, one cluster launch where a (batch, head) problem fits in a
+block's shared memory, as at training's level 2, in float32 and in bf16,
+else two passes, float32 only) and their plain PyTorch versions.
 
 Counterpart of `sgtapose_tpu/ops/attention_kernel.py:fused_biased_attention`
 (a Pallas TPU kernel) and of its custom VJP `_bwd_rule` (a recompute through
@@ -13,8 +13,10 @@ the XLA formulation). `fused_biased_attention` is a `torch.autograd.Function`:
 on the card its forward and backward always run kernels; the plain versions
 are what a CPU tensor gets, and what the kernels are held against. The
 backward saves the forward's output beside q, k, v and the bias, and
-recomputes the probabilities. Training runs float32; a bf16 backward raises
-(bf16 training is not ported).
+recomputes the probabilities. Its dtype follows the forward's: float32, or
+bf16 training's (below) on the cluster path; a bf16 backward at an (n, d)
+beyond the cluster path raises on the card (ROADMAP.md Queue 1 item 10,
+`--bf16 --depth`).
 
 bf16: the port follows the JAX package's DEFAULT attention form
 (`fused_attention=False`, `sgtapose_tpu/models/attention.py:175-180`), which
@@ -25,6 +27,12 @@ float32 LayerNorm). With a bf16 q the q.k logit is rounded to bf16; dividing
 by the float32 sqrt(d) makes the logits float32, and the bias add, softmax
 and p.v product run in float32, so the output is float32. (The Pallas path
 casts the bias to q's dtype and returns q's dtype, bf16: another function.)
+bf16 training differentiates that same default form, as XLA's autodiff
+does under bf16 parameters (`plain_biased_attention_backward_bf16`): with a
+bf16 q the logit's cotangent dS / sqrt(d) is rounded to bf16 before the dq
+and dk products and dq, dk, dv come out bf16; with a float32 q, dq is
+float32 and dk, dv are rounded once; dbias is the batch sum of float32 dS,
+rounded once to bf16 (pos_embed is bf16, promoted in `energy + bias`).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ KERNEL = "biased_attention"
 KERNEL_BF16 = "biased_attention_bf16"
 KERNEL_TILED = "biased_attention_tiled"
 BWD_KERNEL = "biased_attention_bwd"
+BWD_KERNEL_BF16 = "biased_attention_bwd_bf16"
 SUPPORTED_HEAD_DIMS = (4, 8, 16, 32)
 # the kernel's layout (csrc/biased_attention.cu): blocks of 8 warps, one
 # warp (ROW_LANES lanes) per query row, a 2-stage ring of bias spans
@@ -96,6 +105,30 @@ def plain_biased_attention_bf16(q, k, v, bias):
         energy = energy.to(torch.bfloat16).to(f32)
     p = torch.softmax(energy / math.sqrt(d) + bias.to(f32), dim=-1)
     return torch.einsum("bhij,bhjd->bhid", p, v.to(f32))
+
+
+def plain_biased_attention_backward_bf16(q, k, v, bias, out, dout):
+    """The autograd of `plain_biased_attention_bf16` written out (module
+    docstring), given its float32 output and float32 dout: the float32
+    formulas of `plain_biased_attention_backward` from the bf16 inputs
+    widened, with dS / sqrt(d) rounded to bf16 when q is bf16, each output
+    rounded once to its input's dtype (dq to q's, dk, dv and dbias to bf16)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    d = q.shape[-1]
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    energy = torch.einsum("bhid,bhjd->bhij", qf, kf)
+    if q.dtype == bf16:
+        energy = energy.to(bf16).to(f32)
+    p = torch.softmax(energy / math.sqrt(d) + bias.to(f32), dim=-1)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhid,bhjd->bhij", dout, vf) - delta)
+    de = ds / math.sqrt(d)
+    if q.dtype == bf16:
+        de = de.to(bf16).to(f32)
+    dq = torch.einsum("bhij,bhjd->bhid", de, kf)
+    dk = torch.einsum("bhij,bhid->bhjd", de, qf)
+    dv = torch.einsum("bhij,bhid->bhjd", p, dout)
+    return dq.to(q.dtype), dk.to(bf16), dv.to(bf16), ds.sum(0).to(bf16)
 
 
 def split_lane_attention(q, k, v, bias):
@@ -319,10 +352,45 @@ def biased_attention_bwd_cuda(q, k, v, bias, out, dout):
     return dq, dk, dv, dbias
 
 
+def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
+    """Launch bf16 training's backward on the current stream (CUDA tensors
+    only): (dq, dk, dv, dbias) of `plain_biased_attention_backward_bf16`, bf16
+    k, v, bias, a bf16 or float32 q, float32 out and dout; one cluster launch,
+    dbias summed over the batch in a fixed order (no atomics). An (n, d)
+    beyond the cluster path raises NotImplementedError: it needs the two-pass
+    bf16 backward (ROADMAP.md Queue 1 item 10, `--bf16 --depth`)."""
+    _check(q, k, v, bias, bf16=True, smem=False)
+    if q.device.type != "cuda":
+        raise ValueError("biased_attention_bwd_bf16_cuda needs CUDA tensors")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {tuple(q.shape)} tensor on {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("q, k, v, out, dout must start on a 16-byte boundary (rows are read as vectors)")
+    B, h, n, d = q.shape
+    if not bwd_uses_cluster(n, d):
+        raise NotImplementedError(
+            f"biased attention backward in bf16 at (n, d) = {(n, d)}: beyond the one-pass cluster path "
+            "(a 42-keypoint model's --bf16 --depth training needs the two-pass bf16 backward, "
+            "ROADMAP.md Queue 1 item 10)")
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty((h, n, n), dtype=torch.bfloat16, device=q.device)
+    fn = build.kernel_fn(BWD_KERNEL_BF16)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+                 B, h, n, d, int(q.dtype == torch.bfloat16), stream)
+    build.check(BWD_KERNEL_BF16, err)
+    build.count_launch(BWD_KERNEL_BF16)
+    return dq, dk, dv, dbias
+
+
 class _BiasedAttention(torch.autograd.Function):
     """Forward through the kernel of the inputs' dtype and size (plain on
-    the CPU); backward through `biased_attention_bwd_cuda` (plain on the
-    CPU)."""
+    the CPU); backward through `biased_attention_bwd_cuda` or, for bf16
+    inputs, `biased_attention_bwd_bf16_cuda` (plain on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
@@ -341,9 +409,11 @@ class _BiasedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out = ctx.saved_tensors
-        if any(t.dtype != torch.float32 for t in (q, k, v, bias)):
-            raise NotImplementedError("biased attention backward: bf16 training is not ported (float32 only)")
         dout = dout.contiguous()
+        if k.dtype == torch.bfloat16:
+            if q.device.type == "cpu":
+                return plain_biased_attention_backward_bf16(q, k, v, bias, out, dout)
+            return biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout)
         if q.device.type == "cpu":
             return plain_biased_attention_backward(q, k, v, bias, out, dout)
         return biased_attention_bwd_cuda(q, k, v, bias, out, dout)
@@ -352,8 +422,9 @@ class _BiasedAttention(torch.autograd.Function):
 def fused_biased_attention(q, k, v, bias):
     """softmax(q k^T / sqrt(d) + bias) v with q, k, v (B, heads, n, d) and a
     (heads, n, n) bias shared across the batch; float32, or bf16 k, v, bias
-    (module docstring), always returning float32. Differentiable (float32).
-    CUDA tensors go through the hand-written kernels of their dtype (float32
-    beyond the shared-memory kernel's n: the key-tiled kernel; bf16 there
-    raises); CPU tensors take the plain versions."""
+    (module docstring), always returning float32. Differentiable in both
+    (bf16 on the card at the cluster path's (n, d)). CUDA tensors go through
+    the hand-written kernels of their dtype (float32 beyond the shared-memory
+    kernel's n: the key-tiled kernel; bf16 there raises); CPU tensors take
+    the plain versions."""
     return _BiasedAttention.apply(q, k, v, bias)

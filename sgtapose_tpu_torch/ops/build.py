@@ -31,9 +31,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 
-# kernel name -> source file under csrc/ (the bf16 kernels are the second
-# instantiation of their float32 kernel's design, in the same source; the
-# key-tiled attention shares the attention source)
+# kernel name -> source file under csrc/ (the bf16 kernels, of serving and
+# of bf16 training, are the second instantiation of their float32 kernel's
+# design, in the same source; the key-tiled attention shares the attention
+# source)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -44,6 +45,9 @@ KERNEL_SOURCES = {
     "deform_sample_bwd": "deform_sample_bwd.cu",
     "deform_conv_dgrad": "deform_conv_bwd.cu",
     "biased_attention_tiled": "biased_attention.cu",
+    "biased_attention_bwd_bf16": "biased_attention_bwd.cu",
+    "deform_conv_dgrad_bf16": "deform_conv_bwd.cu",
+    "deform_sample_bf16": "deform_sample.cu",
 }
 
 NVCC_FLAGS = (
@@ -74,6 +78,12 @@ _SIGNATURES = {
     "deform_conv_dgrad": ("deform_conv_dgrad", [_P] * 7 + [_I, _I, _I, _I, _I, _P]),
     # q, k, v, bias, out, B, heads, n, d, stream
     "biased_attention_tiled": ("biased_attention_tiled_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, d, q_bf16, stream
+    "biased_attention_bwd_bf16": ("biased_attention_bwd_bf16", [_P] * 10 + [_I, _I, _I, _I, _I, _P]),
+    # x, om, weight, wsplit (scratch), dy, dx32 (scratch), dx, dom, B, H, W, C, O, stream
+    "deform_conv_dgrad_bf16": ("deform_conv_dgrad_bf16", [_P] * 8 + [_I, _I, _I, _I, _I, _P]),
+    # feat (bf16), offsets, masks (float32), out (bf16), B, H, W, C, stream
+    "deform_sample_bf16": ("deform_sample_bf16_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

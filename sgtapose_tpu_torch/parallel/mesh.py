@@ -100,10 +100,12 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
 def global_moments(x: torch.Tensor, dims: Sequence[int]):
     """(mean, variance) over `dims` of the global batch, each rank holding an
     equal shard of it, differentiable: flax's fast variance
-    max(0, E[x^2] - E[x]^2), as the JAX mesh step computes it."""
+    max(0, E[x^2] - E[x]^2), as the JAX mesh step computes it, in at least
+    float32 (a bf16 x is widened first, as flax's `_compute_stats` promotes)."""
     from torch.distributed.nn.functional import all_reduce
 
     world = world_size()
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     moments = torch.stack([x.mean(dim=dims), (x * x).mean(dim=dims)])
     moments = all_reduce(moments) / world
     mean, mean_sq = moments[0], moments[1]

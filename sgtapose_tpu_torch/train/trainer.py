@@ -1,5 +1,5 @@
-"""The trainer: one float32 optimizer step of the flagship model, evaluation
-and prediction forwards, and checkpoints.
+"""The trainer: one optimizer step of the flagship model (float32, or bf16
+mixed precision), evaluation and prediction forwards, and checkpoints.
 
 Counterpart of `sgtapose_tpu/train/trainer.py` on one device. The JAX
 TrainState (step, params, batch_stats, optax Adam state) becomes a
@@ -15,6 +15,15 @@ sets the learning rate of each update to schedule(schedule_count) before
 `optimizer.step()` and increments the count after, the same sequence.
 Dropout draws from a generator on the model's device reseeded from
 (seed, step) at each step, as the JAX step folds the step into its key.
+
+bf16 (`train_step(bf16=True)`), as the JAX step does it
+(`sgtapose_tpu/train/trainer.py:166-196`): the forward runs bf16 parameters
+(a differentiable cast of the float32 masters, `utils/precision.bf16_forward`),
+bf16 activations and the phase's model inputs cast to bf16; the heads are
+cast to float32 before the loss; the loss, the gradients, Adam and the
+masters stay float32; BatchNorm's running statistics are never cast and are
+float32 after the step. Evaluation runs the float32 parameters, as the JAX
+`eval_step` does.
 
 Under several data-parallel ranks (`parallel/mesh.py`) `train_step` is the
 JAX mesh step over the global batch: BatchNorm and dropout act on the global
@@ -40,6 +49,7 @@ from sgtapose_tpu_torch.parallel import mesh
 from sgtapose_tpu_torch.train.loss import sgta_loss
 from sgtapose_tpu_torch.train.phases import input_names, loss_weights, model_inputs
 from sgtapose_tpu_torch.train.schedule import warmup_poly_schedule
+from sgtapose_tpu_torch.utils.precision import bf16_forward
 
 
 @dataclass
@@ -113,19 +123,22 @@ def _timed(stage_timer, name):
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], hm_weight: float = 1.0,
                reg_weight: float = 0.01, tracking_weight: float = 0.0, bf16: bool = False,
                phase: str = "PlanA_win", stage_timer=None) -> Dict[str, torch.Tensor]:
-    """One optimizer step in float32, in place: forward in train mode (batch
+    """One optimizer step, in place: forward in train mode (batch
     statistics; the BN running averages update), the loss, backward, the
-    learning rate of this update from the schedule, Adam. Returns the loss
-    terms {"tot", "hm", "reg", "tracking"} (detached, on the device).
-    stage_timer: optional fn(name) -> context manager around the stages
-    "forward", "backward" and "optimizer"."""
-    if bf16:
-        raise NotImplementedError("bf16 training is not ported to sgtapose_tpu_torch (float32 only)")
+    learning rate of this update from the schedule, Adam. float32, or with
+    bf16=True bf16 mixed precision (module docstring). Returns the loss
+    terms {"tot", "hm", "reg", "tracking"} (float32, detached, on the
+    device). stage_timer: optional fn(name) -> context manager around the
+    stages "forward", "backward" and "optimizer"."""
     weights = loss_weights(phase, hm_weight, reg_weight, tracking_weight)
     model = state.model.train()
     state.dropout_generator.manual_seed(dropout_seed(state.seed, state.step))
+    inputs = model_inputs(phase, batch)
     with _timed(stage_timer, "forward"):
-        out = model(*model_inputs(phase, batch))
+        if bf16:
+            out = bf16_forward(model, [x.to(torch.bfloat16) for x in inputs])
+        else:
+            out = model(*inputs)
         total, stats = sgta_loss({k: v.to(torch.float32) for k, v in out.items()}, batch, **weights)
     with _timed(stage_timer, "backward"):
         state.optimizer.zero_grad(set_to_none=True)
@@ -133,6 +146,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], hm_weight: flo
         # optax updates every parameter: where the loss does not reach one
         # (levels 0 and 1 feed no head), its zero gradient still moves it by
         # its Adam moments; torch's Adam skips a parameter without a grad
+        # (float32 zeros under bf16 too: the masters are float32)
         for p in state.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -1,18 +1,22 @@
-"""Mixed precision for serving: bf16 parameters and activations on the
-convolution and attention path, float32 for decode and geometry.
+"""Mixed precision: bf16 parameters and activations on the convolution and
+attention path, float32 for decode, geometry and the loss.
 
-Counterpart of `sgtapose_tpu/utils/precision.py`. The JAX package casts every
-floating leaf of the variable tree, BatchNorm statistics included, and flax
-computes each layer in the promoted dtype of its input and parameters; the
-port casts the module's floating parameters and buffers the same way (integer
-buffers such as BatchNorm's `num_batches_tracked` stay as they are), and its
-layers promote likewise (`models/attention.py`).
+Counterpart of `sgtapose_tpu/utils/precision.py`. Serving: the JAX package
+casts every floating leaf of the variable tree, BatchNorm statistics
+included, and flax computes each layer in the promoted dtype of its input
+and parameters; the port casts the module's floating parameters and buffers
+the same way (integer buffers such as BatchNorm's `num_batches_tracked` stay
+as they are), and its layers promote likewise (`models/attention.py`).
+Training (`bf16_forward`): the JAX train step casts the float32 master
+parameters to bf16 for the forward and keeps the batch statistics float32;
+the port runs one forward with a differentiable bf16 view of the masters,
+so their gradients come back float32 through the casts.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 import torch.nn as nn
@@ -40,3 +44,14 @@ def bf16_inference_model(model: nn.Module) -> nn.Module:
 def param_dtype(model: nn.Module) -> torch.dtype:
     """The dtype of the model's floating parameters (the serving dtype)."""
     return next(p for p in model.parameters() if p.is_floating_point()).dtype
+
+
+def bf16_forward(model: nn.Module, inputs: Sequence[torch.Tensor]) -> Any:
+    """`model(*inputs)` with every (floating) parameter replaced by its bf16
+    cast for this one call (`torch.func.functional_call`): the float32
+    parameters stay the leaves and receive float32 gradients through the
+    casts; buffers, BatchNorm's running statistics among them, are the
+    module's own float32 tensors (updated in place in train mode). The
+    caller casts the inputs."""
+    params = {name: p.to(torch.bfloat16) for name, p in model.named_parameters()}
+    return torch.func.functional_call(model, params, tuple(inputs))

@@ -32,6 +32,14 @@ KERNEL_MODULES = {
                           "deform_conv_dgrad_cuda"),
     "biased_attention_tiled": ("sgtapose_tpu_torch.ops.attention_kernel", "plain_biased_attention",
                                "biased_attention_tiled_cuda"),
+    # bf16 training's backward kernels; the DCN wrappers launch the float32
+    # or the bf16 kernel by dtype
+    "biased_attention_bwd_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
+                                  "plain_biased_attention_backward_bf16", "biased_attention_bwd_bf16_cuda"),
+    "deform_conv_dgrad_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv_dgrad",
+                               "deform_conv_dgrad_cuda"),
+    "deform_sample_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample",
+                           "deform_sample_cuda"),
 }
 
 
@@ -57,5 +65,5 @@ def test_every_kernel_has_its_plain_version(name):
     assert callable(getattr(mod, plain)) and callable(getattr(mod, wrapper))
     names = {getattr(mod, a, None)
              for a in ("KERNEL", "KERNEL_BF16", "KERNEL_TILED", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
-                      "DGRAD_KERNEL")}
+                      "DGRAD_KERNEL", "BWD_KERNEL_BF16", "DGRAD_KERNEL_BF16")}
     assert name in names

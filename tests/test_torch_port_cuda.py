@@ -387,3 +387,141 @@ def test_infer_cli_on_the_card_matches_the_cpu(dev, tmp_path):
     va, vb = (det["cuda"] > KP_SENTINEL).all(-1), (det["cpu"] > KP_SENTINEL).all(-1)
     assert (va == vb).all() and va.any(), (det["cuda"], det["cpu"])
     assert np.abs(det["cuda"][va] - det["cpu"][vb]).max() <= 0.05, (det["cuda"], det["cpu"])
+
+
+# bf16 training's backward kernels against their plain bf16 versions: both
+# compute in float32 from the same bf16 inputs and round each output once,
+# but a rounding (of a q.k logit or its cotangent, of an output) can fall on
+# the other side of a bf16 boundary when float32 sums run in another order:
+# within two bf16 units in the last place at the top of the range,
+# 2^-6 of max(1, max|ref|) per output.
+BWD_BF16_REL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("q_bf16", [True, False], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("n,d,B", [(63, 16, 8), (100, 8, 8), (63, 16, 1), (63, 16, 9), (33, 8, 2), (1, 4, 2)])
+def test_biased_attention_bwd_bf16_kernel_matches_plain(dev, n, d, B, q_bf16):
+    """The flagship's level 2 at the training batch of 8 (the only level
+    whose backward training runs), ragged n on the cluster path; every output
+    the same bit for bit in two runs."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(n * d + B + 7)
+    q = torch.randn(B, 8, n, d, generator=g, device=dev).to(bf if q_bf16 else torch.float32)
+    k, v = (torch.randn(B, 8, n, d, generator=g, device=dev).to(bf) for _ in range(2))
+    bias = (0.3 * torch.randn(8, n, n, generator=g, device=dev)).to(bf)
+    dout = torch.randn(B, 8, n, d, generator=g, device=dev)
+    out = attention_kernel.plain_biased_attention_bf16(q, k, v, bias)
+    before = build.launch_counts()["biased_attention_bwd_bf16"]
+    got = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["biased_attention_bwd_bf16"] == before + 1
+    ref = attention_kernel.plain_biased_attention_backward_bf16(q, k, v, bias, out, dout)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= BWD_BF16_REL, (name, _rel_err(a.float(), b.float()))
+    again = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # autograd routes a bf16 backward to the kernel
+    qs = q.detach().clone().requires_grad_()
+    attention_kernel.fused_biased_attention(qs, k, v, bias).backward(dout)
+    assert build.launch_counts()["biased_attention_bwd_bf16"] == before + 3
+
+
+def test_biased_attention_bwd_bf16_raises_beyond_the_cluster_path(dev):
+    """A 42-keypoint model's level 2 (378, 16) needs the two-pass bf16
+    backward, which is not ported: it raises, naming the ROADMAP item."""
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(2, 8, 378, 16, device=dev).to(bf) for _ in range(3))
+    bias = torch.zeros(8, 378, 378, device=dev, dtype=bf)
+    out = torch.zeros(2, 8, 378, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, out, out)
+
+
+@pytest.mark.parametrize("H,W,C,B", [(15, 15, 512, 8), (30, 30, 256, 8), (60, 60, 128, 8), (120, 120, 64, 8),
+                                     (9, 11, 6, 2)])
+def test_deform_sample_bf16_kernel_matches_plain(dev, H, W, C, B):
+    """The decoder's input shapes at the training batch of 8 and a ragged
+    one (the scalar variant); offsets reach 3 px; the same bit for bit in
+    two runs."""
+    g = torch.Generator(device=dev).manual_seed(H * C + 1)
+    feat = torch.randn(B, H, W, C, generator=g, device=dev).to(torch.bfloat16)
+    offsets = torch.rand(B, H, W, 18, generator=g, device=dev) * 6 - 3
+    masks = torch.rand(B, H, W, 9, generator=g, device=dev)
+    before = build.launch_counts()["deform_sample_bf16"]
+    out = deform_conv.deform_sample(feat, offsets, masks)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["deform_sample_bf16"] == before + 1
+    ref = deform_conv.plain_deform_sample(feat, offsets, masks)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert _rel_err(out.float(), ref.float()) <= DCN_BF16_REL
+    assert torch.equal(out, deform_conv.deform_sample(feat, offsets, masks))
+
+
+@pytest.mark.parametrize("B,H,W,C,O,span", DGRAD_SHAPES)
+def test_deform_conv_dgrad_bf16_kernel_matches_plain(dev, B, H, W, C, O, span):
+    """The bf16 data gradient at the float32 kernel's shapes (O = 5 and 36:
+    not whole 8-output chunks, the scalar-load variant); dom the same bit for
+    bit in two runs (dx is added with float atomics before its rounding)."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(H * C + O + 3)
+    x = torch.randn(B, H, W, C, generator=g, device=dev).to(bf)
+    om = torch.cat([(torch.rand(B, H, W, 18, generator=g, device=dev) * 2 - 1) * span,
+                    2 * torch.randn(B, H, W, 9, generator=g, device=dev)], dim=-1).to(bf)
+    weight = (torch.randn(O, 9 * C, generator=g, device=dev) / (9 * C) ** 0.5).to(bf)
+    dy = torch.randn(B, H, W, O, generator=g, device=dev).to(bf)
+    before = build.launch_counts()["deform_conv_dgrad_bf16"]
+    dx, dom = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["deform_conv_dgrad_bf16"] == before + 1
+    rdx, rdom = deform_conv.plain_deform_conv_dgrad(x, om, weight, dy)
+    assert dx.dtype == dom.dtype == torch.bfloat16
+    assert _rel_err(dx.float(), rdx.float()) <= BWD_BF16_REL, _rel_err(dx.float(), rdx.float())
+    assert _rel_err(dom.float(), rdom.float()) <= BWD_BF16_REL, _rel_err(dom.float(), rdom.float())
+    _, again = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+    assert torch.equal(dom, again)
+
+
+def test_bf16_training_gradients_on_the_card(dev):
+    """A DCN module and an attention layer with bf16 parameters (dropout
+    off) on the card: every parameter gets a bf16 gradient through one
+    launch of each bf16 backward kernel, as close to the CPU's float32
+    gradient as the CPU's bf16 (plain versions) is: within 2x that gap plus
+    2^-6 of max(1, max|float32 grad|). (The offsets come out of a bf16
+    convolution, so card and CPU bf16 can sample on either side of a pixel
+    boundary; the offset conv's gradient then moves by as much as bf16
+    itself moves it.)"""
+    import copy
+
+    from sgtapose_tpu_torch.models.attention import TransformerEncoderLayer, set_dropout_rate
+
+    gen = torch.Generator().manual_seed(6)
+    dcn = deform_conv.DeformConv2d(16, 24)
+    layer = TransformerEncoderLayer(16, 4, 63, n_heads=8)
+    set_dropout_rate(layer, 0.0)
+    with torch.no_grad():
+        for p in list(dcn.parameters()) + list(layer.parameters()):
+            p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    x = torch.randn(2, 16, 12, 12, generator=gen)
+    tokens = [torch.randn(2, 63, 16, generator=gen) for _ in range(2)]
+    for mod, args in ((dcn, (x,)), (layer, (tokens[0], tokens[1], tokens[1]))):
+        w = torch.randn(mod(*args).shape, generator=gen)
+        grads = {}
+        for where, dtype in (("cpu32", torch.float32), ("cpu16", torch.bfloat16), ("card16", torch.bfloat16)):
+            m = copy.deepcopy(mod).to(dtype).train()
+            a = [t.to(dtype) for t in args]
+            if where == "card16":
+                m, a = m.to(dev), [t.to(dev) for t in a]
+                before = build.launch_counts()
+            (m(*a).float() * w.to(a[0].device)).sum().backward()
+            if where == "card16":
+                torch.cuda.synchronize()
+                after = build.launch_counts()
+                bwd = "deform_conv_dgrad_bf16" if mod is dcn else "biased_attention_bwd_bf16"
+                assert after[bwd] == before[bwd] + 1
+            grads[where] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
+            assert all(p.grad.dtype == dtype for p in m.parameters())
+        for name, ref in grads["cpu32"].items():
+            gap = _rel_err(grads["cpu16"][name], ref)
+            err = _rel_err(grads["card16"][name], ref)
+            assert err <= 2 * gap + 2.0 ** -6, (name, err, gap)

@@ -17,6 +17,21 @@ divides gradients near its eps by their own size, as
 test_torch_port_train_f64.py's bar allows); the loss terms within 1e-9
 relative; the two ranks' parameters equal bit for bit. The rank helpers are
 checked in one process alone.
+
+The same in bf16 mixed precision (`train_step(bf16=True)`, float32 masters),
+against one bf16 process at batch 2 and with one float32 process for the
+gap. bf16 rounds the one process's and the ranks' BatchNorm outputs at
+points that their float32 statistics (computed in other orders) place
+apart, and train-mode BatchNorm on these small maps amplifies that in its
+backward: there the one process's own bf16 gradient is 1.2x the gradients'
+norm away from its float32 one. So the statistics and the loss terms are
+held in train mode, the gradients with BatchNorm held in eval mode: the
+running statistics in L2 within BF16_RANKS_STATS of the gap (measured
+0.57x; statistics the step did not update read 27x), the loss terms within
+0.5x of the gap (measured 0.006-0.16x); in eval mode the gradients and Adam
+moments, where each rank's bf16 weight gradients round before the mean,
+within BF16_RANKS_GAP of the gap in L2 (measured 0.028x), the loss terms
+likewise (measured <= 0.0015x); the two ranks' parameters equal bit for bit.
 """
 
 import os
@@ -33,6 +48,8 @@ from sgtapose_tpu_torch.parallel import mesh
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-9
 DEAD = 1e-9
+BF16_RANKS_GAP = 0.05
+BF16_RANKS_STATS = 1.0
 
 
 def _free_port() -> int:
@@ -41,15 +58,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    d = tmp_path_factory.mktemp("parallel")
-    port = _free_port()
-    jobs = [(1, 0), (2, 0), (2, 1)]
+def _run_jobs(d, jobs):
+    """One worker process per (world, rank, modes), the ranks of a world on
+    one free port; returns their saved results by (world, rank, mode)."""
+    ports = {w: _free_port() for w, _, _ in jobs}
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_port_parallel_worker.py"), str(w),
-                               str(r), str(port), str(d / f"w{w}_r{r}.pt")], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for w, r in jobs]
+                               str(r), str(ports[w]), str(d), ",".join(modes)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for w, r, modes in jobs]
     try:
         outs = [p.communicate(timeout=240)[0] for p in procs]
     finally:
@@ -57,7 +73,23 @@ def runs(tmp_path_factory):
             p.kill()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
-    return {job: torch.load(d / f"w{job[0]}_r{job[1]}.pt", weights_only=True) for job in jobs}
+    return {(w, r, m): torch.load(d / f"w{w}_r{r}_{m}.pt", weights_only=True) for w, r, modes in jobs for m in modes}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    res = _run_jobs(tmp_path_factory.mktemp("parallel"), [(1, 0, ("float64",)), (2, 0, ("float64",)),
+                                                          (2, 1, ("float64",))])
+    return {(w, r): v for (w, r, _), v in res.items()}
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(tmp_path_factory):
+    """The bf16 step, BatchNorm in train mode and held in eval mode: one
+    process and two ranks, and one float32 process (the gap)."""
+    modes = ("bf16", "bf16_bn_eval")
+    jobs = [(1, 0, modes + ("float32", "float32_bn_eval")), (2, 0, modes), (2, 1, modes)]
+    return _run_jobs(tmp_path_factory.mktemp("parallel_bf16"), jobs)
 
 
 def _close(got, ref, what):
@@ -104,3 +136,35 @@ def test_rank_helpers_in_one_process():
     np.testing.assert_array_equal(mesh.global_rand((2, 3), g, "cpu").numpy(),
                                   torch.rand((2, 3), generator=torch.Generator().manual_seed(3)).numpy())
     assert mesh.local_device("cpu") == torch.device("cpu")
+
+
+def _l2(got, ref):
+    num = sum(((got[n] - r).double() ** 2).sum().item() for n, r in ref.items())
+    return (num / sum((r.double() ** 2).sum().item() for r in ref.values())) ** 0.5
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("what", ["grads", "buffers", "exp_avg"])
+def test_two_bf16_ranks_match_one_process(bf16_runs, rank, what):
+    mode = "bf16" if what == "buffers" else "bf16_bn_eval"
+    one, two = bf16_runs[(1, 0, mode)], bf16_runs[(2, rank, mode)]
+    f32 = bf16_runs[(1, 0, "float32" + mode[4:])]
+    assert all(t.dtype == torch.float32 for t in two[what].values())
+    gap = _l2(f32[what], one[what])
+    if what == "buffers":  # train mode: the statistics of the global batch
+        assert _l2(two[what], one[what]) <= BF16_RANKS_STATS * gap, (_l2(two[what], one[what]), gap)
+        assert _l2(one["buffers0"], one[what]) > BF16_RANKS_STATS * gap  # the control: not updated
+        return
+    assert 1e-3 < gap < 0.5
+    assert _l2(two[what], one[what]) <= BF16_RANKS_GAP * gap, (_l2(two[what], one[what]), gap)
+
+
+def test_two_bf16_ranks_same_loss_terms_and_parameters(bf16_runs):
+    for mode, bar in (("bf16", 0.5), ("bf16_bn_eval", BF16_RANKS_GAP)):
+        p0, p1 = bf16_runs[(2, 0, mode)]["params"], bf16_runs[(2, 1, mode)]["params"]
+        assert all(torch.equal(p0[n], p1[n]) for n in p0)
+        one, f32 = bf16_runs[(1, 0, mode)]["stats"], bf16_runs[(1, 0, "float32" + mode[4:])]["stats"]
+        for rank in (0, 1):
+            got = bf16_runs[(2, rank, mode)]["stats"]
+            for k in ("tot", "hm", "reg", "tracking"):
+                assert abs(got[k] - one[k]) <= bar * abs(one[k] - f32[k]) + 1e-6 * abs(one[k]), (mode, rank, k)

@@ -381,8 +381,6 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ttrainer.train_step(None, {}, bf16=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         ttrainer.create_train_state(PortConfig(model=port_cfg()), 0, device="cpu", phase="CenterTrack")
 
@@ -404,8 +402,7 @@ def test_train_demo_cli_runs_on_the_cpu_and_refuses_later_flags(tmp_path):
     res2 = train_demo.main(["--device", "cpu", "--steps", "1", "--batch", "2", "--input_res", "64",
                             "--eval_videos", "0", "--init_ckpt", ckpt, "--resume_step", "5"])
     assert res2["state"].step == 6 and res2["state"].schedule_count == 6
-    for flag in (["--bf16"], ["--quant_train"], ["--init_backbone", "x.pth"], ["--dcn_chunks", "2"],
-                 ["--dcn_remat"]):
+    for flag in (["--quant_train"], ["--init_backbone", "x.pth"], ["--dcn_chunks", "2"], ["--dcn_remat"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             train_demo.main(["--device", "cpu"] + flag)
     if not torch.cuda.is_available():

@@ -19,20 +19,26 @@ and the modules it runs) against the JAX package, on the CPU:
     within 1e-4 relative (the heads' bar, test_torch_port_model.py), keypoint
     counts equal, kp_l2_mean_px within 1e-2 px, the AUC within 1e-3;
   * cli/train.main --device cpu end to end at 64x64 on sets the port's
-    writers make: checkpoints, metrics.jsonl keys, viz/, --resume (the step
-    continues), --lr_step (the learning rate of every step equals JAX's
-    step_decay_schedule within one float32 ulp), --depth, --robot kuka,
-    train then cli/infer.main on the checkpoint, and the flags that are not
-    ported raising.
+    writers make: checkpoints, metrics.jsonl keys, viz/, --resume against
+    the JAX CLI run on the same set with the same flags (the epoch loop
+    restarts at 1 while step, schedule and Adam go on: the epoch and
+    iteration of every logged step, the checkpoint names, the step count,
+    and with --lr_step the learning rate of every step within one float32
+    ulp), --depth, --robot kuka, train then cli/infer.main on the
+    checkpoint, and the flags that are not ported raising.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import shutil
 import threading
 import time
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +46,7 @@ import pytest
 import torch
 from PIL import Image
 
+from sgtapose_tpu.cli import train as jcli
 from sgtapose_tpu.config import Config as JaxConfig, KEYPOINT_NAMES, SYNTHETIC_CAMERA_K, TrainConfig as JaxTrainConfig
 from sgtapose_tpu.data import discovery as jdisc, synthetic as jsyn
 from sgtapose_tpu.data.loader import SeqBatchLoader as JaxLoader
@@ -313,10 +320,32 @@ def test_validate_matches_jax():
 
 # ------------------------------------------------------------ the CLI ---------
 
+# one training run of 2 epochs, then --resume from epoch 2's checkpoint with
+# --num_epochs 1: the JAX CLI's epoch loop runs epochs 1 .. --num_epochs
+# again while step, schedule and Adam go on (sgtapose_tpu/cli/train.py:267-269,
+# :307), so the resumed run is one more epoch, numbered 1, whose checkpoint
+# replaces epoch_1
+RESUME_FLAGS = ["--batch_size", "2", "--lr_step", "1", "--log_every", "1"]
+LOGGED = re.compile(r"^epoch (\d+) it (\d+)/(\d+) ", re.M)
+
+
+def _two_runs(main, argv, out, ckpt_suffix):
+    """main(argv) for 2 epochs, then resumed from epoch 2 for 1; the
+    (epoch, iteration) of every logged step, from the CLI's own lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        first = main(argv + ["--num_epochs", "2"])
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            first_records = [json.loads(line) for line in f]
+        second = main(argv + ["--num_epochs", "1", "--resume", os.path.join(out, "ckpt", "epoch_2" + ckpt_suffix)])
+    logged = [(int(e), int(i)) for e, i, _ in LOGGED.findall(buf.getvalue())]
+    return first, second, first_records, logged
+
+
 @pytest.fixture(scope="module")
 def run_a(sets, tmp_path_factory):
-    """Train 2 epochs with --lr_step 1, then resume from epoch 2 to epoch 3;
-    the learning rate of every step recorded."""
+    """Train 2 epochs with --lr_step 1 and validation, then resume from epoch
+    2 for --num_epochs 1; the learning rate of every step recorded."""
     out = str(tmp_path_factory.mktemp("train_cli") / "exp")
     lrs = []
     real_step = ttrainer.train_step
@@ -325,23 +354,66 @@ def run_a(sets, tmp_path_factory):
         lrs.append((state.step, state.schedule(state.schedule_count)))
         return real_step(state, batch, **kw)
 
-    argv = ["--dataset", sets["tsyn"], "--val_dataset", sets["val"], "--output_dir", out, "--batch_size", "2",
-            "--lr_step", "1", "--log_every", "1", "--image_log_every", "2", "--num_workers", "2"] + TINY
+    argv = ["--dataset", sets["tsyn"], "--val_dataset", sets["val"], "--output_dir", out, "--image_log_every", "2",
+            "--num_workers", "2"] + RESUME_FLAGS + TINY
     ttrainer.train_step = recording_step
     try:
-        first = tcli.main(argv + ["--num_epochs", "2"])
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            first_records = [json.loads(line) for line in f]
-        second = tcli.main(argv + ["--num_epochs", "3", "--resume", os.path.join(out, "ckpt", "epoch_2.pt")])
+        first, second, first_records, logged = _two_runs(tcli.main, argv, out, ".pt")
     finally:
         ttrainer.train_step = real_step
-    return {"out": out, "lrs": lrs, "first": first, "second": second, "first_records": first_records}
+    return {"out": out, "lrs": lrs, "first": first, "second": second, "first_records": first_records,
+            "logged": logged}
+
+
+class _TwoParameterModel(fnn.Module):
+    """A stand-in for the JAX model in `jax_resume`: one parameter and one
+    batch statistic."""
+
+    @fnn.compact
+    def __call__(self, *inputs, train=False):
+        self.variable("batch_stats", "m", jnp.zeros, (1,))
+        return self.param("w", fnn.initializers.zeros, (2,))
+
+
+@pytest.fixture(scope="module")
+def jax_resume(sets, tmp_path_factory):
+    """The JAX CLI's `main` on the same set with the same flags, first run
+    then resume: its loader, epoch loop, schedule, optax Adam, orbax
+    checkpoints, resume and metrics log as they are, with a two-parameter
+    stand-in for its model, whose step is the optimizer update of zero
+    gradients (the step and the optax counts advance as in a real step), and
+    an empty batch for its batch build: the flagship's initialisation, step
+    and batch build take minutes to compile on the CPU and change no epoch,
+    step or learning rate. No validation or mosaics (they would run the
+    model)."""
+    out = str(tmp_path_factory.mktemp("jax_train_cli") / "exp")
+    argv = ["--dataset", sets["tsyn"], "--output_dir", out, "--image_log_every", "0", "--num_devices", "1",
+            "--num_workers", "2"] + RESUME_FLAGS + TINY[:-2]
+
+    def zero_update_step(mesh, **kw):
+        def step(state, batch, rng):
+            zeros = jax.tree_util.tree_map(jnp.zeros_like, state.params)
+            return state.apply_gradients(zeros, state.batch_stats), {k: 0.0 for k in ("tot", "hm", "reg",
+                                                                                       "tracking")}
+        return step
+
+    saved = jtrainer.create_model, jtrainer.make_parallel_train_step, jcli.make_batch_fn
+    jtrainer.create_model = lambda model_cfg: _TwoParameterModel()
+    jtrainer.make_parallel_train_step = zero_update_step
+    jcli.make_batch_fn = lambda cfg, camera_k: (lambda rng, raw: {})
+    try:
+        _, _, _, logged = _two_runs(jcli.main, argv, out, "")
+    finally:
+        jtrainer.create_model, jtrainer.make_parallel_train_step, jcli.make_batch_fn = saved
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return {"out": out, "logged": logged, "records": records}
 
 
 def test_cli_trains_validates_and_writes_its_artifacts(run_a):
     out = run_a["out"]
     assert run_a["first"]["iters_per_epoch"] == 3 and run_a["first"]["state"].step == 6
-    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == ["epoch_1.pt", "epoch_2.pt", "epoch_3.pt"]
+    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == ["epoch_1.pt", "epoch_2.pt"]
     recs = run_a["first_records"]
     train = [r for r in recs if r["prefix"] == "train"]
     val = [r for r in recs if r["prefix"] == "val"]
@@ -353,17 +425,27 @@ def test_cli_trains_validates_and_writes_its_artifacts(run_a):
     assert all(np.isfinite(r[k]) for r in recs for k in loss_keys)
     assert val[0]["kp_found_inframe"] + val[0]["kp_missing_inframe"] == 2 * 2 * 7  # 2 batches of 2, 7 keypoints
     viz = sorted(os.listdir(os.path.join(out, "viz")))
-    assert viz == [f"train_mosaic_{s:07d}.png" for s in (1, 3, 4, 6, 7, 9)]  # epoch 3 after the resume
+    assert viz == [f"train_mosaic_{s:07d}.png" for s in (1, 3, 4, 6, 7, 9)]  # the resumed epoch: 7, 9
     assert np.asarray(Image.open(os.path.join(out, "viz", viz[0]))).shape == (64, 3 * 64 + 4, 3)
 
 
-def test_cli_resume_continues_the_step_and_replays_the_step_decay(run_a):
+def test_cli_resume_continues_the_step_and_replays_the_step_decay(run_a, jax_resume):
+    """--resume as the JAX CLI does it: the epoch loop restarts at 1, the
+    step, the schedule and Adam go on from the checkpoint."""
     state = run_a["second"]["state"]
     assert state.step == 9 and state.schedule_count == 9
+    # the epoch and iteration of every step, as both CLIs print them
+    assert run_a["logged"] == jax_resume["logged"] == [(1, 0), (1, 1), (1, 2), (2, 0), (2, 1), (2, 2),
+                                                       (1, 0), (1, 1), (1, 2)]
     with open(os.path.join(run_a["out"], "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    assert [r["step"] for r in recs if r["prefix"] == "train"] == [1, 2, 3, 4, 5, 6, 7, 8, 9]  # appended
-    assert [s for s, _ in run_a["lrs"]] == list(range(9))
+    steps = [r["step"] for r in recs if r["prefix"] == "train"]
+    assert steps == [r["step"] for r in jax_resume["records"] if r["prefix"] == "train"] == list(range(1, 10))
+    ckpts = sorted(os.listdir(os.path.join(run_a["out"], "ckpt")))
+    assert [c[:-len(".pt")] for c in ckpts] == sorted(os.listdir(os.path.join(jax_resume["out"], "ckpt")))
+    # the learning rate of every update: the JAX schedule at the update's
+    # step (the JAX steps are those its metrics record, each after its update)
+    assert [s for s, _ in run_a["lrs"]] == [s - 1 for s in steps] == list(range(9))
     ref = jsched.step_decay_schedule(1.25e-4, [1], 3)
     for step, lr in run_a["lrs"]:
         r = float(ref(step))
@@ -373,7 +455,7 @@ def test_cli_resume_continues_the_step_and_replays_the_step_decay(run_a):
 
 
 def test_cli_checkpoint_runs_through_the_inference_cli(run_a, sets, tmp_path):
-    res = tinfer.main(["--dataset", sets["tsyn"], "--ckpt", os.path.join(run_a["out"], "ckpt", "epoch_3.pt"),
+    res = tinfer.main(["--dataset", sets["tsyn"], "--ckpt", os.path.join(run_a["out"], "ckpt", "epoch_1.pt"),
                        "--output_dir", str(tmp_path / "infer")] + TINY)
     km = res["keypoint_metrics"]
     assert km["num_gt_inframe"] + km["num_gt_outframe"] == 2 * 4 * 7
@@ -397,7 +479,7 @@ def test_cli_depth_and_kuka(sets, tmp_path):
     assert km["num_gt_inframe"] + km["num_gt_outframe"] == 2 * 3 * 9
 
 
-@pytest.mark.parametrize("flags", [["--bf16"], ["--init_backbone", "x.pth"], ["--init_backbone_stem"],
+@pytest.mark.parametrize("flags", [["--bf16", "--depth"], ["--init_backbone", "x.pth"], ["--init_backbone_stem"],
                                    ["--phase", "PlanA_three"], ["--arch", "dlapawglobal_34"],
                                    ["--dcn_chunks", "2"], ["--dcn_remat"]])
 def test_cli_unported_flags_raise(sets, tmp_path, flags):
