@@ -16,11 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      clean: the flush read back, so no dirty lines are left to write back) /
      plain / library (F.scaled_dot_product_attention, a yardstick the port
      never calls) times;
-  4. the DCN sampling kernel (off the detector path since the fused kernel;
-     the training backward recomputes the columns with it) and the DCN
-     sampling backward against their plain versions at every decoder input
-     shape at the training batch of 8, and one ragged shape (the backward
-     no longer launches deform_sample_bwd: it is the yardstick of 4b);
+  4. the DCN sampling kernel (off every path since the fused kernel and
+     deform_conv_wgrad: the yardstick of 4c) and the DCN sampling backward
+     against their plain versions at every decoder input shape at the
+     training batch of 8, and one ragged shape (the backward no longer
+     launches deform_sample_bwd: it is the yardstick of 4b);
  4b. the float32 DCN data gradient `deform_conv_dgrad` (the training
      backward's dx and offset/mask gradient in one kernel) against its plain
      version at every decoder node at the training batch of 8 and one ragged
@@ -28,6 +28,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      it (+-12 px), dom the same bit for bit in two runs; kernel / unfused
      pair (dY W with TF32 off, then deform_sample_bwd) / the pair's product
      alone / plain times at +-3, the kernel's at zero offsets;
+ 4c. the DCN weight gradient `deform_conv_wgrad` (dY^T A with the sampler
+     fused in) in float32 and bf16 against its plain version at the
+     kernel's split of the pixels, at every decoder node at the training
+     batch of 8 and one ragged shape, offsets at zero, +-3 and +-12 px, dW
+     the same bit for bit in two runs; kernel / unfused pair (the sampler,
+     then dY^T A; float32 with TF32 off) / the pair's product alone / plain
+     times at +-3, the kernel's at zero offsets;
   5. the float32 fused DCN kernel against its plain version at the decoder
      shapes and one ragged shape, with kernel / unfused pair (the sampler,
      then torch.addmm with TF32 off) / plain times;
@@ -65,9 +72,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel against its plain version at every flagship (n, d) at the
      training batch of 8, at level 2 and a ragged (100, 8) also at batch 1
      and 2 (the cluster path), and at a 42-keypoint model's level 2, (378,
-     16), at phase 13's --depth batch of 2 (the two-pass path), every output
-     the same bit for bit in two runs, with cold / plain times, bounds and
-     SDPA's backward as the yardstick;
+     16), at phase 13's --depth batch of 2 and at 8, and a ragged (200, 8) at
+     3 (the row-split path, with the two-pass path timed beside as its
+     yardstick), every output the same bit for bit in two runs, with cold /
+     plain times, bounds and SDPA's backward as the yardstick;
      one full-width train-step gradient (480x480, batch 1, dropout off) on
      the card and on the CPU in float32, both held against a CPU float64
      reference (GRAD_WORST_TOL, GRAD_L2_TOL); the same gradient with
@@ -78,8 +86,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch 8 on one fixed batch (the loss must fall); then
      `cli/train_demo.main` for 20 steps on fresh batches with stage times
      (batch build with the PnP priors, forward, backward, optimizer) and
-     launch counts asserted per step (16 deform_conv_dgrad, 0
-     deform_sample_bwd, 3 attention backward), its eval of the trained
+     launch counts asserted per step (16 deform_conv_dgrad, 16
+     deform_conv_wgrad, 0 deform_sample and deform_sample_bwd, 3 attention
+     backward), its eval of the trained
      weights (bf16 exact runner, 1 video of 8 frames) and its checkpoint
      (--ckpt_out into a temporary directory); device time per kernel per
      step from torch.profiler;
@@ -109,9 +118,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      checkpoint; (B)
      --depth, 42 joints, 6 frames, batch 2, 1 epoch. Launches asserted one
      call at a time: per train step 9 biased_attention, 3 attention
-     backward, 16 deform_conv, 16 deform_conv_dgrad, 16 deform_sample (B: 3
-     biased_attention and 6 biased_attention_tiled, the backward on its
-     two-pass path), per mosaic or validation forward 9 (B: 3 + 6 tiled)
+     backward, 16 deform_conv, 16 deform_conv_dgrad, 16 deform_conv_wgrad (B:
+     3 biased_attention and 6 biased_attention_tiled, the backward's 3 on
+     its row-split path, biased_attention_bwd_rows), per mosaic or
+     validation forward 9 (B: 3 + 6 tiled)
      attention and 16 deform_conv, and nothing else; the checkpoints,
      metrics.jsonl records and viz/ images checked; ms per step by stage
      (loader wait, batch build, forward, backward, optimizer) from CUDA
@@ -128,14 +138,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      yardstick: the attention backward at level 2, batch 8, q bf16 and q
      float32, and a ragged (100, 8); `deform_conv_dgrad_bf16` at every
      decoder node at batch 8 with offsets at 0, +-3 and +-12 px and one
-     ragged shape; `deform_sample_bf16` at every decoder input shape; (b)
+     ragged shape; `deform_sample_bf16` (the yardstick of 4c's bf16 rows)
+     at every decoder input shape; (b)
      one 480x480 bf16 gradient, batch 1, BatchNorm in eval mode, the DCN
      offset/mask convs perturbed, card against CPU bf16 (plain versions)
      and against phase 11's CPU float64 (BF16_GRAD_* bars); (c) 5 bf16
      `train_step`s at 480x480, batch 8 on one fixed batch (the loss must
      fall; launches asserted per step: 9 biased_attention_bf16, 3
      biased_attention_bwd_bf16, 16 deform_conv_bf16, 16
-     deform_conv_dgrad_bf16, 16 deform_sample_bf16, no float32 network
+     deform_conv_dgrad_bf16, 16 deform_conv_wgrad_bf16, no float32 network
      kernel; everything float32 after) and a profiled step; (d)
      `cli/train_demo.main --bf16` for 20 steps (no eval: phase 11 runs it),
      the same launches asserted per step, stage times, steps/s and peak
@@ -151,7 +162,8 @@ Kernel times are CUDA-event times of single launches with the 50 MB L2
 flushed before each (the detector reads each weight once per frame); the
 per-kernel entries of the kernels line are per-frame sums over the shapes one
 frame launches (per-step sums over one training step's shapes for the
-sampler and the backward kernels). Bounds (H100 SXM data sheet): the larger of bytes over
+sampler and the backward kernels; per --depth step for the row-split
+attention backward). Bounds (H100 SXM data sheet): the larger of bytes over
 3.35 TB/s and operations over the rate of the instructions used, 67 TFLOP/s
 for float32 FMAs, 165 TFLOP/s (495 / 3) for 3xTF32 and 989 TFLOP/s for dense
 bf16 on the tensor cores. Details go to chiprun_out/chip_smoke.json.
@@ -264,7 +276,8 @@ RAGGED_DCN = (9, 6, 5, 0)  # 9x11 map, C % 8 != 0, O below one tile; off the pat
 # device functions of each kernel, as the profiler names them (a substring;
 # each bf16 instantiation has a __global__ name of its own, and the bf16
 # data gradient's three launches, weight split, kernel and dx rounding, share
-# the prefix deform_conv_dgrad_bf16_)
+# the prefix deform_conv_dgrad_bf16_; the weight gradient's two, kernel and
+# split sum, deform_conv_wgrad_ or deform_conv_bf16_wgrad_)
 DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "deform_conv_kernel",
                 "deform_sample": "deform_sample_kernel",
                 "biased_attention_bf16": "biased_attention_bf16_kernel",
@@ -274,7 +287,9 @@ DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "d
                 "biased_attention_tiled": "biased_attention_tiled_kernel",
                 "biased_attention_bwd_bf16": "biased_attention_bf16_bwd_kernel",
                 "deform_conv_dgrad_bf16": "deform_conv_dgrad_bf16_",
-                "deform_sample_bf16": "deform_sample_bf16_kernel"}
+                "deform_sample_bf16": "deform_sample_bf16_kernel",
+                "biased_attention_bwd_rows": "biased_attention_rows_bwd_kernel",
+                "deform_conv_wgrad": "deform_conv_wgrad_", "deform_conv_wgrad_bf16": "deform_conv_bf16_wgrad_"}
 
 
 def kernel_device_ms(events, kernel: str) -> float:
@@ -459,9 +474,9 @@ def main() -> int:
     report["attention_tiled_shapes"] = tiled_rows
 
     # ---- 4. DCN sampling kernel and its backward vs plain -------------------
-    # at the training batch: a training step launches the sampler (the
-    # backward's recompute of the columns) and deform_sample_bwd once per
-    # decoder node; the detector launches neither
+    # at the training batch: the routes deform_conv_wgrad (4c) and
+    # deform_conv_dgrad (4b) replaced, launched on no path; their per-step
+    # sums are those of the 16 nodes they ran on
     dcn_shapes = {}
     for H, C, _, nodes in DCN_NODES + [RAGGED_DCN]:
         dcn_shapes[(H, C)] = dcn_shapes.get((H, C), 0) + nodes
@@ -562,6 +577,68 @@ def main() -> int:
         print("deform_conv_dgrad " + json.dumps(row))
         del x, om, weight, dy, dx, dom, rdx, rdom
     report["deform_conv_dgrad_shapes"] = dgrad_rows
+
+    # ---- 4c. DCN weight gradient (deform_conv_wgrad), float32 and bf16 ----
+    # dW of every decoder node at the training batch and of the ragged
+    # shape, offsets at zero, +-3 and +-12 px, against the plain version at
+    # the kernel's split of the pixels, dW the same bit for bit in two runs;
+    # times at +-3 against the route it replaced (the sampler, then dY^T A;
+    # float32 with TF32 off), that route's product alone and the plain
+    # version, the kernel's alone at zero offsets
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wgrad_rows = {torch.float32: [], bf16: []}
+    for dt in (torch.float32, bf16):
+        tol = BWD_REL_TOL if dt == torch.float32 else BWD_BF16_REL_TOL
+        rate = TF32X3_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+        for (H, C, O, per_step), span in [(node, span) for node in DCN_NODES + [RAGGED_DCN]
+                                          for span in (0.0, 3.0, 12.0)]:
+            B, W = (TRAIN_BATCH, H) if per_step else (2, H + 2)
+            x = torch.randn(B, H, W, C, generator=gen, device=dev).to(dt)
+            offsets = (torch.rand(B, H, W, 18, generator=gen, device=dev) * 2 - 1) * span
+            masks = torch.sigmoid(2 * torch.randn(B, H, W, 9, generator=gen, device=dev))
+            dy = torch.randn(B, H, W, O, generator=gen, device=dev).to(dt)
+            dw = deform_conv.deform_conv_wgrad_cuda(x, offsets, masks, dy)
+            torch.cuda.synchronize()
+            M = B * H * W
+            splits = deform_conv.wgrad_splits(M, C, O, dt, sms)
+            ref = deform_conv.plain_deform_conv_wgrad(x, offsets, masks, dy, splits)
+            err = rel_err(dw.float(), ref.float())
+            if dw.dtype != dt or not math.isfinite(err) or err > tol:
+                raise AssertionError(f"deform_conv_wgrad {dt} B={B} H={H} C={C} O={O} offsets +-{span}: "
+                                     f"rel error {err} > {tol} (or dtype {dw.dtype})")
+            if not torch.equal(dw, deform_conv.deform_conv_wgrad_cuda(x, offsets, masks, dy)):
+                raise AssertionError(f"deform_conv_wgrad {dt} H={H} C={C} O={O}: two runs give another dW")
+            # x, dY (the working type) and the float32 offsets and masks read
+            # once, dW written once; the product's 2 M O 9C operations at the
+            # 3xTF32 or dense bf16 rate
+            es = dw.element_size()
+            b_ms, b_by = bound_ms(es * (M * C + M * O + O * 9 * C) + 4 * M * 27, 2 * M * O * 9 * C, rate)
+            row = dict(dtype=str(dt).replace("torch.", ""), B=B, H=H, W=W, C=C, O=O, offsets=span, splits=splits,
+                       per_step=per_step if span == 3.0 else 0, rel_err=err, bitwise_equal_rerun=True,
+                       max_abs_err=(dw.float() - ref.float()).abs().max().item(),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+            def kernel():
+                return deform_conv.deform_conv_wgrad_cuda(x, offsets, masks, dy)
+
+            if span == 0.0:
+                row["ms"] = cold_ms(kernel)
+            if span == 3.0:
+                cols = deform_conv.deform_sample_cuda(x, offsets, masks).view(-1, 9 * C)
+
+                def pair():
+                    return dy.view(-1, O).t() @ deform_conv.deform_sample_cuda(x, offsets, masks).view(-1, 9 * C)
+
+                row.update(ms=cold_ms(kernel), pair_ms=cold_ms(pair),
+                           matmul_ms=cold_ms(lambda: dy.view(-1, O).t() @ cols),
+                           plain_ms=cold_ms(lambda: deform_conv.plain_deform_conv_wgrad(x, offsets, masks, dy),
+                                            iters=3, warmup=1))
+                del cols
+            wgrad_rows[dt].append(row)
+            print("deform_conv_wgrad " + json.dumps(row))
+            del x, offsets, masks, dy, dw, ref
+    report["deform_conv_wgrad_shapes"] = wgrad_rows[torch.float32]
+    report["deform_conv_wgrad_bf16_shapes"] = wgrad_rows[bf16]
 
     def dcn_inputs(H, W, C, O, dtype, B=1):
         x = torch.randn(B, H, W, C, generator=gen, device=dev)
@@ -939,7 +1016,7 @@ def main() -> int:
     # (deform_sample_bwd launches 0 times per step since deform_conv_dgrad;
     # its per-step sums are those of the route it was on, for comparison)
     rates.update(biased_attention_bwd="67 TFLOP/s float32 FMA", deform_sample_bwd="67 TFLOP/s float32 FMA",
-                 deform_conv_dgrad="165 TFLOP/s 3xTF32 (495 / 3)")
+                 deform_conv_dgrad="165 TFLOP/s 3xTF32 (495 / 3)", deform_conv_wgrad="165 TFLOP/s 3xTF32 (495 / 3)")
     for name, rows, source, replaces in (
         ("deform_sample", dcn_rows, "sgtapose_tpu_torch/csrc/deform_sample.cu",
          "sgtapose_tpu/models/deform_conv.py:104"),
@@ -949,6 +1026,8 @@ def main() -> int:
          "sgtapose_tpu/models/deform_conv.py:188"),
         ("deform_sample_bwd", dcn_bwd_rows, "sgtapose_tpu_torch/csrc/deform_sample_bwd.cu",
          "sgtapose_tpu/models/deform_conv.py:130"),
+        ("deform_conv_wgrad", wgrad_rows[torch.float32], "sgtapose_tpu_torch/csrc/deform_conv_wgrad.cu",
+         "sgtapose_tpu/models/deform_conv.py:349"),
     ):
         bounds = [r["bound_by"] for r in rows if r["per_step"]]
         bound_by = max(set(bounds), key=bounds.count)
@@ -966,16 +1045,12 @@ def main() -> int:
         entry["train_cli_launches_per_step"] = train_cli["synthetic"]["launches_per_step"].get(name, 0)
         entry["train_cli_profiled_ms_per_step"] = train_cli["resumed"]["kernel_ms_per_step_profiled"][name]
         if name == "biased_attention_bwd":
-            two_pass = [r for r in rows if r["depth_per_step"]]
-            entry["depth_two_pass"] = {
-                key: per_frame(two_pass, key, "depth_per_step")
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-            entry["depth_two_pass"].update(
-                shape=[(r["n"], r["d"], r["B"]) for r in two_pass], bound_by=two_pass[0]["bound_by"],
-                max_abs_err=max(r["max_abs_err"] for r in two_pass),
-                launches_per_depth_step=train_cli["depth"]["launches_per_step"][name],
-                note="level 2 of a 42-keypoint model at phase 13's --depth batch, per --depth step")
-        if name == "deform_conv_dgrad":
+            depth = [r for r in rows if r["depth_per_step"]]
+            entry["depth_two_pass_yardstick"] = {
+                "ms": per_frame(depth, "two_pass_ms", "depth_per_step"), "shape": [(r["n"], r["d"], r["B"]) for r in depth],
+                "launches_per_depth_step": train_cli["depth"]["launches"][name] / train_cli["depth"]["steps"],
+                "note": "the two-pass path at a 42-keypoint level 2, per --depth step: the row-split path's yardstick"}
+        if name in ("deform_conv_dgrad", "deform_conv_wgrad"):
             entry["pair_ms"] = per_frame(rows, "pair_ms", "per_step")
             entry["matmul_ms"] = per_frame(rows, "matmul_ms", "per_step")
             entry["ms_zero_offsets"] = sum(
@@ -984,11 +1059,33 @@ def main() -> int:
             entry["offsets_note"] = "ms, pair_ms, plain_ms at offsets in [-3, 3] px"
         if name == "deform_sample_bwd":
             entry["note"] = "off the path since deform_conv_dgrad; ms summed over the 16 nodes it ran on"
+        if name == "deform_sample":
+            entry["note"] = "off the path since deform_conv_wgrad; ms summed over the 16 nodes it ran on"
         if name.startswith("deform"):
             entry["library_ms_note"] = "no single PyTorch call computes this function"
         else:
             entry["library_ms_note"] = "backward of F.scaled_dot_product_attention with a float mask"
         kernels.append(entry)
+    # the row-split attention backward, read from phase 13's --depth run (per
+    # --depth step: level 2 of a 42-keypoint model at batch 2)
+    rows = [r for r in train["attention_bwd_shapes"] if r["path"] == "rows"]
+    depth = [r for r in rows if r["depth_per_step"]]
+    name = "biased_attention_bwd_rows"
+    kernels.append({
+        "name": name, "route": "cuda", "source": "sgtapose_tpu_torch/csrc/biased_attention_bwd.cu",
+        "replaces": "sgtapose_tpu/ops/attention_kernel.py:145", "launches": train_cli["depth"]["launches"][name],
+        "launches_per_depth_step": train_cli["depth"]["launches"][name] / train_cli["depth"]["steps"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_frame(depth, "ms", "depth_per_step"), "plain_ms": per_frame(depth, "plain_ms", "depth_per_step"),
+        "bound_ms": per_frame(depth, "bound_ms", "depth_per_step"), "bound_by": depth[0]["bound_by"],
+        "bound_rate": "3.35 TB/s HBM" if depth[0]["bound_by"] == "bytes" else "67 TFLOP/s float32 FMA",
+        "library_ms": per_frame(depth, "library_ms", "depth_per_step"),
+        "library_ms_note": "backward of F.scaled_dot_product_attention with a float mask",
+        "two_pass_ms": per_frame(depth, "two_pass_ms", "depth_per_step"),
+        "ms_per_launch": {f"{r['n']},{r['d']},B={r['B']}": r["ms"] for r in rows},
+        "train_cli_profiled_ms_per_step": train_cli["resumed"]["kernel_ms_per_step_profiled"][name],
+        "shapes_note": "level 2 of a 42-keypoint model at phase 13's --depth batch of 2, per --depth step"})
+    bf16_train["deform_conv_wgrad_bf16_shapes"] = wgrad_rows[bf16]
     kernels += bf16_kernel_rows(bf16_train, per_frame)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -1028,10 +1125,11 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, keep):
     # (n, d, backward launches per step): levels 0 and 1 feed no head (the
     # decoder starts at level 2), so autograd runs only level 2's backward,
     # once per tied layer
-    # level 2 and the ragged (100, 8) take the cluster path, also at B = 1, 2
-    # level 2 of a 42-keypoint model, (378, 16), takes the two-pass path at
-    # phase 13's --depth batch of 2: its 3 launches per --depth step are
-    # counted in `depth_per_step`
+    # level 2 and the ragged (100, 8) take the cluster path, also at B = 1, 2;
+    # level 2 of a 42-keypoint model, (378, 16), takes the row-split path at
+    # phase 13's --depth batch of 2 (its 3 launches per --depth step are
+    # counted in `depth_per_step`) and at 8, as does a ragged (200, 8) at 3;
+    # the row-split rows time the two-pass path, their yardstick, beside
     shapes = []
     for i in range(3):
         kernel = cfg.model.kernel_list[i]
@@ -1039,13 +1137,15 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, keep):
         shapes.append((n, 4 * 2 ** i, n_layers if i == 2 else 0, TRAIN_BATCH, 0))
         if i == 2:
             shapes += [(n, 16, 0, 1, 0), (n, 16, 0, 2, 0)]
-    shapes.append((DEPTH_CLASSES * 9, 16, 0, TRAIN_CLI_DEPTH_BATCH, n_layers))
+    shapes += [(DEPTH_CLASSES * 9, 16, 0, TRAIN_CLI_DEPTH_BATCH, n_layers), (DEPTH_CLASSES * 9, 16, 0, TRAIN_BATCH, 0),
+               (200, 8, 0, 3, 0)]
     shapes += [(100, 8, 0, B, 0) for B in (1, 2, TRAIN_BATCH)]  # ragged n, not on the main path
     rows = []
     for n, d, per_step, B, depth_per_step in shapes:
         q, k, v, dout = (torch.randn(B, h, n, d, generator=gen, device=dev) for _ in range(4))
         bias = 0.3 * torch.randn(h, n, n, generator=gen, device=dev)
         o = attention_kernel.biased_attention_cuda(q, k, v, bias)
+        path = attention_kernel.bwd_path(n, d)
         got = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)
         torch.cuda.synchronize()
         ref = attention_kernel.plain_biased_attention_backward(q, k, v, bias, o, dout)
@@ -1064,13 +1164,15 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, keep):
         # three d-long products)
         b_ms, b_by = bound_ms(4 * (2 * h * n * n + 8 * B * h * n * d), B * h * n * n * (10 * d + 5))
         row = dict(n=n, d=d, B=B, per_step=per_step, depth_per_step=depth_per_step, rel_err=errs,
-                   dbias_bitwise_equal=True,
-                   path="cluster" if attention_kernel.bwd_uses_cluster(n, d) else "two_pass",
+                   dbias_bitwise_equal=True, path=path,
                    max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
                    ms=cold_ms(lambda: attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout)),
                    plain_ms=cold_ms(lambda: attention_kernel.plain_biased_attention_backward(q, k, v, bias, o, dout)),
                    library_ms=cold_ms(lambda: y.backward(dout, retain_graph=True)),
                    bound_ms=b_ms, bound_by=b_by)
+        if path == "rows":
+            row["two_pass_ms"] = cold_ms(
+                lambda: attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, o, dout, path="two_pass"))
         rows.append(row)
         print("attention_bwd " + json.dumps(row))
         del q, k, v, dout, bias, o, got, again, ref, qs, ks, vs, bs, y
@@ -1108,7 +1210,7 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, keep):
         out[f"grad_{where}_seconds"] = time.perf_counter() - t0
         grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
     expect = dict(no_launches, biased_attention=3 * n_layers, biased_attention_bwd=n_layers,
-                  deform_conv=16, deform_sample=16, deform_conv_dgrad=16)
+                  deform_conv=16, deform_conv_wgrad=16, deform_conv_dgrad=16)
     if launched != expect:
         raise AssertionError(f"gradient step launches {launched}, expected {expect}")
     ref = grads["cpu_float64"]
@@ -1177,7 +1279,7 @@ def training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, keep):
     counts = build.launch_counts()
     stage_ms = timer.per_frame_ms(TRAIN_STEPS)
     expect = {"biased_attention": 3 * n_layers, "biased_attention_bwd": n_layers, "deform_conv": 16,
-              "deform_sample": 16, "deform_conv_dgrad": 16, "deform_sample_bwd": 0}
+              "deform_conv_wgrad": 16, "deform_conv_dgrad": 16, "deform_sample": 0, "deform_sample_bwd": 0}
     per_step = {kn: counts[kn] / TRAIN_STEPS for kn in expect}
     if per_step != expect:
         raise AssertionError(f"train_demo launches per step {per_step}, expected {expect}")
@@ -1241,7 +1343,7 @@ def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep):
             launched = build.launch_counts()
         seconds[where] = time.perf_counter() - t0
         grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
-    expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16, deform_sample=16,
+    expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16, deform_conv_wgrad=16,
                   deform_conv_dgrad=16)
     if launched != expect:
         raise AssertionError(f"eval-mode gradient launches {launched}, expected {expect}")
@@ -1449,8 +1551,8 @@ def train_cli_phase(torch, work, no_launches):
     synthetic.write_synthetic_dataset(syn, TRAIN_CLI_VIDEOS, TRAIN_CLI_FRAMES, seed=7)
     synthetic.write_synthetic_dataset(val, 1, TRAIN_CLI_VAL_FRAMES, seed=8)
     synthetic.write_depth_dataset(depth, "panda-depth", TRAIN_CLI_DEPTH_FRAMES, seed=9)
-    if attention_kernel.bwd_uses_cluster(DEPTH_CLASSES * 9, 16):
-        raise AssertionError("a 42-keypoint level 2 (378, 16) should take the two-pass backward")
+    if attention_kernel.bwd_path(DEPTH_CLASSES * 9, 16) != "rows":
+        raise AssertionError("a 42-keypoint level 2 (378, 16) should take the row-split backward")
 
     # launches of each call of the trainer's entry points the CLI makes
     calls, lrs = [], []
@@ -1480,7 +1582,7 @@ def train_cli_phase(torch, work, no_launches):
         return call
 
     step_expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16,
-                       deform_conv_dgrad=16, deform_sample=16)
+                       deform_conv_dgrad=16, deform_conv_wgrad=16)
     fwd_expect = dict(no_launches, biased_attention=9, deform_conv=16)
 
     def run(name, argv, expect):
@@ -1571,8 +1673,9 @@ def train_cli_phase(torch, work, no_launches):
         del res, state
 
         # (B) --depth: 42 joints; levels 0 and 1 through the key-tiled kernel,
-        # level 2's backward on the two-pass path
-        depth_step = dict(step_expect, biased_attention=3, biased_attention_tiled=6)
+        # level 2's backward on the row-split path
+        depth_step = dict(step_expect, biased_attention=3, biased_attention_tiled=6, biased_attention_bwd=0,
+                          biased_attention_bwd_rows=3)
         depth_fwd = dict(fwd_expect, biased_attention=3, biased_attention_tiled=6)
         res, out["depth"] = run("depth", ["--dataset", os.path.join(depth, "panda-depth"), "--depth", "--output_dir",
                                           os.path.join(work, "train_depth_exp"), "--num_epochs", "1",
@@ -1619,6 +1722,9 @@ def bf16_kernel_rows(bf16_train, per_step_sum):
         ("deform_sample_bf16", bf16_train["deform_sample_bf16_shapes"],
          "sgtapose_tpu_torch/csrc/deform_sample.cu", "sgtapose_tpu/models/deform_conv.py:104",
          "67 TFLOP/s float32 FMA", "no single PyTorch call computes this function"),
+        ("deform_conv_wgrad_bf16", bf16_train["deform_conv_wgrad_bf16_shapes"],
+         "sgtapose_tpu_torch/csrc/deform_conv_wgrad.cu", "sgtapose_tpu/models/deform_conv.py:349",
+         "989 TFLOP/s dense bf16", "no single PyTorch call computes this function"),
     ):
         bounds = [r["bound_by"] for r in rows if r["per_step"]]
         bound_by = max(set(bounds), key=bounds.count)
@@ -1633,6 +1739,11 @@ def bf16_kernel_rows(bf16_train, per_step_sum):
             "profiled_ms_per_step": bf16_train["profiled"]["kernel_ms_per_step"][name],
             "train_cli_launches_per_step": bf16_train["train_cli"]["launches"][name] / 2,
             "shapes_note": "bf16 training (train_demo --bf16, 480x480, batch 8), per step"})
+        if name == "deform_conv_wgrad_bf16":
+            out[-1].update(pair_ms=per_step_sum(rows, "pair_ms", "per_step"),
+                           matmul_ms=per_step_sum(rows, "matmul_ms", "per_step"))
+        if name == "deform_sample_bf16":
+            out[-1]["note"] = "off the path since deform_conv_wgrad_bf16; ms summed over the 16 nodes it ran on"
     return out
 
 
@@ -1782,7 +1893,8 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
         del x, om, weight, dy, dx, dom, dx2, dom2, rdx, rdom
     out["deform_conv_dgrad_bf16_shapes"] = dgrad_rows
 
-    # the sampler: the columns of dW at every decoder input shape
+    # the sampler, the route deform_conv_wgrad_bf16 replaced (its yardstick),
+    # at every decoder input shape
     sample_shapes = {}
     for H, C, _, nodes in DCN_NODES + [RAGGED_DCN]:
         sample_shapes[(H, C)] = sample_shapes.get((H, C), 0) + nodes
@@ -1835,7 +1947,7 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
         seconds[where] = time.perf_counter() - t0
         grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
     step_launches = dict(no_launches, biased_attention_bf16=3 * n_layers, biased_attention_bwd_bf16=n_layers,
-                         deform_conv_bf16=16, deform_conv_dgrad_bf16=16, deform_sample_bf16=16)
+                         deform_conv_bf16=16, deform_conv_dgrad_bf16=16, deform_conv_wgrad_bf16=16)
     if launched != step_launches:
         raise AssertionError(f"bf16 gradient launches {launched}, expected {step_launches}")
     ref = ref64["grads"]

@@ -20,8 +20,11 @@
 //   dbias = sum_b dS   (summed over the batch in a fixed order, no atomics,
 //                       so a training step is reproducible)
 //
-// Two paths behind one entry point; the caller picks one by shared-memory
-// size (ops/attention_kernel.py: bwd_uses_cluster).
+// Three paths; the caller picks one by shared-memory size
+// (ops/attention_kernel.py: bwd_uses_cluster, bwd_uses_rows): the one-pass
+// cluster path and the two-pass path behind one entry point
+// (biased_attention_bwd), the row-split cluster path behind its own
+// (biased_attention_bwd_rows).
 //
 // The one-pass cluster path, for every (n, d) whose whole (batch, head)
 // problem fits in one block's shared memory (level 2 of the flagship,
@@ -47,8 +50,38 @@
 // the block's latency chain (a cold load, two phases, a cluster barrier) is
 // what remains, not work.
 //
-// The two-pass path, for larger n (levels 0 and 1, which training never
-// differentiates), launched back to back by the same entry point:
+// The row-split cluster path, for each (n, d) too large for one block whose
+// query rows split over the 8 ranks of a cluster at most 48 rows a rank and
+// whose rank fits a block's shared memory (a 42-keypoint model's level 2,
+// (378, 16), which `cli/train.py --depth` differentiates; ~210 KB):
+//   * one cluster of 8 blocks per head; rank r owns the query rows
+//     [r R, r R + R), R = ceil(n / 8), and walks the batch in order;
+//   * per b it stages K and V (padded rows, as above), its q, O and dO rows
+//     and its bias rows, these into the P / dS tile where the logits are
+//     formed in place (from L2 after the first b: one copy for all b does not
+//     fit beside the tile, K, V and the rank's dbias rows);
+//   * for its rows and all n keys it recomputes the logits, P and dS in one
+//     R x n tile in shared memory (warp w owns rows w, w + 16, w + 32; each K
+//     or V row a lane reads serves all 3 rows), forms the dv partial P^T dO
+//     from P before overwriting P with dS in place, adds dS into its own
+//     dbias rows (summed in b order and written once at the end, no atomics),
+//     and writes dq rows once;
+//   * it forms the partial dk = dS^T q over its rows; after a cluster
+//     barrier the ranks' partials are added in rank order through
+//     distributed shared memory, each rank writing a band of dk and dv rows;
+//   * one launch: lse and D never go through device memory.
+// What bounds it on an H100: operations, ~10d + 5 FLOPs per (b, head, i, j),
+// 0.377 GFLOP at (378, 16), batch 2, 8 heads (5.6 us at 67 TFLOP/s), against
+// ~9.8 MB of bytes (2.9 us). Float32 FMAs throughout; 64 blocks (8 heads x 8
+// ranks) at that shape. Each b costs a rank several times its FMAs (PERF.md);
+// versions with the five d-wide products on the tensor cores (3xTF32
+// mma.sync), S, P and dS in the tile or in registers, ran slower on the
+// card, so the products are not what holds it: suspects are the tile's
+// passes through shared memory, the staging and the cluster exchange per b.
+//
+// The two-pass path, for larger n (levels 0 and 1 of the flagship and of a
+// 42-keypoint model, which training never differentiates) and as the
+// yardstick of the row-split path, launched back to back by one entry point:
 //   * the row pass: one block per (head, tile of 8 query rows), one warp per
 //     row, lanes strided over the keys. The tile's bias rows are read once
 //     into shared memory and serve every batch element; for each b (in
@@ -69,8 +102,7 @@
 // 8 heads, batch 8) operations: ~10d + 5 FLOPs per (b, head, i, j) are 4.0
 // GFLOP, ~60 us at 67 TFLOP/s, against ~99 MB of bytes (the bias read once,
 // dbias written once, q, k, v, O, dO and the gradients), ~30 us at
-// 3.35 TB/s. At level 2, the only level whose backward training runs
-// ((63, 16)), bytes (the cluster path's case). This design is simple and
+// 3.35 TB/s. This design is simple and
 // right rather than fast: the row pass re-reads K and V of each (b, head) for
 // every tile (from L2) and walks the batch in series; the column pass re-reads
 // the bias for every b (from L2 when the b blocks of one tile run together).
@@ -534,6 +566,358 @@ __global__ void __launch_bounds__(kCThreads)
   cluster_body<D, TQ, uint16_t>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
 }
 
+// ---- the row-split cluster path ----------------------------------------
+constexpr int kRWarps = 16;  // the row-split path's block: 16 warps, RW query rows each
+constexpr int kRThreads = 32 * kRWarps;
+constexpr int RW = 3;
+constexpr int kRowsMax = kRWarps * RW;  // 48 query rows a rank
+
+// shared-memory floats of the row-split path (ops/attention_kernel.py:
+// bwd_rows_smem_bytes mirrors it): K and V padded, the rank's q, O and dO
+// rows, its P / dS tile (which then holds the dk and dv partials), its dbias
+// rows
+size_t rows_floats(int n, int d) {
+  const size_t R = (n + kMaxCluster - 1) / kMaxCluster;
+  const size_t tile = R > (size_t)2 * d ? R : (size_t)2 * d;
+  return 2 * (size_t)n * (d + 4) + 3 * R * d + (size_t)n * tile + R * n;
+}
+
+// Sum N values of each lane over the warp's 32 lanes: while N is even, lanes
+// swap halves across a lane bit (each keeps the half its bit selects, plus
+// its partner's copy of that half), then the rest are summed across the
+// remaining bits. Afterwards a lane holds the sums of values base .. base +
+// (N after the halvings) - 1; lanes that differ only in `dup` hold the same.
+template <int N, int OFF>
+__device__ __forceinline__ void fold_lanes(float* v, int lt, int& base, int& dup) {
+  if constexpr (OFF > 0) {
+    if constexpr (N % 2 == 0) {
+      const bool up = (lt & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = up ? v[i] : v[i + N / 2];
+        const float keep = up ? v[i + N / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      if (up) base += N / 2;
+      fold_lanes<N / 2, OFF / 2>(v, lt, base, dup);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], OFF);
+      dup |= OFF;
+      fold_lanes<N, OFF / 2>(v, lt, base, dup);
+    }
+  }
+}
+template <int N, int OFF>
+struct Folded {
+  static constexpr int value = OFF == 0 ? N : (N % 2 == 0 ? Folded<N / 2, OFF / 2>::value : Folded<N, OFF / 2>::value);
+};
+template <int N>
+struct Folded<N, 0> {
+  static constexpr int value = N;
+};
+
+// One thread-block cluster of 8 ranks per head; rank r owns query rows
+// [r R, r R + R), R = ceil(n / 8), and walks the batch in order. Per b:
+// stage K and V (padded rows) and the rank's q, O and dO rows; a row phase
+// (warp w owns rows w, w + 16, w + 32 for all b, lanes strided over the keys;
+// each K or V row read from shared memory serves its 3 rows) forms the
+// logits, P and its row sums in the R x n tile; a column phase (a thread per
+// key) forms the rank's dv partial P^T dO in registers; the row phase
+// overwrites P with dS in place and adds dS into the rank's dbias rows (in b
+// order: the same lane owns an element for every b); it forms dq = dS K of
+// its rows (lanes' partial sums folded across the warp) and writes them
+// once; a column phase forms the dk partial dS^T q; the partials go to the
+// tile, and after a cluster barrier each rank adds the ranks' partials in
+// rank order through distributed shared memory for a band of keys and
+// writes those rows of dk and dv once. The dbias rows are written once at
+// the end. lse and D never leave the block. TQ / TKV as in cluster_body
+// (float32 training instantiates <float, float> only).
+template <int D, typename TQ, typename TKV>
+__device__ __forceinline__ void rows_body(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                                          const TKV* __restrict__ v, const TKV* __restrict__ bias,
+                                          const float* __restrict__ out, const float* __restrict__ dout,
+                                          TQ* __restrict__ dq, TKV* __restrict__ dk, TKV* __restrict__ dv,
+                                          TKV* __restrict__ dbias, int B, int heads, int n, float scale) {
+  constexpr bool QB = sizeof(TQ) == 2;  // q bf16: logits and their cotangent rounded
+  constexpr int DP = D + 4;             // padded K and V rows
+  extern __shared__ __align__(16) float smem[];
+  const int rank = blockIdx.x, cs = gridDim.x;  // one cluster spans the x extent
+  const int h = blockIdx.y;
+  const int R = (n + cs - 1) / cs, r0 = rank * R, rows = max(0, min(R, n - r0));
+  float* ks = smem;                 // [n][DP]
+  float* vs = ks + n * DP;          // [n][DP]
+  float* qs = vs + n * DP;          // [R][D] the rank's q rows
+  float* gs = qs + R * D;           // [R][D] dO
+  float* os = gs + R * D;           // [R][D] the forward's output
+  float* tile = os + R * D;         // [R][n] logits, P, then dS; then [2][n][D] dk, dv partials
+  float* acc = tile + n * max(R, 2 * D);  // [R][n] the rank's dbias rows, dS summed over b
+  const int tid = threadIdx.x, warp = tid >> 5, lt = tid & 31;
+  for (int e = tid; e < R * n; e += kRThreads) acc[e] = 0.f;
+  int lr[RW];   // this warp's local rows
+  bool iv[RW];  // ... within the rank's rows
+#pragma unroll
+  for (int t = 0; t < RW; ++t) {
+    lr[t] = warp + kRWarps * t;
+    iv[t] = lr[t] < rows;
+  }
+  const TKV* bias_h = bias + ((size_t)h * n + r0) * n;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  for (int b = 0; b < B; ++b) {
+    const size_t bh = (size_t)b * heads + h;
+    __syncthreads();  // the previous b's K, V and rows are no longer read
+    for (int e = tid; e < n * D / 4; e += kRThreads) {
+      const int row = 4 * e / D, c = 4 * e % D;
+      stage4(ks + row * DP + c, k + bh * n * D + 4 * e);
+      stage4(vs + row * DP + c, v + bh * n * D + 4 * e);
+    }
+    for (int e = tid; e < rows * D / 4; e += kRThreads) {
+      const size_t at = (bh * n + r0) * D + 4 * e;
+      stage4(qs + 4 * e, q + at);
+      cp_async16(os + 4 * e, out + at);
+      cp_async16(gs + 4 * e, dout + at);
+    }
+    for (int e = tid; e < rows * n; e += kRThreads) stage1(tile + e, bias_h + e);  // the logits' bias
+    cp_async_wait();
+    __syncthreads();
+    float dka[D], dva[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) dka[c] = dva[c] = 0.f;
+    const int j = tid;  // the column phases' key
+    if (rows > 0) {
+      // row phase: logits into the tile, row max, then exp and row sum,
+      // then P normalised (each lane rereads only what it wrote)
+      float inv_l[RW];
+      {
+        float qr[RW][D], m[RW];
+#pragma unroll
+        for (int t = 0; t < RW; ++t) {
+          m[t] = -INFINITY;
+#pragma unroll
+          for (int c = 0; c < D; ++c) qr[t][c] = iv[t] ? qs[lr[t] * D + c] : 0.f;
+        }
+        for (int jj = lt; jj < n; jj += 32) {
+          float kj[D];
+#pragma unroll
+          for (int c = 0; c < D / 4; ++c) {
+            const float4 u = reinterpret_cast<const float4*>(ks + jj * DP)[c];
+            kj[4 * c] = u.x; kj[4 * c + 1] = u.y; kj[4 * c + 2] = u.z; kj[4 * c + 3] = u.w;
+          }
+#pragma unroll
+          for (int t = 0; t < RW; ++t) {
+            if (!iv[t]) continue;
+            float e = 0.f;
+#pragma unroll
+            for (int c = 0; c < D; ++c) e = fmaf(qr[t][c], kj[c], e);
+            if constexpr (QB) e = round_bf16(e);  // the forward's bf16 logit
+            float* at = tile + lr[t] * n + jj;
+            const float s = fmaf(e, scale, *at);
+            *at = s;
+            m[t] = fmaxf(m[t], s);
+          }
+        }
+        float l[RW];
+#pragma unroll
+        for (int t = 0; t < RW; ++t) {
+          m[t] = warp_max(m[t]) * kLog2e;
+          l[t] = 0.f;
+        }
+        for (int jj = lt; jj < n; jj += 32) {
+#pragma unroll
+          for (int t = 0; t < RW; ++t) {
+            if (!iv[t]) continue;
+            float* p = tile + lr[t] * n + jj;
+            const float e = exp2_ftz(fmaf(*p, kLog2e, -m[t]));
+            *p = e;
+            l[t] += e;
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < RW; ++t) inv_l[t] = 1.f / warp_sum(l[t]);
+        for (int jj = lt; jj < n; jj += 32) {
+#pragma unroll
+          for (int t = 0; t < RW; ++t)
+            if (iv[t]) tile[lr[t] * n + jj] *= inv_l[t];
+        }
+      }
+      __syncthreads();
+      // column phase: the rank's dv partial, P^T dO over its rows
+      if (j < n) {
+        for (int i = 0; i < rows; ++i) {
+          const float p = tile[i * n + j];
+          const float4* g = reinterpret_cast<const float4*>(gs + i * D);  // a broadcast
+#pragma unroll
+          for (int c = 0; c < D / 4; ++c) {
+            const float4 u = g[c];
+            dva[4 * c] = fmaf(p, u.x, dva[4 * c]);
+            dva[4 * c + 1] = fmaf(p, u.y, dva[4 * c + 1]);
+            dva[4 * c + 2] = fmaf(p, u.z, dva[4 * c + 2]);
+            dva[4 * c + 3] = fmaf(p, u.w, dva[4 * c + 3]);
+          }
+        }
+      }
+      __syncthreads();
+      // row phase: dS = P (dO . v - D) over P in place, into the dbias rows
+      {
+        float gr[RW][D], dlt[RW];
+#pragma unroll
+        for (int t = 0; t < RW; ++t) {
+          dlt[t] = 0.f;
+#pragma unroll
+          for (int c = 0; c < D; ++c) {
+            gr[t][c] = iv[t] ? gs[lr[t] * D + c] : 0.f;
+            if (iv[t]) dlt[t] = fmaf(gr[t][c], os[lr[t] * D + c], dlt[t]);
+          }
+        }
+        for (int jj = lt; jj < n; jj += 32) {
+          float vj[D];
+#pragma unroll
+          for (int c = 0; c < D / 4; ++c) {
+            const float4 u = reinterpret_cast<const float4*>(vs + jj * DP)[c];
+            vj[4 * c] = u.x; vj[4 * c + 1] = u.y; vj[4 * c + 2] = u.z; vj[4 * c + 3] = u.w;
+          }
+#pragma unroll
+          for (int t = 0; t < RW; ++t) {
+            if (!iv[t]) continue;
+            float dp = 0.f;
+#pragma unroll
+            for (int c = 0; c < D; ++c) dp = fmaf(gr[t][c], vj[c], dp);
+            const int at = lr[t] * n + jj;
+            const float ds = tile[at] * (dp - dlt[t]);
+            acc[at] += ds;
+            if constexpr (QB) tile[at] = round_bf16(ds * scale);  // the bf16 logit's cotangent
+            else tile[at] = ds;
+          }
+        }
+      }
+      // row phase: dq = dS K of the warp's rows, lanes' sums folded
+      {
+        float dqa[RW * D];
+#pragma unroll
+        for (int e = 0; e < RW * D; ++e) dqa[e] = 0.f;
+        for (int jj = lt; jj < n; jj += 32) {
+          float kj[D];
+#pragma unroll
+          for (int c = 0; c < D / 4; ++c) {
+            const float4 u = reinterpret_cast<const float4*>(ks + jj * DP)[c];
+            kj[4 * c] = u.x; kj[4 * c + 1] = u.y; kj[4 * c + 2] = u.z; kj[4 * c + 3] = u.w;
+          }
+#pragma unroll
+          for (int t = 0; t < RW; ++t) {
+            if (!iv[t]) continue;
+            const float ds = tile[lr[t] * n + jj];
+#pragma unroll
+            for (int c = 0; c < D; ++c) dqa[t * D + c] = fmaf(ds, kj[c], dqa[t * D + c]);
+          }
+        }
+        int base = 0, dup = 0;
+        fold_lanes<RW * D, 16>(dqa, lt, base, dup);
+        constexpr int kLeft = Folded<RW * D, 16>::value;
+        const float mul = QB ? 1.f : scale;
+        if ((lt & dup) == 0) {
+#pragma unroll
+          for (int e = 0; e < kLeft; ++e) {
+            const int t = (base + e) / D, c = (base + e) % D;
+            if (lr[t] < rows) store1(dq + (bh * n + r0 + lr[t]) * D + c, dqa[e] * mul);
+          }
+        }
+      }
+      __syncthreads();
+      // column phase: the rank's dk partial, dS^T q over its rows
+      if (j < n) {
+        for (int i = 0; i < rows; ++i) {
+          const float ds = tile[i * n + j];
+          const float4* qv = reinterpret_cast<const float4*>(qs + i * D);  // a broadcast
+#pragma unroll
+          for (int c = 0; c < D / 4; ++c) {
+            const float4 u = qv[c];
+            dka[4 * c] = fmaf(ds, u.x, dka[4 * c]);
+            dka[4 * c + 1] = fmaf(ds, u.y, dka[4 * c + 1]);
+            dka[4 * c + 2] = fmaf(ds, u.z, dka[4 * c + 2]);
+            dka[4 * c + 3] = fmaf(ds, u.w, dka[4 * c + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile is read; it now takes the partials
+    if (j < n) {
+      float4* pk = reinterpret_cast<float4*>(tile + j * D);
+      float4* pv = reinterpret_cast<float4*>(tile + (n + j) * D);
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) {
+        pk[c] = make_float4(dka[4 * c], dka[4 * c + 1], dka[4 * c + 2], dka[4 * c + 3]);
+        pv[c] = make_float4(dva[4 * c], dva[4 * c + 1], dva[4 * c + 2], dva[4 * c + 3]);
+      }
+    }
+    cluster.sync();  // every rank's partials are in
+    // rank r adds the ranks' partials in rank order over its band of keys
+    const int j0 = n * rank / cs, j1 = n * (rank + 1) / cs;
+    const int band = (j1 - j0) * D / 4;
+    for (int e = tid; e < 2 * band; e += kRThreads) {
+      const int which = e / band, f = e % band;  // 0: dk, 1: dv
+      const int at = (which * n + j0) * D + 4 * f;
+      float4 u[kMaxCluster];  // the launch makes cs = kMaxCluster
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        u[r] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(tile, r) + at);
+      float4 s = u[0];
+#pragma unroll
+      for (int r = 1; r < kMaxCluster; ++r) {
+        s.x += u[r].x; s.y += u[r].y; s.z += u[r].z; s.w += u[r].w;
+      }
+      const float mul = (which == 1 || QB) ? 1.f : scale;
+      TKV* dst = (which == 0 ? dk : dv) + (bh * n + j0) * D + 4 * f;
+      store1(dst, s.x * mul);
+      store1(dst + 1, s.y * mul);
+      store1(dst + 2, s.z * mul);
+      store1(dst + 3, s.w * mul);
+    }
+    cluster.sync();  // no rank overwrites its tile while another reads it
+  }
+  TKV* dbias_r = dbias + ((size_t)h * n + r0) * n;
+  for (int e = tid; e < rows * n; e += kRThreads) store1(dbias_r + e, acc[e]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRThreads)
+    biased_attention_rows_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v, const float* __restrict__ bias,
+                                     const float* __restrict__ out, const float* __restrict__ dout,
+                                     float* __restrict__ dq, float* __restrict__ dk,
+                                     float* __restrict__ dv, float* __restrict__ dbias, int B, int heads,
+                                     int n, float scale) {
+  rows_body<D, float, float>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
+}
+
+template <int D>
+int launch_rows(const float* q, const float* k, const float* v, const float* bias, const float* out,
+                const float* dout, float* dq, float* dk, float* dv, float* dbias, int B, int heads, int n,
+                cudaStream_t stream) {
+  const size_t smem = sizeof(float) * rows_floats(n, D);
+  if (smem > 227 * 1024 || heads > 65535 || (n + kMaxCluster - 1) / kMaxCluster > kRowsMax)
+    return (int)cudaErrorInvalidValue;
+  auto kern = biased_attention_rows_bwd_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMaxCluster, heads, 1);
+  cfg.blockDim = dim3(kRThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMaxCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n,
+                         1.f / sqrtf((float)D));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename TQ, typename TKV>
 int launch_cluster(const TQ* q, const TKV* k, const TKV* v, const TKV* bias, const float* out,
                    const float* dout, TQ* dq, TKV* dk, TKV* dv, TKV* dbias, int B, int heads, int n,
@@ -625,6 +1009,36 @@ extern "C" int biased_attention_bwd(const void* q, const void* k, const void* v,
     CASE(8)
     CASE(16)
     CASE(32)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// float32, the row-split cluster path (d <= 16, rows_floats(n, d) * 4 bytes
+// within a block's shared memory and ceil(n / 8) <= 48): the arguments and outputs of
+// biased_attention_bwd, no scratch
+extern "C" int biased_attention_bwd_rows(const void* q, const void* k, const void* v, const void* bias,
+                                         const void* out, const void* dout, void* dq, void* dk, void* dv,
+                                         void* dbias, int B, int heads, int n, int d, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(dout)) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(bias) & 3) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const float* a[6] = {static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<const float*>(bias),
+                       static_cast<const float*>(out), static_cast<const float*>(dout)};
+  float* o[4] = {static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                 static_cast<float*>(dbias)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define CASE(DD)                                                                                   \
+  case DD:                                                                                         \
+    return launch_rows<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2], o[3], B, heads, n, s);
+    CASE(4)
+    CASE(8)
+    CASE(16)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }

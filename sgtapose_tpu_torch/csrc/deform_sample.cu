@@ -21,9 +21,14 @@
 // same offset/mask words, a broadcast), which is cheaper than staging it.
 // A scalar variant handles C % 4 != 0 or unaligned pointers.
 //
-// Two instantiations: float32 (deform_sample_fwd) and bf16 training's
-// (deform_sample_bf16_fwd), which the bf16 DCN backward launches to recompute
-// the columns of its weight gradient: bf16 features, the coordinates and the
+// No path of the port launches it: the DCN weight gradient forms the same
+// columns inside csrc/deform_conv_wgrad.cu. It stays as that kernel's
+// yardstick (the sampler, then torch.matmul, as chip_smoke.py times it) and
+// for the tests.
+//
+// Two instantiations: float32 (deform_sample_fwd) and bf16
+// (deform_sample_bf16_fwd), the columns of bf16 training's weight gradient
+// before deform_conv_wgrad_bf16: bf16 features, the coordinates and the
 // sigmoided masks float32 (the offsets widened exactly from bf16, the mask
 // sigmoid taken in float32, as the bf16 fused forward forms them), each
 // column element formed in float32 and rounded once to bf16 (what the fused

@@ -22,22 +22,27 @@ and in bf16 (bf16 training). Its backward, the counterpart of the JAX custom VJP
 derives: the data gradients (dx and the gradient of the raw offset/mask conv
 output) in one kernel, `csrc/deform_conv_bwd.cu` (`deform_conv_dgrad`: the
 columns' cotangent dY W formed on the tensor cores and added into dx through
-a shared-memory halo tile, never written to device memory); the weight and
-bias gradients from the columns recomputed by the sampler alone
-(`csrc/deform_sample.cu`, which the detector does not launch) and plain
-products (`torch.matmul`, as XLA computes them outside any kernel). The
-unfused route for the data gradient, the product dY W then
-`csrc/deform_sample_bwd.cu`, stays as a wrapper the card is timed against;
-the backward does not launch it. CPU tensors take the plain versions (the
-sampler mirrors the JAX `_sample_pieces`, its backward `_bwd_core`;
-`tiled_deform_scatter` mirrors the kernel's halo split).
+a shared-memory halo tile, never written to device memory); the weight
+gradient in another, `csrc/deform_conv_wgrad.cu` (`deform_conv_wgrad`: dY^T
+A as an implicit GEMM on the tensor cores, the columns A sampled into
+shared memory and never written to device memory, the pixels split over
+blocks whose partials a second launch adds in a fixed order); the bias
+gradient a plain sum. The unfused routes stay as wrappers the card is timed
+against, and the backward launches neither: for the data gradient the
+product dY W then `csrc/deform_sample_bwd.cu`; for the weight gradient the
+sampler `csrc/deform_sample.cu` then `torch.matmul`. CPU tensors take the
+plain versions (the sampler mirrors the JAX `_sample_pieces`, its backward
+`_bwd_core`; `tiled_deform_scatter` mirrors the data-gradient kernel's halo
+split, `plain_deform_conv_wgrad` the weight-gradient kernel's split of the
+pixels).
 
 bf16 backward: dx and d(om) from the bf16 instantiation of the data-gradient
 kernel (dY W on bf16 tensor cores with float32 accumulators, the scatter in
-float32, each output rounded once to bf16); dW = cols^T dY, a bf16 product
-of the columns from the bf16 sampler (float32 coordinates and masks, each
-column element formed in float32 and rounded once, as the fused forward
-forms them) and dY; db = dY summed in float32, rounded once. The plain bf16
+float32, each output rounded once to bf16); dW = dY^T A from the bf16
+instantiation of the weight-gradient kernel (float32 coordinates and masks,
+each column element formed in float32 and rounded once, as the fused
+forward and the bf16 sampler form them; bf16 tensor cores with float32
+accumulators, dW rounded once); db = dY summed in float32, rounded once. The plain bf16
 forms compute in float32 from the bf16 inputs and round each output once.
 The JAX module under bf16 parameters rounds inside `_bwd_core` after every
 product and sum instead (the same bounded deviation as the forward's).
@@ -57,6 +62,11 @@ BWD_KERNEL = "deform_sample_bwd"
 DGRAD_KERNEL = "deform_conv_dgrad"
 KERNEL_BF16 = "deform_sample_bf16"
 DGRAD_KERNEL_BF16 = "deform_conv_dgrad_bf16"
+WGRAD_KERNEL = "deform_conv_wgrad"
+WGRAD_KERNEL_BF16 = "deform_conv_wgrad_bf16"
+# the weight-gradient kernel's output and channel tile, and the blocks an SM
+# holds at once (csrc/deform_conv_wgrad.cu: BO, BC; 128 registers a thread)
+WGRAD_TILE, WGRAD_BLOCKS_PER_SM = 64, 2
 # the data-gradient kernel's pixel tile side and the offsets its shared-memory
 # halo tile covers (csrc/deform_conv_bwd.cu: T, HALO)
 DGRAD_TILE, DGRAD_HALO = 8, 3
@@ -143,6 +153,93 @@ def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.T
     build.check(name, err)
     build.count_launch(name)
     return out
+
+
+def wgrad_step_pixels(dtype: torch.dtype) -> int:
+    """Pixels per K step of the weight-gradient kernel: one 128-byte chunk
+    row, 32 float32 or 64 bf16 elements."""
+    return 64 if dtype == torch.bfloat16 else 32
+
+
+def wgrad_splits(M: int, C: int, O: int, dtype: torch.dtype, sms: int) -> int:
+    """The weight-gradient kernel's split of the M pixels into contiguous
+    ranges of whole K steps, for the (O / 64) x 9 x (C / 64) tiles on `sms`
+    SMs at WGRAD_BLOCKS_PER_SM blocks each: the fewest splits whose waves of
+    blocks per unit of work, ceil(tiles x splits / slots) / splits, come
+    within 5 % of the least, at most 64 splits and none shorter than 8
+    steps."""
+    steps = -(-M // wgrad_step_pixels(dtype))
+    tiles = -(-O // WGRAD_TILE) * 9 * -(-C // WGRAD_TILE)
+    slots = WGRAD_BLOCKS_PER_SM * sms
+    cost = {s: -(-tiles * s // slots) / s for s in range(1, max(1, min(64, steps // 8)) + 1)}
+    best = min(cost.values())
+    return min(s for s, c in cost.items() if c <= 1.05 * best)
+
+
+def plain_deform_conv_wgrad(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                            dy: torch.Tensor, splits: int = 1) -> torch.Tensor:
+    """The weight gradient dW (O, 9C) = sum over pixels of dy[p, o] A[p, k*C +
+    c] of the columns A = `plain_deform_sample(feat, offsets, masks)`, in the
+    kernel's order: the pixels cut into `splits` contiguous ranges of whole K
+    steps (`wgrad_step_pixels`), a float32 product per range, the ranges'
+    sums added in order. bf16 feat and dy (the bf16 kernel's form; offsets
+    and masks float32): A rounded once to bf16, the products and sums in
+    float32, dW rounded once."""
+    B, H, W, C = feat.shape
+    O = dy.shape[-1]
+    M = B * H * W
+    f32 = torch.float32
+    cols = plain_deform_sample(feat, offsets, masks).reshape(M, 9 * C).to(f32)
+    dy2 = dy.reshape(M, O).to(f32)
+    kp = wgrad_step_pixels(feat.dtype)
+    steps = -(-M // kp)
+    dw = None
+    for r in range(splits):
+        lo, hi = steps * r // splits * kp, min(M, steps * (r + 1) // splits * kp)
+        part = dy2[lo:hi].t() @ cols[lo:hi]
+        dw = part if dw is None else dw + part
+    return dw.to(feat.dtype)
+
+
+def deform_conv_wgrad_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                           dy: torch.Tensor) -> torch.Tensor:
+    """Launch the weight-gradient kernel of feat's dtype (float32, or bf16
+    feat and dy with float32 offsets and masks) on the current stream (CUDA
+    tensors): dW (O, 9C) of `plain_deform_conv_wgrad` at the split count
+    `wgrad_splits` picks for the card, in feat's dtype."""
+    if feat.dim() != 4 or dy.dim() != 4:
+        raise ValueError(f"feat and dy must be (B,H,W,C) and (B,H,W,O), got {tuple(feat.shape)}, {tuple(dy.shape)}")
+    if feat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feat must be float32 or bf16, got {feat.dtype}")
+    B, H, W, C = feat.shape
+    O = dy.shape[-1]
+    expect = {"offsets": (B, H, W, 18), "masks": (B, H, W, 9), "dy": (B, H, W, O)}
+    for label, t, dtype in (("feat", feat, feat.dtype), ("offsets", offsets, torch.float32),
+                            ("masks", masks, torch.float32), ("dy", dy, feat.dtype)):
+        if label in expect and tuple(t.shape) != expect[label]:
+            raise ValueError(f"{label} must be {expect[label]} for feat {tuple(feat.shape)}, got {tuple(t.shape)}")
+        if t.device.type != "cuda" or t.device != feat.device:
+            raise ValueError(f"{label} must be a CUDA tensor on {feat.device}, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{label} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{label} must be contiguous")
+    M = B * H * W
+    sms = torch.cuda.get_device_properties(feat.device).multi_processor_count
+    splits = wgrad_splits(M, C, O, feat.dtype, sms)
+    if M * max(C, O) >= 2 ** 31 or splits * O * 9 * C >= 2 ** 31:
+        raise ValueError(f"feat {tuple(feat.shape)} with O={O} exceeds the kernel's 32-bit offsets")
+    name = WGRAD_KERNEL_BF16 if feat.dtype == torch.bfloat16 else WGRAD_KERNEL
+    part = torch.empty((splits, O, 9 * C), dtype=torch.float32, device=feat.device)
+    dw = torch.empty((O, 9 * C), dtype=feat.dtype, device=feat.device)
+    fn = build.kernel_fn(name)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feat.data_ptr(), offsets.data_ptr(), masks.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                 dw.data_ptr(), B, H, W, C, O, splits, stream)
+    build.check(name, err)
+    build.count_launch(name)
+    return dw
 
 
 def plain_deform_sample_backward(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
@@ -401,11 +498,8 @@ def tiled_deform_scatter(feat: torch.Tensor, offsets: torch.Tensor, masks: torch
 def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
     """Gradients (dx, dom, dweight, dbias) of `plain_deform_conv` given dy
     (B,H,W,O), in x's dtype, float32 or bf16 (module docstring). CUDA tensors
-    launch the data-gradient kernel of their dtype for dx and dom, and the
-    sampler for the columns of dweight (or raise); CPU tensors take the
-    plain versions. dweight and dbias are plain products (float32: full
-    float32 unless the caller turned TF32 matmuls on)."""
-    C = x.shape[-1]
+    launch the data-gradient and the weight-gradient kernels of their dtype
+    (or raise); CPU tensors take the plain versions. dbias is a plain sum."""
     O = weight.shape[0]
     dy2 = dy.reshape(-1, O)
     if x.dtype == torch.bfloat16:
@@ -417,11 +511,11 @@ def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor
         offsets = om[..., :18].contiguous()
         masks = torch.sigmoid(om[..., 18:27]).contiguous()
         dbias = dy2.sum(0)
-    cols = deform_sample(x, offsets, masks).reshape(-1, 9 * C)
-    dweight = dy2.t() @ cols
     if x.device.type == "cpu":
+        dweight = plain_deform_conv_wgrad(x, offsets, masks, dy)
         dx, dom = plain_deform_conv_dgrad(x, om, weight, dy)
     else:
+        dweight = deform_conv_wgrad_cuda(x, offsets, masks, dy)
         dx, dom = deform_conv_dgrad_cuda(x, om, weight, dy)
     return dx, dom, dweight, dbias
 

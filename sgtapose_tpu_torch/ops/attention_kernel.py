@@ -4,8 +4,10 @@ for bf16, which holds a head's K, V and a tile's bias rows in shared
 memory, and a key-tiled float32 forward for the n beyond that, as a
 42-keypoint model's levels 0 and 1 have; `csrc/biased_attention_bwd.cu`: the
 backward, one cluster launch where a (batch, head) problem fits in a
-block's shared memory, as at training's level 2, in float32 and in bf16,
-else two passes, float32 only) and their plain PyTorch versions.
+block's shared memory, as at training's level 2, in float32 and in bf16;
+else, where a head's query rows split over a cluster's 8 ranks, one
+row-split cluster launch, as at a 42-keypoint model's level 2, float32
+only; else two passes, float32 only) and their plain PyTorch versions.
 
 Counterpart of `sgtapose_tpu/ops/attention_kernel.py:fused_biased_attention`
 (a Pallas TPU kernel) and of its custom VJP `_bwd_rule` (a recompute through
@@ -48,6 +50,7 @@ KERNEL_BF16 = "biased_attention_bf16"
 KERNEL_TILED = "biased_attention_tiled"
 BWD_KERNEL = "biased_attention_bwd"
 BWD_KERNEL_BF16 = "biased_attention_bwd_bf16"
+BWD_KERNEL_ROWS = "biased_attention_bwd_rows"
 SUPPORTED_HEAD_DIMS = (4, 8, 16, 32)
 # the kernel's layout (csrc/biased_attention.cu): blocks of 8 warps, one
 # warp (ROW_LANES lanes) per query row, a 2-stage ring of bias spans
@@ -290,8 +293,66 @@ def bwd_cluster_smem_bytes(n: int, d: int) -> int:
 def bwd_uses_cluster(n: int, d: int) -> bool:
     """The backward's path: one cluster launch when a whole (batch, head)
     problem fits in one block's shared memory (level 2 of the flagship,
-    (63, 16), and (100, 8)), else the two-pass kernels (levels 0 and 1)."""
+    (63, 16), and (100, 8)); else `bwd_uses_rows` or the two-pass kernels."""
     return bwd_cluster_smem_bytes(n, d) <= _SMEM_LIMIT
+
+
+# the row-split path (csrc/biased_attention_bwd.cu): a cluster of BWD_CLUSTER
+# ranks per head, each at most 48 query rows (16 warps of 3 rows)
+BWD_ROWS_MAX = 48
+
+
+def bwd_rows_smem_bytes(n: int, d: int) -> int:
+    """Shared memory of the row-split path's rank (R = ceil(n / 8) query
+    rows): K and V in rows padded to d + 4 floats, the rank's q, O and dO
+    rows, its R x n P / dS tile (which then holds the 2 x n x d dk and dv
+    partials) and its R x n dbias rows."""
+    R = -(-n // BWD_CLUSTER)
+    return 4 * (2 * n * (d + 4) + 3 * R * d + n * max(R, 2 * d) + R * n)
+
+
+def bwd_uses_rows(n: int, d: int) -> bool:
+    """The row-split cluster path: for d <= 16 and an (n, d) beyond the
+    one-block cluster path whose query rows split over 8 ranks of at most 48
+    rows, each rank within a block's shared memory (a 42-keypoint model's level 2, (378,
+    16), and (343, 8)); beyond it, the two-pass kernels (levels 0 and 1)."""
+    return (d <= 16 and not bwd_uses_cluster(n, d) and -(-n // BWD_CLUSTER) <= BWD_ROWS_MAX
+            and bwd_rows_smem_bytes(n, d) <= _SMEM_LIMIT)
+
+
+def bwd_path(n: int, d: int) -> str:
+    """The float32 backward's path at (n, d): "cluster", "rows" or "two_pass"."""
+    if bwd_uses_cluster(n, d):
+        return "cluster"
+    return "rows" if bwd_uses_rows(n, d) else "two_pass"
+
+
+def rows_biased_attention_backward(q, k, v, bias, out, dout, ranks: int = BWD_CLUSTER):
+    """The row-split path's order of summation in plain PyTorch: rank r owns
+    the query rows [r R, r R + R), R = ceil(n / ranks); its dbias rows sum dS
+    over b = 0, 1, ... in order; its dk and dv partials dS^T q and P^T dO
+    over its rows are added in rank order, dk scaled after the sum. dq is
+    that of `plain_biased_attention_backward`, and every output equals its
+    up to the order of the float32 additions."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    n = q.shape[-2]
+    p = torch.softmax(torch.einsum("bhid,bhjd->bhij", q, k) * scale + bias, dim=-1)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhid,bhjd->bhij", dout, v) - delta)
+    dq = torch.einsum("bhij,bhjd->bhid", ds, k) * scale
+    R = -(-n // ranks)
+    dk = dv = None
+    dbias = torch.zeros_like(bias)
+    for r in range(ranks):
+        rows = slice(r * R, min(n, (r + 1) * R))
+        pk = torch.einsum("bhij,bhid->bhjd", ds[:, :, rows], q[:, :, rows])
+        pv = torch.einsum("bhij,bhid->bhjd", p[:, :, rows], dout[:, :, rows])
+        dk, dv = (pk, pv) if dk is None else (dk + pk, dv + pv)
+        acc = torch.zeros_like(bias[:, rows])
+        for b in range(q.shape[0]):
+            acc = acc + ds[b, :, rows]
+        dbias[:, rows] = acc
+    return dq, dk * scale, dv, dbias
 
 
 def cluster_biased_attention_backward(q, k, v, bias, out, dout, cluster: int = BWD_CLUSTER):
@@ -319,11 +380,14 @@ def cluster_biased_attention_backward(q, k, v, bias, out, dout, cluster: int = B
     return dq, dk, dv, dbias
 
 
-def biased_attention_bwd_cuda(q, k, v, bias, out, dout):
+def biased_attention_bwd_cuda(q, k, v, bias, out, dout, path: str | None = None):
     """Launch the float32 backward on the current stream (CUDA tensors only):
     (dq, dk, dv, dbias) of `plain_biased_attention_backward`, dbias summed
-    over the batch in a fixed order (no atomics). One launch either way: the
-    cluster path where `bwd_uses_cluster`, else the two-pass kernels."""
+    over the batch in a fixed order (no atomics). One call of one path,
+    `bwd_path(n, d)` unless `path` names another that takes (n, d): the
+    cluster path, the row-split path (its own kernel and launch count,
+    `biased_attention_bwd_rows`) or the two-pass kernels (the row-split
+    path's yardstick)."""
     _check(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_bwd_cuda needs CUDA tensors")
@@ -333,12 +397,24 @@ def biased_attention_bwd_cuda(q, k, v, bias, out, dout):
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("q, k, v, out, dout must start on a 16-byte boundary (rows are read as float4)")
     B, h, n, d = q.shape
-    cluster = bwd_uses_cluster(n, d)
-    smem = bwd_smem_bytes(n, d)
-    if not cluster and smem > _SMEM_LIMIT:
-        raise ValueError(f"n={n}, d={d}: the backward needs {smem} B of shared memory, more than {_SMEM_LIMIT}")
+    path = path or bwd_path(n, d)
+    takes = {"cluster": bwd_uses_cluster(n, d), "rows": bwd_uses_rows(n, d),
+             "two_pass": bwd_smem_bytes(n, d) <= _SMEM_LIMIT}
+    if not takes.get(path):
+        raise ValueError(f"n={n}, d={d}: the backward's {path!r} path does not take it ({takes})")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+    if path == "rows":
+        fn = build.kernel_fn(BWD_KERNEL_ROWS)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                     dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+                     B, h, n, d, stream)
+        build.check(BWD_KERNEL_ROWS, err)
+        build.count_launch(BWD_KERNEL_ROWS)
+        return dq, dk, dv, dbias
+    cluster = path == "cluster"
     scratch = 0 if cluster else (B, h, n)
     lse, delta = (torch.empty(scratch, dtype=torch.float32, device=q.device) for _ in range(2))
     fn = build.kernel_fn(BWD_KERNEL)
@@ -357,8 +433,9 @@ def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
     only): (dq, dk, dv, dbias) of `plain_biased_attention_backward_bf16`, bf16
     k, v, bias, a bf16 or float32 q, float32 out and dout; one cluster launch,
     dbias summed over the batch in a fixed order (no atomics). An (n, d)
-    beyond the cluster path raises NotImplementedError: it needs the two-pass
-    bf16 backward (ROADMAP.md Queue 1 item 10, `--bf16 --depth`)."""
+    beyond the cluster path raises NotImplementedError: it needs the bf16
+    instantiation of the row-split path, whose body is templated for it
+    (ROADMAP.md Queue 1 item 10, `--bf16 --depth`)."""
     _check(q, k, v, bias, bf16=True, smem=False)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_bwd_bf16_cuda needs CUDA tensors")
@@ -371,7 +448,7 @@ def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
     if not bwd_uses_cluster(n, d):
         raise NotImplementedError(
             f"biased attention backward in bf16 at (n, d) = {(n, d)}: beyond the one-pass cluster path "
-            "(a 42-keypoint model's --bf16 --depth training needs the two-pass bf16 backward, "
+            "(a 42-keypoint model's --bf16 --depth training needs the bf16 row-split backward, "
             "ROADMAP.md Queue 1 item 10)")
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

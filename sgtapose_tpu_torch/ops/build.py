@@ -34,7 +34,7 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # kernel name -> source file under csrc/ (the bf16 kernels, of serving and
 # of bf16 training, are the second instantiation of their float32 kernel's
 # design, in the same source; the key-tiled attention shares the attention
-# source)
+# source, the row-split attention backward the backward's)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -48,6 +48,9 @@ KERNEL_SOURCES = {
     "biased_attention_bwd_bf16": "biased_attention_bwd.cu",
     "deform_conv_dgrad_bf16": "deform_conv_bwd.cu",
     "deform_sample_bf16": "deform_sample.cu",
+    "biased_attention_bwd_rows": "biased_attention_bwd.cu",
+    "deform_conv_wgrad": "deform_conv_wgrad.cu",
+    "deform_conv_wgrad_bf16": "deform_conv_wgrad.cu",
 }
 
 NVCC_FLAGS = (
@@ -84,6 +87,12 @@ _SIGNATURES = {
     "deform_conv_dgrad_bf16": ("deform_conv_dgrad_bf16", [_P] * 8 + [_I, _I, _I, _I, _I, _P]),
     # feat (bf16), offsets, masks (float32), out (bf16), B, H, W, C, stream
     "deform_sample_bf16": ("deform_sample_bf16_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, d, stream
+    "biased_attention_bwd_rows": ("biased_attention_bwd_rows", [_P] * 10 + [_I, _I, _I, _I, _P]),
+    # x, offsets, masks, dy, part (scratch), dw, B, H, W, C, O, splits, stream
+    "deform_conv_wgrad": ("deform_conv_wgrad", [_P] * 6 + [_I] * 6 + [_P]),
+    # the same with bf16 x, dy and dw
+    "deform_conv_wgrad_bf16": ("deform_conv_wgrad_bf16", [_P] * 6 + [_I] * 6 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -40,6 +40,14 @@ KERNEL_MODULES = {
                                "deform_conv_dgrad_cuda"),
     "deform_sample_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample",
                            "deform_sample_cuda"),
+    # the row-split path has its own kernel behind the backward's wrapper;
+    # the weight gradient's wrapper launches the float32 or the bf16 kernel
+    "biased_attention_bwd_rows": ("sgtapose_tpu_torch.ops.attention_kernel", "rows_biased_attention_backward",
+                                  "biased_attention_bwd_cuda"),
+    "deform_conv_wgrad": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv_wgrad",
+                          "deform_conv_wgrad_cuda"),
+    "deform_conv_wgrad_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv_wgrad",
+                               "deform_conv_wgrad_cuda"),
 }
 
 
@@ -65,5 +73,6 @@ def test_every_kernel_has_its_plain_version(name):
     assert callable(getattr(mod, plain)) and callable(getattr(mod, wrapper))
     names = {getattr(mod, a, None)
              for a in ("KERNEL", "KERNEL_BF16", "KERNEL_TILED", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
-                      "DGRAD_KERNEL", "BWD_KERNEL_BF16", "DGRAD_KERNEL_BF16")}
+                      "DGRAD_KERNEL", "BWD_KERNEL_BF16", "DGRAD_KERNEL_BF16", "BWD_KERNEL_ROWS", "WGRAD_KERNEL",
+                      "WGRAD_KERNEL_BF16")}
     assert name in names

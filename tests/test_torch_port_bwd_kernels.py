@@ -12,6 +12,11 @@ tests/test_torch_port_cuda.py and chip_smoke.py).
 - `cluster_biased_attention_backward`, the cluster path's rank-ordered dbias
   sum, against `plain_biased_attention_backward` and JAX's vjp of
   `_xla_attention` within 1e-5 of max(1, max|ref|).
+- `rows_biased_attention_backward`, the row-split path's order of summation
+  (rank-ordered dk and dv partials, b-ordered dbias rows), against JAX's vjp
+  of `_xla_attention` within 2e-4 of max(1, max|ref|) (the JAX package's
+  Pallas-vs-XLA bar) and against `plain_biased_attention_backward` within
+  1e-5 (float32 sums in another order).
 - The attention backward's choice of path by shared-memory size.
 """
 
@@ -116,11 +121,40 @@ def test_cluster_dbias_order_matches_plain_and_jax(n, d, B):
         _close(p.numpy(), pl.numpy(), 1e-5, name)
 
 
-@pytest.mark.parametrize("n,d,cluster", [(63, 16, True), (100, 8, True), (343, 8, False), (1183, 4, False)])
-def test_attention_backward_path_choice(n, d, cluster):
-    """Level 2 and the ragged (100, 8) fit a block's shared memory; levels 1
-    and 0 take the two-pass kernels, whose row pass still fits."""
-    assert tak.bwd_uses_cluster(n, d) is cluster
-    assert (tak.bwd_cluster_smem_bytes(n, d) <= 227 * 1024) is cluster
-    if not cluster:
+@pytest.mark.parametrize("n,d,B", [(378, 16, 1), (378, 16, 2), (378, 16, 3), (200, 8, 2)])
+def test_row_split_order_matches_plain_and_jax(n, d, B):
+    """A 42-keypoint model's level 2 at B = 1, 2, 3 (its last rank owns 42
+    rows of 48) and a ragged (200, 8), 25 rows a rank."""
+    rs = np.random.RandomState(n + d + 10 * B)
+    q, k, v, g = (rs.randn(B, 8, n, d).astype(np.float32) for _ in range(4))
+    bias = (0.3 * rs.randn(8, n, n)).astype(np.float32)
+    _, vjp = jax.vjp(_xla_attention, *(jnp.asarray(a) for a in (q, k, v, bias)))
+    ref = vjp(jnp.asarray(g))
+    tq, tk, tv, tb = (_t(a) for a in (q, k, v, bias))
+    out = tak.plain_biased_attention(tq, tk, tv, tb)
+    port = tak.rows_biased_attention_backward(tq, tk, tv, tb, out, _t(g))
+    plain = tak.plain_biased_attention_backward(tq, tk, tv, tb, out, _t(g))
+    for name, p, r, pl in zip(("dq", "dk", "dv", "dbias"), port, ref, plain):
+        assert p.shape == r.shape
+        _close(p.numpy(), r, 2e-4, name)
+        _close(p.numpy(), pl.numpy(), 1e-5, name)
+
+
+@pytest.mark.parametrize("n,d,path", [(63, 16, "cluster"), (100, 8, "cluster"), (343, 8, "rows"),
+                                      (1183, 4, "two_pass"), (378, 16, "rows"), (200, 8, "rows"),
+                                      (385, 16, "two_pass"), (378, 32, "two_pass")])
+def test_attention_backward_path_choice(n, d, path):
+    """Level 2 and the ragged (100, 8) fit a block's shared memory; a
+    42-keypoint model's level 2, (378, 16), and the flagship's level 1,
+    (343, 8), split their query rows over a cluster's 8 ranks (each within
+    48 rows and a block's shared memory); level 0, (1183, 4), n = 385 (49
+    rows a rank) and d = 32 take the two-pass kernels, whose row pass still
+    fits."""
+    assert tak.bwd_path(n, d) == path
+    assert tak.bwd_uses_cluster(n, d) is (path == "cluster")
+    assert tak.bwd_uses_rows(n, d) is (path == "rows")
+    assert (tak.bwd_cluster_smem_bytes(n, d) <= 227 * 1024) is (path == "cluster")
+    if path == "rows":
+        assert tak.bwd_rows_smem_bytes(n, d) <= 227 * 1024 and -(-n // 8) <= 48
+    if path == "two_pass":
         assert tak.bwd_smem_bytes(n, d) <= 227 * 1024

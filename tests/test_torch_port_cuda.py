@@ -228,27 +228,52 @@ def _rel_err(a, b):
 
 
 @pytest.mark.parametrize("n,d,B", [(1183, 4, 8), (343, 8, 8), (63, 16, 8), (100, 8, 2), (33, 8, 2),
-                                   (1, 4, 2), (63, 16, 1), (63, 16, 9), (100, 8, 8), (378, 16, 2)])
+                                   (1, 4, 2), (63, 16, 1), (63, 16, 9), (100, 8, 8), (378, 16, 2),
+                                   (378, 16, 8), (200, 8, 3), (384, 16, 1)])
 def test_biased_attention_bwd_kernel_matches_plain(dev, n, d, B):
     """The flagship shapes at the training batch of 8, and ragged n; n <= 100
     takes the cluster path (B = 9: a rank sums two batch elements); (378,
-    16) is a 42-keypoint model's level 2 at the --depth training batch (two
-    passes)."""
+    16) is a 42-keypoint model's level 2 at the --depth training batch (the
+    row-split path, its own kernel and launch count), as are (343, 8), the
+    ragged (200, 8) and (384, 16), the row-split path's largest n at d = 16;
+    (1183, 4) takes the two passes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(n * d + B)
     q, k, v, dout = (torch.randn(B, 8, n, d, generator=g, device=dev) for _ in range(4))
     bias = 0.3 * torch.randn(8, n, n, generator=g, device=dev)
     out = attention_kernel.plain_biased_attention(q, k, v, bias)
-    before = build.launch_counts()["biased_attention_bwd"]
+    name = "biased_attention_bwd_rows" if attention_kernel.bwd_path(n, d) == "rows" else "biased_attention_bwd"
+    before = build.launch_counts()[name]
     got = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, out, dout)
     torch.cuda.synchronize()
-    assert build.launch_counts()["biased_attention_bwd"] == before + 1
+    assert build.launch_counts()[name] == before + 1
     ref = attention_kernel.plain_biased_attention_backward(q, k, v, bias, out, dout)
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= BWD_REL, (name, _rel_err(a, b))
     again = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, out, dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: reproducible
+
+
+def test_row_split_attention_bwd_yardstick_matches_plain(dev):
+    """A 42-keypoint level 2 through the two-pass path, the row-split
+    path's yardstick, and through the row-split path: both hold against the
+    plain version, each under its own launch count."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, dout = (torch.randn(2, 8, 378, 16, generator=g, device=dev) for _ in range(4))
+    bias = 0.3 * torch.randn(8, 378, 378, generator=g, device=dev)
+    out = attention_kernel.plain_biased_attention(q, k, v, bias)
+    ref = attention_kernel.plain_biased_attention_backward(q, k, v, bias, out, dout)
+    for path, name in (("two_pass", "biased_attention_bwd"), ("rows", "biased_attention_bwd_rows")):
+        before = build.launch_counts()
+        got = attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, out, dout, path=path)
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        assert {kn: after[kn] - before[kn] for kn in after if after[kn] != before[kn]} == {name: 1}
+        for a, b in zip(got, ref):
+            assert _rel_err(a, b) <= BWD_REL, (path, _rel_err(a, b))
+    with pytest.raises(ValueError, match="path"):
+        attention_kernel.biased_attention_bwd_cuda(q, k, v, bias, out, dout, path="cluster")
 
 
 @pytest.mark.parametrize("H,W,C", [(15, 15, 512), (30, 30, 256), (60, 60, 128), (120, 120, 64), (9, 11, 6)])
@@ -303,8 +328,9 @@ def test_training_gradients_reach_every_parameter_on_the_card(dev):
         (out_gpu * w.to(dev)).sum().backward()
         torch.cuda.synchronize()
         after = build.launch_counts()
-        bwd = "deform_conv_dgrad" if mod is dcn else "biased_attention_bwd"
-        assert after[bwd] == before[bwd] + 1
+        for bwd in (("deform_conv_dgrad", "deform_conv_wgrad") if mod is dcn else ("biased_attention_bwd",)):
+            assert after[bwd] == before[bwd] + 1
+        assert after["deform_sample"] == before["deform_sample"]
         for (name, p), q in zip(mod.named_parameters(), mod_gpu.parameters()):
             assert q.grad is not None and q.grad.abs().max().item() > 0, name
             assert _rel_err(q.grad.cpu(), p.grad) <= BWD_REL, (name, _rel_err(q.grad.cpu(), p.grad))
@@ -517,11 +543,41 @@ def test_bf16_training_gradients_on_the_card(dev):
             if where == "card16":
                 torch.cuda.synchronize()
                 after = build.launch_counts()
-                bwd = "deform_conv_dgrad_bf16" if mod is dcn else "biased_attention_bwd_bf16"
-                assert after[bwd] == before[bwd] + 1
+                for bwd in (("deform_conv_dgrad_bf16", "deform_conv_wgrad_bf16") if mod is dcn
+                            else ("biased_attention_bwd_bf16",)):
+                    assert after[bwd] == before[bwd] + 1
+                assert after["deform_sample_bf16"] == before["deform_sample_bf16"]
             grads[where] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
             assert all(p.grad.dtype == dtype for p in m.parameters())
         for name, ref in grads["cpu32"].items():
             gap = _rel_err(grads["cpu16"][name], ref)
             err = _rel_err(grads["card16"][name], ref)
             assert err <= 2 * gap + 2.0 ** -6, (name, err, gap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,O,span", DGRAD_SHAPES)
+def test_deform_conv_wgrad_kernel_matches_plain(dev, B, H, W, C, O, span, dtype):
+    """The weight gradient at the data gradient's shapes (O = 5: the bf16
+    scalar-pair variant), against the plain version at the
+    kernel's split of the pixels: float32 within BWD_REL (3xTF32, sums in
+    another order), bf16 within BWD_BF16_REL; dW the same bit for bit in two
+    runs (the splits are added in a fixed order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(H * C + O + 5)
+    x = torch.randn(B, H, W, C, generator=g, device=dev).to(dtype)
+    offsets = (torch.rand(B, H, W, 18, generator=g, device=dev) * 2 - 1) * span
+    masks = torch.sigmoid(2 * torch.randn(B, H, W, 9, generator=g, device=dev))
+    dy = torch.randn(B, H, W, O, generator=g, device=dev).to(dtype)
+    name = "deform_conv_wgrad" if dtype == torch.float32 else "deform_conv_wgrad_bf16"
+    before = build.launch_counts()[name]
+    dw = deform_conv.deform_conv_wgrad_cuda(x, offsets, masks, dy)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = deform_conv.wgrad_splits(B * H * W, C, O, dtype, sms)
+    ref = deform_conv.plain_deform_conv_wgrad(x, offsets, masks, dy, splits)
+    assert dw.dtype == ref.dtype == dtype and dw.shape == (O, 9 * C)
+    bar = BWD_REL if dtype == torch.float32 else BWD_BF16_REL
+    assert _rel_err(dw.float(), ref.float()) <= bar, _rel_err(dw.float(), ref.float())
+    assert torch.equal(dw, deform_conv.deform_conv_wgrad_cuda(x, offsets, masks, dy))
