@@ -152,7 +152,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      the same launches asserted per step, stage times, steps/s and peak
      device memory; (e) `cli/train.main --bf16` for 1 epoch on phase 13's (A) set
      with validation and mosaics, which run the float32 parameters;
- 15. a `{"kernels": [...]}` line, the card line, and last the device line
+ 15. the arch zoo at 480x480 with seeded weights: (a) the exact runner over
+     4 frames for the global variant (`--arch dlapa_34`, PlanA), the
+     window-dense one (dlapawd_34), the concat baseline (dlapacat_34,
+     PlanACAT, its decoder at double width), the ablation in its 3 wirings
+     and the single-frame model in the CenterTrack and CenterNet wirings,
+     and the bf16 exact runner for the global variant: fps, stage times and
+     launches asserted per frame (18 no-bias attention launches per global
+     frame); (b) the no-bias attention kernels (float32 and bf16) against
+     their plain versions at the global variant's (28, d), d = 4 ... 128:
+     the forward at batch 1, 4 and 8, the backward at 4 and 8 (every output
+     the same bit for bit in two runs), with cold / plain / SDPA times and
+     bounds; (c) `cli/train.main` for one epoch on phase 13 (A)'s set at
+     batch 4 for the global variant (float32 and --bf16), the
+     three-frame variant (--phase PlanA_three, three-frame windows) and the
+     concat baseline (--phase PlanACAT, the DCN backward at its
+     double-width decoder), with launches asserted per step, stage times, steps/s and peak memory; the
+     global variant's eval-mode 480x480 gradient card vs CPU float64 at
+     phase 11's bars; (d) phase 11's checkpoint through `cli/convert.py`
+     (its template state on the card) to a reference-format .pth and back (the same tensors bit for bit, the
+     same keypoints), then `cli/train.main --init_backbone` (at lr 0) from
+     the port's own ImageNet-format export of its trunk;
+ 16. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 The detector runs of phase 9 take 8 frames each (16 before the training
@@ -289,7 +310,11 @@ DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "d
                 "deform_conv_dgrad_bf16": "deform_conv_dgrad_bf16_",
                 "deform_sample_bf16": "deform_sample_bf16_kernel",
                 "biased_attention_bwd_rows": "biased_attention_rows_bwd_kernel",
-                "deform_conv_wgrad": "deform_conv_wgrad_", "deform_conv_wgrad_bf16": "deform_conv_bf16_wgrad_"}
+                "deform_conv_wgrad": "deform_conv_wgrad_", "deform_conv_wgrad_bf16": "deform_conv_bf16_wgrad_",
+                "biased_attention_nobias": "attention_nobias_kernel",
+                "biased_attention_nobias_bf16": "attention_nobias_bf16_kernel",
+                "biased_attention_bwd_nobias": "attention_bwd_nobias_kernel",
+                "biased_attention_bwd_nobias_bf16": "attention_bwd_nobias_bf16_kernel"}
 
 
 def kernel_device_ms(events, kernel: str) -> float:
@@ -952,11 +977,14 @@ def main() -> int:
         # ---- 14. bf16 training ---------------------------------------------
         bf16_train = bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
         report["bf16_training"] = bf16_train
+        # ---- 15. the arch zoo ----------------------------------------------
+        zoo = zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64)
+        report["zoo"] = zoo
         del ref64
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 15. kernels line --------------------------------------------------
+    # ---- 16. kernels line --------------------------------------------------
     per_frame = shape_sum
 
     rates = {"biased_attention": "67 TFLOP/s float32 FMA", "deform_sample": "67 TFLOP/s float32 FMA",
@@ -1087,6 +1115,7 @@ def main() -> int:
         "shapes_note": "level 2 of a 42-keypoint model at phase 13's --depth batch of 2, per --depth step"})
     bf16_train["deform_conv_wgrad_bf16_shapes"] = wgrad_rows[bf16]
     kernels += bf16_kernel_rows(bf16_train, per_frame)
+    kernels += zoo_kernel_rows(zoo, per_frame)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -1312,20 +1341,22 @@ def grad_errors(got, ref, live):
     return {"worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3], "l2": l2}
 
 
-def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep):
+def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep, phase="PlanA_win", expect=None):
     """0b of phase 11: the loss's parameter gradients at 480x480, batch 1,
     BatchNorm in eval mode (running statistics), seeded weights with the
     zero-initialised ones perturbed, DCN offset/mask convs included: the
     card in float32 against the CPU in float64 (plain versions), at
     EVAL_GRAD_WORST_TOL per tensor and EVAL_GRAD_L2_TOL in L2. The float64
-    gradients and the batch are left in `keep` (a dict) for phase 14's bf16
-    gradient."""
+    gradients and the batch are left in `keep` (a dict, unless None) for
+    phase 14's bf16 gradient. Phase 15 runs it for the global variant
+    (cfg.model.arch, `phase`'s inputs, the launches `expect`)."""
     from sgtapose_tpu_torch.models.sgta import create_model
     from sgtapose_tpu_torch.ops import build
     from sgtapose_tpu_torch.train.loss import sgta_loss
-    from sgtapose_tpu_torch.train.phases import model_inputs
+    from sgtapose_tpu_torch.train.phases import model_inputs, model_wiring
 
-    model_64 = create_model(cfg.model, device="cpu", seed=0)
+    model_cfg, tracking = model_wiring(cfg.model, phase)
+    model_64 = create_model(model_cfg, device="cpu", seed=0, tracking=tracking)
     perturb_zero_init(model_64, torch.Generator().manual_seed(1))
     model_gpu = copy.deepcopy(model_64).to(dev).eval()
     model_64 = model_64.double().eval()
@@ -1336,19 +1367,20 @@ def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep):
         t0 = time.perf_counter()
         build.reset_launch_counts()
         with plain_autograd() if where == "cpu_float64" else contextlib.nullcontext():
-            loss, _ = sgta_loss(model(*model_inputs("PlanA_win", batch)), batch)
+            loss, _ = sgta_loss(model(*model_inputs(phase, batch)), batch)
             loss.backward()
         if where == "card":
             torch.cuda.synchronize()
             launched = build.launch_counts()
         seconds[where] = time.perf_counter() - t0
         grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
-    expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16, deform_conv_wgrad=16,
-                  deform_conv_dgrad=16)
+    expect = expect or dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16,
+                            deform_conv_wgrad=16, deform_conv_dgrad=16)
     if launched != expect:
         raise AssertionError(f"eval-mode gradient launches {launched}, expected {expect}")
     ref = grads["cpu_float64"]
-    keep.update(grads=ref, batch=batch_cpu)
+    if keep is not None:
+        keep.update(grads=ref, batch=batch_cpu)
     if set(grads["card"]) != set(ref):
         raise AssertionError("card and reference reach different parameters")
     live = [name for name, g in ref.items() if g.abs().max().item() > 1e-6]
@@ -1361,7 +1393,7 @@ def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep):
         mod = name.rsplit(".", 2)[0]
         e = ((grads["card"][name] - ref[name]).abs().max() / ref[name].abs().max()).item()
         res["by_module"][mod] = max(res["by_module"].get(mod, 0.0), e)
-    print("eval-mode gradient 480x480 batch 1, offsets perturbed, card vs float64: "
+    print(f"eval-mode gradient {cfg.model.arch} {phase} 480x480 batch 1, offsets perturbed, card vs float64: "
           + json.dumps({k: v for k, v in res.items() if k != "by_module"}))
     worst = res["worst"][0][1]
     if not math.isfinite(worst) or worst > EVAL_GRAD_WORST_TOL or not res["l2"] <= EVAL_GRAD_L2_TOL:
@@ -2094,6 +2126,284 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
     print("train cli --bf16: " + json.dumps(out["train_cli"]))
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+# phase 15, the arch zoo: (arch, phase, launches per frame of the exact
+# runner) of every variant served, 4 frames each at 480x480
+ZOO_FRAMES = 4
+ZOO_SERVING = [("dlapa_34", "PlanA", dict(biased_attention_nobias=18, deform_conv=16)),
+               ("dlapawd_34", "PlanA_win", dict(biased_attention=9, deform_conv=16)),
+               ("dlapacat_34", "PlanACAT", dict(deform_conv=16)),
+               ("dlaabla_34", "ablation_shared_repro", dict(deform_conv=16)),
+               ("dlaabla_34", "ablation_shared", dict(deform_conv=16)),
+               ("dlaabla_34", "ablation_wo_shared", dict(deform_conv=16)),
+               ("dlaseg_34", "CenterTrack", dict(deform_conv=16)),
+               ("dlaseg_34", "CenterNet", dict(deform_conv=16))]
+GLOBAL_DIMS = (4, 8, 16, 32, 64, 128)  # SGTAPoseGlobal's head dim per level
+GLOBAL_TOKENS = 28
+ZOO_TRAIN_BATCH = 4  # phase 13 (A)'s batch
+
+
+def zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64):
+    """Phase 15 (module docstring): the arch zoo on the card. (a) the exact
+    runner over ZOO_FRAMES frames for every variant and phase of
+    ZOO_SERVING, and the bf16 exact runner for the global variant, launches
+    asserted per frame; (b) the no-bias attention kernels against their plain
+    versions at the global variant's (28, d), forward at B = 1, 4, 8 and the
+    backward at B = 4, 8, float32 and bf16, with cold / plain / SDPA times and
+    bounds; (c) `cli/train.main` for one epoch on phase 13 (A)'s set at batch
+    4 for the global variant (float32 and --bf16), the three-frame variant
+    (three-frame windows) and the concat baseline (its double-width
+    decoder's DCN backward), launches asserted per step, and the global
+    variant's eval-mode 480x480 gradient card vs CPU float64 at phase 11's
+    bars; (d) phase 11's checkpoint through `cli/convert.py` on the card to
+    a .pth and back (the same tensors bit for bit, the same keypoints), then
+    `cli/train.main --init_backbone` from the port's own ImageNet-format
+    export of its trunk."""
+    import torch.nn.functional as F
+
+    from sgtapose_tpu_torch.cli import convert as convert_cli, train as train_cli
+    from sgtapose_tpu_torch.data import synthetic
+    from sgtapose_tpu_torch.infer import detector as det_lib
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.ops import attention_kernel as ak, build
+    from sgtapose_tpu_torch.train.phases import model_wiring
+    from sgtapose_tpu_torch.utils import torch_convert
+    from sgtapose_tpu_torch.utils.precision import bf16_inference_model
+
+    out = {}
+    t_phase = time.perf_counter()
+    h = cfg.model.n_heads
+    n_layers = cfg.model.num_decoder_layers
+    bf16 = torch.bfloat16
+
+    # ---- (a) serving every variant ---------------------------------------
+    projs, raw, _ = synthetic.make_sequence(torch.Generator().manual_seed(21), ZOO_FRAMES,
+                                            return_pos_cam=True, device=dev)
+    images, _, _ = det_lib.preprocess_frames(raw, cfg)
+    x3d = synthetic.skeleton(dev)[None].expand(ZOO_FRAMES, -1, -1).contiguous()
+    video = det_lib.VideoFrames(images=images, x3d=x3d, teacher_kps=projs)
+    K, raw_hw = synthetic.camera_K(dev), (synthetic.RAW_H, synthetic.RAW_W)
+    K_ = cfg.model.num_classes
+    shapes = {"detected_kps": (ZOO_FRAMES, K_, 2), "scores": (ZOO_FRAMES, K_), "tracking": (ZOO_FRAMES, K_, 2)}
+    timer = StageTimer()
+    serving = {}
+    runs = list(ZOO_SERVING) + [("dlapa_34", "PlanA",
+                                 dict(biased_attention_nobias_bf16=18, deform_conv_bf16=16), "bf16")]
+    for arch, phase, per_frame, *dtype in runs:
+        name = f"{arch}/{phase}" + ("/bf16" if dtype else "")
+        model_cfg, tracking = model_wiring(dataclasses.replace(cfg.model, arch=arch), phase)
+        zcfg = dataclasses.replace(cfg, model=model_cfg)
+        model = create_model(model_cfg, device=dev, seed=0, tracking=tracking)
+        if dtype:
+            model = bf16_inference_model(model)
+        detector = det_lib.make_video_detector(model, zcfg, K, raw_hw, device=dev, stage_timer=timer, phase=phase)
+        detector(slice_frames(video, 2))  # first use
+        torch.cuda.synchronize()
+        timer.reset()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = detector(video)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = build.launch_counts()
+        expect = dict(no_launches, **{k: n * ZOO_FRAMES for k, n in per_frame.items()})
+        if counts != expect:
+            raise AssertionError(f"zoo serving {name}: launch counts {counts}, expected {expect}")
+        check_result(res, shapes)
+        run = {"fps": ZOO_FRAMES / wall, "wall_s": wall, "stage_ms_per_frame": timer.per_frame_ms(ZOO_FRAMES),
+               "launches": {k: v for k, v in counts.items() if v},
+               "valid_detections": int((res.detected_kps > det_lib.KP_SENTINEL).all(-1).sum())}
+        print(f"zoo serving {name}: " + json.dumps(run))
+        serving[name] = run
+        del model, detector
+    out["serving"] = serving
+
+    # ---- (b) the no-bias kernels against their plain versions --------------
+    n = GLOBAL_TOKENS
+    fwd_rows, bwd_rows = [], []
+    for dt in (torch.float32, bf16):
+        for d in GLOBAL_DIMS:
+            for B in (1, 4, 8):
+                q, k, v = (torch.randn(B, h, n, d, generator=gen, device=dev) for _ in range(3))
+                if dt == bf16:  # the first tied layer: q bf16
+                    q, k, v = q.to(bf16), k.to(bf16), v.to(bf16)
+                    plain, kern = ak.plain_biased_attention_bf16, ak.biased_attention_bf16_cuda
+                    tol = 1e-3  # tests/test_torch_port_cuda.py's bf16 forward bar
+                else:
+                    plain, kern = ak.plain_biased_attention, ak.biased_attention_cuda
+                    tol = ATTN_TOL
+                got = kern(q, k, v, None)
+                torch.cuda.synchronize()
+                err = (got - plain(q, k, v, None)).abs().max().item()
+                if not math.isfinite(err) or err > tol:
+                    raise AssertionError(f"no-bias attention {dt} d={d} B={B}: max abs err {err} > {tol}")
+                el = 2 if dt == bf16 else 4
+                b_ms, b_by = bound_ms(3 * el * B * h * n * d + 4 * B * h * n * d, B * h * n * n * (4 * d + 4))
+                row = dict(dtype=str(dt).replace("torch.", ""), n=n, d=d, B=B, per_frame=n_layers if B == 1 else 0,
+                           max_abs_err=err, ms=cold_ms(lambda: kern(q, k, v, None)),
+                           plain_ms=cold_ms(lambda: plain(q, k, v, None)),
+                           library_ms=cold_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                           bound_ms=b_ms, bound_by=b_by)
+                fwd_rows.append(row)
+                print("attention_nobias " + json.dumps(row))
+                if B == 1:
+                    continue
+                # the backward at the training batches; per step at phase 13's
+                # batch of 4, levels 2-5 (levels 0 and 1 feed no head)
+                o = plain(q, k, v, None)
+                dout = torch.randn(B, h, n, d, generator=gen, device=dev)
+                got = ak.attention_bwd_nobias_cuda(q, k, v, o, dout)
+                torch.cuda.synchronize()
+                pl = ak.plain_biased_attention_backward_bf16 if dt == bf16 else ak.plain_biased_attention_backward
+                ref = pl(q, k, v, None, o, dout)
+                err = max(rel_err(a.float(), b.float()) for a, b in zip(got, ref[:3]))
+                tol = BWD_BF16_REL_TOL if dt == bf16 else BWD_REL_TOL
+                if not math.isfinite(err) or err > tol:
+                    raise AssertionError(f"no-bias attention backward {dt} d={d} B={B}: rel err {err} > {tol}")
+                again = ak.attention_bwd_nobias_cuda(q, k, v, o, dout)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"no-bias attention backward {dt} d={d} B={B}: reruns differ")
+                leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                sd_out = F.scaled_dot_product_attention(*leaves)
+
+                def sdpa_bwd():
+                    torch.autograd.grad(sd_out, leaves, dout.to(sd_out.dtype), retain_graph=True)
+
+                b_ms, b_by = bound_ms(3 * el * B * h * n * d + 8 * B * h * n * d + 3 * el * B * h * n * d,
+                                      B * h * n * n * (10 * d + 5))
+                row = dict(dtype=str(dt).replace("torch.", ""), n=n, d=d, B=B,
+                           per_step=n_layers if (B == ZOO_TRAIN_BATCH and d >= 16) else 0,
+                           max_abs_err=err, ms=cold_ms(lambda: ak.attention_bwd_nobias_cuda(q, k, v, o, dout)),
+                           plain_ms=cold_ms(lambda: pl(q, k, v, None, o, dout)), library_ms=cold_ms(sdpa_bwd),
+                           bound_ms=b_ms, bound_by=b_by)
+                bwd_rows.append(row)
+                print("attention_bwd_nobias " + json.dumps(row))
+    out["nobias_forward_shapes"], out["nobias_backward_shapes"] = fwd_rows, bwd_rows
+
+    # ---- (c) training the zoo through cli/train ----------------------------
+    syn = os.path.join(work, "train_syn")  # phase 13 (A)'s set
+    step16 = dict(deform_conv=16, deform_conv_dgrad=16, deform_conv_wgrad=16)
+    trains = [("global", ["--arch", "dlapa_34", "--phase", "PlanA"],
+               dict(step16, biased_attention_nobias=18, biased_attention_bwd_nobias=12)),
+              ("three", ["--arch", "dlapawd3_34", "--phase", "PlanA_three"],
+               dict(step16, biased_attention=18, biased_attention_bwd=6)),
+              # the DCN kernels' backward at the double-width decoder (C up to 1024)
+              ("cat", ["--arch", "dlapacat_34", "--phase", "PlanACAT"], step16),
+              ("global_bf16", ["--arch", "dlapa_34", "--phase", "PlanA", "--bf16"],
+               dict(biased_attention_nobias_bf16=18, biased_attention_bwd_nobias_bf16=12, deform_conv_bf16=16,
+                    deform_conv_dgrad_bf16=16, deform_conv_wgrad_bf16=16))]
+    out["train_cli"] = {}
+    for name, flags, per_step in trains:
+        timer = StageTimer()
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_cli.main(["--dataset", syn, "--output_dir", os.path.join(work, f"zoo_{name}"),
+                              "--num_epochs", "1", "--batch_size", str(ZOO_TRAIN_BATCH), "--log_every", "1",
+                              "--image_log_every", "0", "--device", "cuda"] + flags, stage_timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = res["state"].step
+        counts = build.launch_counts()
+        expect = dict(no_launches, **{k: c * steps for k, c in per_step.items()})
+        if steps != 2 or counts != expect:
+            raise AssertionError(f"zoo train cli {name}: {steps} steps, launches {counts}, expected {expect}")
+        stage_ms = timer.per_frame_ms(steps)
+        step_ms = sum(stage_ms.get(st, 0.0) for st in CLI_STAGES)
+        rec = {"steps": steps, "wall_s_with_setup": wall, "launches": {k: v for k, v in counts.items() if v},
+               "stage_ms_per_step": {st: stage_ms.get(st, 0.0) for st in CLI_STAGES}, "step_ms": step_ms,
+               "steps_per_s": 1e3 / step_ms, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "model": type(res["state"].model).__name__}
+        print(f"zoo train cli {name}: " + json.dumps(rec))
+        out["train_cli"][name] = rec
+        del res
+    gcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, arch="dlapa_34"))
+    out["global_grad_eval_mode_vs_float64"] = eval_mode_gradient_check(
+        torch, dev, gcfg, ref64["batch"], no_launches, None, phase="PlanA",
+        expect=dict(no_launches, biased_attention_nobias=18, biased_attention_bwd_nobias=12, deform_conv=16,
+                    deform_conv_wgrad=16, deform_conv_dgrad=16))
+
+    # ---- (d) the converter on the card -------------------------------------
+    pth, back = os.path.join(work, "flagship.pth"), os.path.join(work, "flagship_back.pt")
+    t0 = time.perf_counter()
+    convert_cli.main(["--ckpt", ckpt, "--out_pth", pth])
+    report = convert_cli.main(["--torch_ckpt", pth, "--out", back])
+    if not report["device"].startswith("cuda"):
+        raise AssertionError(f"converter: its template state is on {report['device']}, not the card")
+    if report["missing"] or report["mismatched"] or report["unused_ref_keys"]:
+        raise AssertionError(f"converter round trip: {report}")
+    first = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    second = torch.load(back, map_location="cpu", weights_only=True)["model"]
+    differ = [k for k in first if not torch.equal(first[k], second[k])]
+    if set(first) != set(second) or differ:
+        raise AssertionError(f"converter round trip: tensors differ: {differ[:5]}")
+    kps = []
+    for path in (ckpt, back):
+        model = create_model(cfg.model, device=dev, seed=0)
+        model.load_state_dict(torch.load(path, map_location=dev, weights_only=True)["model"])
+        kps.append(det_lib.make_video_detector(model.eval(), cfg, K, raw_hw, device=dev)(video).detected_kps)
+    if not torch.equal(kps[0], kps[1]):
+        raise AssertionError("converter round trip: the keypoints differ")
+    conv = {"seconds": time.perf_counter() - t0, "n_converted": report["n_converted"],
+            "valid_detections": int((kps[0] > det_lib.KP_SENTINEL).all(-1).sum())}
+    # --init_backbone from the port's own ImageNet-format export of that
+    # checkpoint's trunk, at lr 0: the trunk's convolutions stay the donor's
+    donor = create_model(cfg.model, device="cpu", seed=0)
+    donor.load_state_dict(first)
+    inet = os.path.join(work, "dla34_imagenet.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in torch_convert.export_imagenet_dla34(donor).items()}, inet)
+    build.reset_launch_counts()
+    res = train_cli.main(["--dataset", syn, "--output_dir", os.path.join(work, "zoo_init"), "--num_epochs", "1",
+                          "--batch_size", str(ZOO_TRAIN_BATCH), "--image_log_every", "0", "--lr", "0",
+                          "--init_backbone", inet, "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = res["state"].model.state_dict()
+    convs = [k for k, t in first.items() if k.startswith("base.") and t.dim() == 4]
+    if not convs or not all(torch.equal(got[k].cpu(), first[k]) for k in convs):
+        raise AssertionError("--init_backbone: the trunk's convolutions are not the donor's")
+    conv["init_backbone_steps"] = res["state"].step
+    conv["init_backbone_launches"] = {k: v for k, v in build.launch_counts().items() if v}
+    print("zoo converter: " + json.dumps(conv))
+    out["converter"] = conv
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def zoo_kernel_rows(zoo, per_step_sum):
+    """The kernels-line entries of the no-bias attention kernels: the
+    forward per frame of the exact runner at batch 1 (3 tied layers at each
+    of the 6 levels), read from (a)'s runs; the backward per step of (c)'s
+    global-variant CLI runs at batch 4 (levels 2-5)."""
+    kernels = []
+    for name, dtype, rows, unit, launches, note in (
+        ("biased_attention_nobias", "float32", zoo["nobias_forward_shapes"], "per_frame",
+         zoo["serving"]["dlapa_34/PlanA"]["launches"], "F.scaled_dot_product_attention without a mask"),
+        ("biased_attention_nobias_bf16", "bfloat16", zoo["nobias_forward_shapes"], "per_frame",
+         zoo["serving"]["dlapa_34/PlanA/bf16"]["launches"], "F.scaled_dot_product_attention in bf16"),
+        ("biased_attention_bwd_nobias", "float32", zoo["nobias_backward_shapes"], "per_step",
+         zoo["train_cli"]["global"]["launches"], "backward of F.scaled_dot_product_attention"),
+        ("biased_attention_bwd_nobias_bf16", "bfloat16", zoo["nobias_backward_shapes"], "per_step",
+         zoo["train_cli"]["global_bf16"]["launches"], "backward of F.scaled_dot_product_attention in bf16"),
+    ):
+        rows = [r for r in rows if r["dtype"] == dtype]
+        main = [r for r in rows if r[unit]]
+        bounds = [r["bound_by"] for r in main]
+        bound_by = max(set(bounds), key=bounds.count)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sgtapose_tpu_torch/csrc/biased_attention" + ("_bwd" if "bwd" in name else "") + ".cu",
+            "replaces": "sgtapose_tpu/ops/attention_kernel.py:" + ("145" if "bwd" in name else "108"),
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per_step_sum(rows, "ms", unit), "plain_ms": per_step_sum(rows, "plain_ms", unit),
+            "bound_ms": per_step_sum(rows, "bound_ms", unit), "bound_by": bound_by,
+            "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else "67 TFLOP/s float32 FMA",
+            "library_ms": per_step_sum(rows, "library_ms", unit), "library_ms_note": note,
+            "ms_per_launch": {f"d={r['d']},B={r['B']}": r["ms"] for r in rows},
+            "shapes_note": ("the global variant's (28, d), d = 4 ... 128, batch 1, per frame" if unit == "per_frame"
+                            else "the global variant's levels 2-5, (28, d), d = 16 ... 128, batch 4, per step")})
+    return kernels
 
 
 @contextlib.contextmanager

@@ -16,13 +16,21 @@ analysis harness writes PCK / ADD AUC, the CSVs and the detections JSON.
 --track adds tracks.json, --debug the per-frame debug images,
 --multi_frame both multiframe PnP estimators.
 
---ckpt is a `train/trainer.save_checkpoint` file (its "model" entry);
-without it the weights are random (seeded), a smoke mode. Not ported yet,
-and raising: --is_ct false and --flip_test (the DREAM detector), --phase
-other than PlanA_win and --arch other than dlapawdl3new_34 (variants and
-phases), --quant / --quant_static / --quant_min_ch (int8), and orbax
-checkpoint directories (checkpoint conversion); ROADMAP.md Queue 1 names
-the item that brings each.
+--arch and --phase pick the model (`models/sgta.create_model`: the
+flagship dlapawdl3new_34 and the zoo, dlapa_34, dlapawd_34, dlapacat_34,
+dlaabla_34, dlaseg_34) and which rendered priors it consumes (PlanA_win,
+PlanA, PlanACAT, ablation_shared_repro / _shared / _wo_shared, which also set
+the ablation's wiring, CenterTrack, CenterNet), as the JAX CLI's do.
+
+--ckpt is a `train/trainer.save_checkpoint` file (its "model" entry), e.g.
+one `python -m sgtapose_tpu_torch.cli.convert --torch_ckpt X.pth --out
+C.pt` wrote from a reference-format .pth; without it the weights are random
+(seeded), a smoke mode. An orbax checkpoint directory of the JAX package
+goes through JAX's converter first (`python -m sgtapose_tpu.cli.convert
+--ckpt DIR --out_pth X.pth`, then `--torch_ckpt X.pth`). Not ported yet,
+and raising NotImplementedError with the ROADMAP.md Queue 1 item that brings
+each: --is_ct false, --flip_test and --phase Dream (the DREAM detector, 6),
+--quant / --quant_static / --quant_min_ch (int8, 8).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from sgtapose_tpu_torch.data import loaders
 from sgtapose_tpu_torch.eval.analysis import analyze_sequence_results
 from sgtapose_tpu_torch.infer import detector as det_lib
 from sgtapose_tpu_torch.models.sgta import create_model
+from sgtapose_tpu_torch.train.phases import model_wiring
 from sgtapose_tpu_torch.utils.profiling import StageTimer
 
 FLAGSHIP_ARCH = "dlapawdl3new_34"
@@ -58,7 +67,9 @@ def parse_args(argv=None):
     p.add_argument("--object_name", default=None)
     p.add_argument("--is_real", default=None, help="real set name (e.g. panda-orb)")
     p.add_argument("--split_info", default=None, help="real split json path")
-    p.add_argument("--arch", default=FLAGSHIP_ARCH, help=f"only {FLAGSHIP_ARCH} is ported")
+    p.add_argument("--arch", default=FLAGSHIP_ARCH,
+                   help="dlapawdl3new_34 (the flagship), dlapa_34, dlapawd_34, dlapacat_34, dlaabla_34, "
+                        "dlaseg_34 (the DREAM baselines are not ported)")
     p.add_argument("--input_res", type=int, default=480)
     p.add_argument("--dla_node", default="dcn", choices=["dcn", "conv"])
     p.add_argument("--kernel_list", default="12,6,3,1,1,1", help="per-level attention window sizes")
@@ -73,7 +84,9 @@ def parse_args(argv=None):
     p.add_argument("--quant_min_ch", type=int, default=0, help="not ported above 0")
     p.add_argument("--decode_coord", default="reg", choices=["reg", "avg", "logquad", "mean"],
                    help="final sub-pixel coordinate estimator (decode/peaks.py)")
-    p.add_argument("--phase", default=None, help="only PlanA_win (the default) is ported")
+    p.add_argument("--phase", default=None,
+                   help="inference phase: PlanA_win (default) | PlanA | PlanACAT | ablation_* | CenterTrack | "
+                        "CenterNet (Dream is not ported)")
     p.add_argument("--flip_test", action="store_true",
                    help="flip test-time augmentation of the DREAM single-frame mode (not ported)")
     p.add_argument("--is_ct", default="true", choices=["true", "false"],
@@ -103,8 +116,7 @@ def _refuse_unported(args) -> None:
             "mirror-equivariant.")
     unported = [
         ("--is_ct false / --flip_test (the DREAM single-frame detector)", args.is_ct == "false", 6),
-        (f"--phase {args.phase}", args.phase != "PlanA_win", 6),
-        (f"--arch {args.arch}", args.arch != FLAGSHIP_ARCH, 6),
+        ("--phase Dream (the DREAM baselines)", args.phase == "Dream", 6),
         ("--quant", args.quant is not None, 8),
         ("--quant_static", args.quant_static, 8),
         ("--quant_min_ch > 0", args.quant_min_ch > 0, 8),
@@ -132,7 +144,7 @@ def _make_runner(args, model, cfg: Config, camera_K, raw_hw):
     device synchronised)."""
     debug = args.debug > 0
     detector = det_lib.make_video_detector(model, cfg, camera_K, raw_hw, device=args.device,
-                                           debug_outputs=debug)
+                                           debug_outputs=debug, phase=args.phase)
 
     def run(imgs_np, x3d):
         raw = torch.from_numpy(np.ascontiguousarray(imgs_np)).to(args.device)
@@ -453,18 +465,26 @@ def _replaced(args, **overrides):
     return argparse.Namespace(**{**vars(args), **overrides})
 
 
+def orbax_route(flag: str, path: str) -> str:
+    """The two commands that bring a JAX (orbax) checkpoint directory to the
+    port."""
+    return (f"{flag} {path} is a directory (an orbax checkpoint of the JAX package?); the port reads "
+            "train/trainer.save_checkpoint files and cannot read orbax. Convert it in two steps: "
+            f"`python -m sgtapose_tpu.cli.convert --ckpt {path} --out_pth X.pth` (the JAX package), then "
+            "`python -m sgtapose_tpu_torch.cli.convert --torch_ckpt X.pth --out C.pt` (with the same --arch), "
+            f"and pass {flag} C.pt")
+
+
 def load_model(args, cfg: Config, device):
-    """The flagship model on `device`: the "model" entry of a
-    `train/trainer.save_checkpoint` file, or seeded random weights (with a
-    warning) without --ckpt."""
-    model = create_model(cfg.model, device=device, seed=0)
+    """The arch's model, wired for args.phase, on `device`: the "model"
+    entry of a `train/trainer.save_checkpoint` file, or seeded random
+    weights (with a warning) without --ckpt."""
+    model_cfg, tracking = model_wiring(cfg.model, args.phase)
+    model = create_model(model_cfg, device=device, seed=0, tracking=tracking)
     if args.ckpt:
         path = os.path.abspath(args.ckpt)
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{args.ckpt} is a directory (an orbax checkpoint of the JAX package?); the port reads "
-                "train/trainer.save_checkpoint files. Converting JAX checkpoints is ROADMAP.md Queue 1 "
-                "item 5 (checkpoint conversion)")
+            raise NotImplementedError(orbax_route("--ckpt", args.ckpt))
         payload = torch.load(path, map_location=device, weights_only=True)
         model.load_state_dict(payload["model"])
         print(f"loaded {args.ckpt}")

@@ -34,12 +34,21 @@ a disjoint equal slice of the pairs, one step over the global batch; rank 0
 writes logs and checkpoints; validation and image logs are skipped, as in
 the JAX CLI.
 
+--arch and --phase pick the model and its inputs as the JAX CLI's do
+(`train/phases.py`; an ablation_* phase also sets the ablation's wiring):
+--phase PlanA_three trains the three-frame model on three-frame windows
+(`data/discovery.find_ndds_seq_triples_in_dir`, `data/loader.TripleBatchLoader`,
+`data/pipeline.make_batch_fn_three`) and refuses --depth, whose sets are
+two-frame. --init_backbone X.pth loads a bare ImageNet DLA-34 state dict
+into the trunk (`utils/torch_convert.convert_imagenet_dla34`; with
+--init_backbone_stem also into the image stem) before --resume.
+
 Not ported yet, and raising NotImplementedError with the ROADMAP.md Queue 1
-item that brings each: --init_backbone(_stem) (5), --phase other than
-PlanA_win and --arch other than dlapawdl3new_34 (6), --dcn_chunks > 1 and
---dcn_remat (9), --bf16 with --depth (10: a 42-keypoint model's levels 0
-and 1 need a bf16 key-tiled forward, its level 2 the two-pass bf16
-backward), an orbax checkpoint directory as --resume (5).
+item that brings each: --phase Dream (6, the DREAM baselines),
+--dcn_chunks > 1 and --dcn_remat (9), --bf16 with --depth (10: a
+42-keypoint model's levels 0 and 1 need a bf16 key-tiled forward, its level
+2 the two-pass bf16 backward). An orbax checkpoint directory as --resume
+raises with the two commands that convert it (`cli/convert.py`).
 """
 
 from __future__ import annotations
@@ -53,15 +62,17 @@ import numpy as np
 import torch
 
 from sgtapose_tpu_torch import resolve_device
-from sgtapose_tpu_torch.cli.infer import FLAGSHIP_ARCH
+from sgtapose_tpu_torch.cli.infer import FLAGSHIP_ARCH, orbax_route
 from sgtapose_tpu_torch.config import (IMAGE_MEAN, IMAGE_STD, KEYPOINT_NAMES, SYNTHETIC_CAMERA_K, Config,
                                        ModelConfig, TrainConfig)
-from sgtapose_tpu_torch.data.discovery import find_depth_seq_data_in_dir, find_ndds_seq_data_in_dir
-from sgtapose_tpu_torch.data.loader import SeqBatchLoader
-from sgtapose_tpu_torch.data.pipeline import RawSample, make_batch_fn
+from sgtapose_tpu_torch.data.discovery import (find_depth_seq_data_in_dir, find_ndds_seq_data_in_dir,
+                                               find_ndds_seq_triples_in_dir)
+from sgtapose_tpu_torch.data.loader import SeqBatchLoader, TripleBatchLoader
+from sgtapose_tpu_torch.data.pipeline import make_batch_fn, make_batch_fn_three
 from sgtapose_tpu_torch.parallel import mesh
 from sgtapose_tpu_torch.train import trainer
 from sgtapose_tpu_torch.train.schedule import step_decay_schedule
+from sgtapose_tpu_torch.utils import torch_convert
 from sgtapose_tpu_torch.utils.logging import MetricsLogger
 from sgtapose_tpu_torch.utils.visualize import training_debug_mosaic
 
@@ -75,7 +86,9 @@ def parse_args(argv=None):
     p.add_argument("--robot", default="panda_synthetic")
     p.add_argument("--object_name", default=None,
                    help="'ROBOT NAME' tag in the meta jsons (default: --robot)")
-    p.add_argument("--arch", default=FLAGSHIP_ARCH, help=f"only {FLAGSHIP_ARCH} is ported")
+    p.add_argument("--arch", default=FLAGSHIP_ARCH,
+                   help="dlapawdl3new_34 (the flagship), dlapa_34, dlapawd_34, dlapawd3_34, dlapawd3shared_34, "
+                        "dlapacat_34, dlaabla_34, dlaseg_34 (the DREAM baselines are not ported)")
     p.add_argument("--num_epochs", type=int, default=20)
     p.add_argument("--batch_size", type=int, default=4, help="per rank")
     p.add_argument("--lr", type=float, default=1.25e-4)
@@ -107,11 +120,15 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mixed-precision training (float32 masters, loss and gradients; "
                         "validation in float32); not with --depth yet")
-    p.add_argument("--phase", default="PlanA_win", help="only PlanA_win is ported")
+    p.add_argument("--phase", default="PlanA_win",
+                   help="training phase (train/phases.py): PlanA_win | PlanA_three | PlanA | PlanACAT | "
+                        "ablation_* | CenterTrack | CenterNet (Dream is not ported)")
     p.add_argument("--resume", default=None,
                    help="checkpoint file of this CLI (restores the step, the schedule count and Adam)")
-    p.add_argument("--init_backbone", default=None, help="not ported")
-    p.add_argument("--init_backbone_stem", action="store_true", help="not ported")
+    p.add_argument("--init_backbone", default=None,
+                   help="ImageNet DLA-34 .pth (a bare state_dict) to initialise the trunk from")
+    p.add_argument("--init_backbone_stem", action="store_true",
+                   help="also copy the ImageNet base_layer into the image stem")
     p.add_argument("--lr_step", default=None,
                    help="comma-separated epoch milestones for 0.1x step decay instead of "
                         "warmup+poly (a resumed run replays the decay from its step)")
@@ -125,10 +142,7 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     unported = [
         ("--bf16 --depth", args.bf16 and args.depth, 10),
-        ("--init_backbone", args.init_backbone is not None, 5),
-        ("--init_backbone_stem", args.init_backbone_stem, 5),
-        (f"--phase {args.phase}", args.phase != "PlanA_win", 6),
-        (f"--arch {args.arch}", args.arch != FLAGSHIP_ARCH, 6),
+        ("--phase Dream (the DREAM baselines)", args.phase == "Dream", 6),
         ("--dcn_chunks > 1", args.dcn_chunks > 1, 9),
         ("--dcn_remat", args.dcn_remat, 9),
     ]
@@ -156,12 +170,12 @@ def batch_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed((seed + 2) * 1_000_003 + step)
 
 
-def to_device(raw: RawSample, device: torch.device) -> RawSample:
-    """A loader batch (numpy) as tensors on `device`: through pinned memory,
-    copied without blocking, onto a card."""
+def to_device(raw, device: torch.device):
+    """A loader batch (a numpy RawSample or RawSampleThree) as tensors on
+    `device`: through pinned memory, copied without blocking, onto a card."""
     if device.type != "cuda":
-        return RawSample(*(torch.from_numpy(a) for a in raw))
-    return RawSample(*(torch.from_numpy(a).pin_memory().to(device, non_blocking=True) for a in raw))
+        return type(raw)(*(torch.from_numpy(a) for a in raw))
+    return type(raw)(*(torch.from_numpy(a).pin_memory().to(device, non_blocking=True) for a in raw))
 
 
 def _timed_batches(batches, timed):
@@ -202,7 +216,16 @@ def main(argv=None, stage_timer=None):
     logger = MetricsLogger(args.output_dir if rank0 else None, resume=bool(args.resume))
     print(f"ranks={world} batch per rank={args.batch_size} global batch={args.batch_size * world} on {dev}")
 
-    discover = find_depth_seq_data_in_dir if args.depth else find_ndds_seq_data_in_dir
+    three = args.phase == "PlanA_three"
+    if args.depth and three:
+        raise SystemExit("--depth cannot be combined with --phase PlanA_three: the 42-joint depth dataset is "
+                         "a 2-frame format")
+    if args.depth:
+        discover = find_depth_seq_data_in_dir
+    elif three:
+        discover = find_ndds_seq_triples_in_dir
+    else:
+        discover = find_ndds_seq_data_in_dir
     pairs = discover(args.dataset)
     if args.add_dataset:
         pairs = pairs + discover(args.add_dataset)
@@ -215,38 +238,39 @@ def main(argv=None, stage_timer=None):
         object_name, kp_names = args.object_name or "Franka_Emika_Panda", []
     else:
         object_name, kp_names = args.object_name or args.robot, KEYPOINT_NAMES[args.robot]
-    loader = SeqBatchLoader(pairs, cfg, camera_K, object_name, kp_names, args.batch_size, seed=args.seed,
-                            num_workers=args.num_workers, depth=args.depth)
+    loader_cls = TripleBatchLoader if three else SeqBatchLoader
+    loader = loader_cls(pairs, cfg, camera_K, object_name, kp_names, args.batch_size, seed=args.seed,
+                        num_workers=args.num_workers, depth=args.depth)
     val_loader = None
     if args.val_dataset:
-        val_loader = SeqBatchLoader(discover(args.val_dataset), cfg, camera_K, object_name, kp_names,
-                                    args.batch_size, shuffle=False, num_workers=args.num_workers,
-                                    depth=args.depth)
+        val_loader = loader_cls(discover(args.val_dataset), cfg, camera_K, object_name, kp_names,
+                                args.batch_size, shuffle=False, num_workers=args.num_workers, depth=args.depth)
 
     iters_per_epoch = len(loader)
     schedule = None
     if args.lr_step:
         schedule = step_decay_schedule(cfg.train.lr, [int(e) for e in args.lr_step.split(",")], iters_per_epoch)
     state = trainer.create_train_state(cfg, args.seed, max_iters=max(iters_per_epoch * args.num_epochs, 1),
-                                       device=dev, schedule=schedule)
+                                       device=dev, phase=args.phase, schedule=schedule)
     state.seed = args.seed + 1  # the dropout stream
+    if args.init_backbone:
+        report = torch_convert.convert_imagenet_dla34(torch_convert.load_torch_checkpoint(args.init_backbone),
+                                                      state.model, map_stem=args.init_backbone_stem)
+        print(f"ImageNet trunk init from {args.init_backbone}: {report['n_converted']} tensors")
     if args.resume:
         path = os.path.abspath(args.resume)
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"--resume {args.resume} is a directory (an orbax checkpoint of the JAX package?); the port "
-                "resumes from its own torch.save checkpoints. Converting JAX checkpoints is ROADMAP.md "
-                "Queue 1 item 5")
+            raise NotImplementedError(orbax_route("--resume", args.resume))
         trainer.load_checkpoint(path, state)
         print(f"resumed from {args.resume} at step {state.step}")
 
-    batch_fn = make_batch_fn(cfg, camera_K)
+    batch_fn = make_batch_fn_three(cfg, camera_K) if three else make_batch_fn(cfg, camera_K)
     mean = torch.tensor(IMAGE_MEAN)
     std = torch.tensor(IMAGE_STD)
 
     def log_mosaic(batch, step):
         one = {k: v[:1] for k, v in batch.items()}
-        pred = trainer.predict_step(state, one)
+        pred = trainer.predict_step(state, one, phase=args.phase)
         img = ((one["cur_img"][0].cpu() * std + mean) * 255.0).numpy()
         mosaic = training_debug_mosaic(img, one["gt_belief_maps"][0].cpu().numpy(), pred["hm"][0].cpu().numpy())
         logger.log_image(step, "train_mosaic", mosaic)
@@ -256,7 +280,7 @@ def main(argv=None, stage_timer=None):
         for it, raw in enumerate(_timed_batches(loader.epoch(epoch), timed)):
             with timed("batch"):
                 batch = batch_fn(batch_generator(args.seed, state.step), to_device(raw, dev))
-            stats = trainer.train_step(state, batch, bf16=args.bf16, stage_timer=stage_timer)
+            stats = trainer.train_step(state, batch, bf16=args.bf16, phase=args.phase, stage_timer=stage_timer)
             if it % args.log_every == 0:
                 s = {k: v.item() for k, v in stats.items()}
                 logger.log(state.step, s)
@@ -279,7 +303,7 @@ def main(argv=None, stage_timer=None):
                 # every batch augmented with the same fixed draws
                 val_batches = (batch_fn(torch.Generator().manual_seed(0), to_device(raw, dev))
                                for raw in val_loader.epoch(0))
-                val = trainer.validate(state, val_batches, cfg)
+                val = trainer.validate(state, val_batches, cfg, phase=args.phase)
             logger.log(state.step, val, prefix="val")
             print(f"epoch {epoch} val: {val}", flush=True)
 

@@ -14,8 +14,10 @@ float32 masters, loss, gradients and BatchNorm statistics:
 `train/trainer.train_step`), through the hand-written forward and backward
 kernels of its dtype; the eval runs the trained weights in bf16, as the JAX
 CLI does. Each step draws its raw batch and its augmentation from
-generators seeded from (seed + 1, step). Flags not ported yet raise:
---quant_train, --init_backbone(_stem), --dcn_chunks > 1, --dcn_remat.
+generators seeded from (seed + 1, step). --init_backbone X.pth loads a
+bare ImageNet DLA-34 state dict into the trunk (with --init_backbone_stem
+also into the image stem; `utils/torch_convert.convert_imagenet_dla34`).
+Flags not ported yet raise: --quant_train, --dcn_chunks > 1, --dcn_remat.
 --fused_attention is accepted and changes nothing: the port always runs its
 attention kernel, which computes the JAX default (einsum) form, under
 --bf16 too. Checkpoints are `torch.save` files
@@ -35,6 +37,7 @@ from sgtapose_tpu_torch.config import Config, ModelConfig, TrainConfig
 from sgtapose_tpu_torch.data import pipeline, synthetic
 from sgtapose_tpu_torch.infer import detector as det_lib
 from sgtapose_tpu_torch.train import trainer
+from sgtapose_tpu_torch.utils import torch_convert
 from sgtapose_tpu_torch.utils.precision import bf16_inference_model
 
 
@@ -66,8 +69,10 @@ def parse_args(argv=None):
                         "fresh optimizer and schedule")
     p.add_argument("--resume_step", type=int, default=0,
                    help="with --init_ckpt: continue the parent run's schedule from this step")
-    p.add_argument("--init_backbone", default=None, help="not ported")
-    p.add_argument("--init_backbone_stem", action="store_true", help="not ported")
+    p.add_argument("--init_backbone", default=None,
+                   help="ImageNet DLA-34 .pth (a bare state_dict) to initialise the trunk from")
+    p.add_argument("--init_backbone_stem", action="store_true",
+                   help="also copy the ImageNet base_layer into the image stem")
     p.add_argument("--reg_weight", type=float, default=0.01)
     p.add_argument("--quant_train", action="store_true", help="not ported")
     p.add_argument("--cache_prior", action="store_true",
@@ -81,9 +86,7 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     unported = {"--quant_train": args.quant_train,
-             "--init_backbone": args.init_backbone is not None,
-             "--init_backbone_stem": args.init_backbone_stem,
-             "--dcn_chunks > 1": args.dcn_chunks > 1, "--dcn_remat": args.dcn_remat}
+                "--dcn_chunks > 1": args.dcn_chunks > 1, "--dcn_remat": args.dcn_remat}
     asked = [flag for flag, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"{', '.join(asked)}: not ported to sgtapose_tpu_torch yet")
@@ -160,6 +163,10 @@ def main(argv=None, stage_timer=None):
         if args.resume_step:
             trainer.resume_schedule_state(state, args.resume_step)
             print(f"schedule resumed at step {args.resume_step}", flush=True)
+    if args.init_backbone:
+        report = torch_convert.convert_imagenet_dla34(torch_convert.load_torch_checkpoint(args.init_backbone),
+                                                      state.model, map_stem=args.init_backbone_stem)
+        print(f"ImageNet trunk init from {args.init_backbone}: {report['n_converted']} tensors")
 
     print(f"training {args.steps} steps, batch {args.batch}, {'bf16' if args.bf16 else 'float32'}, on {dev}")
     t0 = time.time()

@@ -79,6 +79,11 @@ class ModelConfig:
     k_list: Tuple[int, ...] = (1, 1, 1, 1, 1, 1)
     kernel_list: Tuple[int, ...] = (12, 6, 3, 1, 1, 1)
     scale_list: Tuple[float, ...] = (4.0, 2.0, 1.0, 0.5, 0.25, 0.125)
+    # the global-attention variant's (dlapa) token count per level
+    topk_global: int = 28
+    # the ablation variant's (dlaabla) trunk sharing and prior wiring:
+    # wo_shared | shared | shared_repro
+    ablation_mode: str = "shared_repro"
 
     @property
     def output_res(self) -> Tuple[int, int]:

@@ -1,6 +1,10 @@
 // Biased attention forward: out = softmax(q k^T / sqrt(d) + bias) v, one
 // design in two instantiations: float32 (biased_attention_fwd) and bf16
-// serving (biased_attention_bf16_fwd).
+// serving (biased_attention_bf16_fwd); each also without a bias
+// (biased_attention_nobias_fwd, biased_attention_nobias_bf16_fwd: the
+// plain MHA of the global-attention variant SGTAPoseGlobal,
+// sgtapose_tpu/models/variants.py:222-274, at (n, d) = (28, 4 ... 128)),
+// a compile-time flag that reads no bias and stages no bias span.
 //
 // Replaces the Pallas TPU kernel sgtapose_tpu/ops/attention_kernel.py:55-116
 // (_fwd_kernel, called from _fwd at :108, reached by fused_biased_attention
@@ -56,6 +60,15 @@
 // What still holds level 0 above its bound (PERF.md): the start-up of each
 // launch (K/V and first span, 4-5 items a block), and the two passes'
 // shared-memory traffic, ~44 B per (row, key) in float32, most of it K and V.
+//
+// Without a bias (NOBIAS): no ring and no span copies; the logits are formed
+// in both passes (pass 1 has no bias span to write them over). At the
+// global variant's n = 28 a launch is latency: 4 row tiles per (batch,
+// head). At d = 64 and 128 a lane's whole row and p v sums would outgrow its
+// registers (d = 128 spilled 1.3 KB a thread): there the lanes split the
+// head dim instead, lane t holding dims t, t + 32, ..., and walk the row's
+// keys in series, each logit's partial dots added over the warp, with an
+// online softmax (the sums rescaled when the max grows).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -178,13 +191,20 @@ __device__ __forceinline__ float logit(const float (&qr)[D], const unsigned char
   return fmaf(s, scale, b);
 }
 
-// T: element of k, v and bias (float, or bf16 as uint16_t); TQ: of q
-template <int D, typename T, typename TQ>
+// T: element of k, v and bias (float, or bf16 as uint16_t); TQ: of q;
+// BIAS: false reads no bias (bias may be null)
+template <int D, typename T, typename TQ, bool BIAS>
 __device__ __forceinline__ void attention_body(const TQ* __restrict__ q, const T* __restrict__ k,
                                                const T* __restrict__ v, const T* __restrict__ bias,
                                                float* __restrict__ out, int heads, int n, int tiles,
                                                int items, float scale, int stage_bytes, int kv_bytes) {
-  constexpr bool kInPlace = sizeof(T) == 4;  // pass 1 writes the logits over the bias
+  constexpr bool kInPlace = sizeof(T) == 4 && BIAS;  // pass 1 writes the logits over the bias
+  // d >= 64: the lanes split the head dim and walk the row's keys in series
+  // (a lane's whole row and p v sums would not fit in its registers)
+  constexpr bool kDimSplit = D >= 64;
+  // no model runs a biased attention at d >= 64 (the global variant's has no
+  // bias), so the bias ring is only built beside the whole-row layout
+  static_assert(!BIAS || !kDimSplit, "a bias takes head dims up to 32");
   constexpr bool kRound = sizeof(T) == 2 && sizeof(TQ) == 2;
   constexpr int kRow = D * sizeof(T);  // bytes of a K or V row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -201,7 +221,7 @@ __device__ __forceinline__ void attention_body(const TQ* __restrict__ q, const T
     return bias + ((size_t)h * n + r0) * n;
   };
   auto issue = [&](int t, int slot) {
-    if (t < it1) {
+    if (BIAS && t < it1) {
       const int h = (t / tiles) % heads, r0 = (t % tiles) * RS, r1 = min(r0 + RS, n);
       issue_span(ring + slot * stage_bytes, span_start(t), bias + ((size_t)h * n + r1) * n);
     }
@@ -215,14 +235,17 @@ __device__ __forceinline__ void attention_body(const TQ* __restrict__ q, const T
     const size_t row = (size_t)(t / tiles) * n + min((t % tiles) * RS + warp, n - 1);
     load_row<D, TQ, true>(reinterpret_cast<const unsigned char*>(q + row * D), dst);
   };
-  float qr[D], qn[D];
-  if (it0 < it1) load_q(it0, qn);
+  float qr[kDimSplit ? 1 : D], qn[kDimSplit ? 1 : D];
+  if constexpr (!kDimSplit)
+    if (it0 < it1) load_q(it0, qn);
   int kv_bh = -1, kv_off = 0;
   for (int t = it0; t < it1; ++t) {
     const int local = t - it0;
+    if constexpr (!kDimSplit) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) qr[c] = qn[c];
-    if (t + 1 < it1) load_q(t + 1, qn);
+      for (int c = 0; c < D; ++c) qr[c] = qn[c];
+      if (t + 1 < it1) load_q(t + 1, qn);
+    }
     const int bh = t / tiles;
     const int i = (t % tiles) * RS + warp;  // this warp's row
     if (bh != kv_bh) {  // the same for the whole block
@@ -238,67 +261,109 @@ __device__ __forceinline__ void attention_body(const TQ* __restrict__ q, const T
     cp_async_wait<1>();
     __syncthreads();
 
-    T* sb = reinterpret_cast<T*>(ring + (local % kStages) * stage_bytes + line_offset(span_start(t))) +
-            warp * n;
+    T* sb = BIAS ? reinterpret_cast<T*>(ring + (local % kStages) * stage_bytes +
+                                        line_offset(span_start(t))) + warp * n
+                 : nullptr;
+    auto bias_at = [&](int j) { return BIAS ? to_float(sb[j]) : 0.f; };
     const unsigned char* kb = ks + kv_off;
     const unsigned char* vb = vs + kv_off;
     const int jend = i < n ? n : 0;  // a warp past n computes nothing and stores nothing
 
-    // pass 1: the row max of the logits (float32: written over the bias)
-    float m = -INFINITY;
-#pragma unroll 4
-    for (int j = lt; j < jend; j += 32) {
-      const float s = logit<D, T, kRound>(qr, kb + j * kRow, scale, to_float(sb[j]));
-      if constexpr (kInPlace) sb[j] = s;
-      m = fmaxf(m, s);
-    }
+    if constexpr (kDimSplit) {
+      // lane t holds dims t, t + 32, ... of q, and of the p v sums; per key
+      // the logit's partial dots are added over the warp (every lane gets
+      // the same sum), then an online softmax: the sums rescaled when the
+      // max grows
+      constexpr int U = D / 32;
+      const TQ* qrow = q + ((size_t)bh * n + min(i, n - 1)) * D;
+      float qd[U], acc[U];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float neg_m2 = -m * kLog2e;  // exp(s - max) = 2^(s log2 e - max log2 e)
+      for (int u = 0; u < U; ++u) {
+        qd[u] = to_float(qrow[lt + 32 * u]);
+        acc[u] = 0.f;
+      }
+      const T* kt = reinterpret_cast<const T*>(kb);
+      const T* vt = reinterpret_cast<const T*>(vb);
+      float m = -INFINITY, l = 0.f;
+      for (int j = 0; j < jend; ++j) {
+        float s = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) s = fmaf(qd[u], to_float(kt[j * D + lt + 32 * u]), s);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        if constexpr (kRound) s = round_bf16(s);
+        s = fmaf(s, scale, bias_at(j));
+        const float mn = fmaxf(m, s);
+        const float f = exp2_ftz((m - mn) * kLog2e);  // 0 while m is -inf
+        const float p = exp2_ftz((s - mn) * kLog2e);
+        l = fmaf(l, f, p);
+#pragma unroll
+        for (int u = 0; u < U; ++u) acc[u] = fmaf(acc[u], f, p * to_float(vt[j * D + lt + 32 * u]));
+        m = mn;
+      }
+      if (i < n) {
+        float* oi = out + ((size_t)bh * n + i) * D;
+        const float inv = 1.f / l;
+#pragma unroll
+        for (int u = 0; u < U; ++u) oi[lt + 32 * u] = acc[u] * inv;
+      }
+    } else {
+      // pass 1: the row max of the logits (float32: written over the bias)
+      float m = -INFINITY;
+#pragma unroll 4
+      for (int j = lt; j < jend; j += 32) {
+        const float s = logit<D, T, kRound>(qr, kb + j * kRow, scale, bias_at(j));
+        if constexpr (kInPlace) sb[j] = s;
+        m = fmaxf(m, s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const float neg_m2 = -m * kLog2e;  // exp(s - max) = 2^(s log2 e - max log2 e)
 
-    // pass 2: one exp2 per element, sums relative to the row max
-    float l = 0.f, acc[D];
+      // pass 2: one exp2 per element, sums relative to the row max
+      float l = 0.f, acc[D];
 #pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] = 0.f;
+      for (int c = 0; c < D; ++c) acc[c] = 0.f;
 #pragma unroll 4
-    for (int j = lt; j < jend; j += 32) {
-      float s;
-      if constexpr (kInPlace) s = sb[j];
-      else s = logit<D, T, kRound>(qr, kb + j * kRow, scale, to_float(sb[j]));
-      const float p = exp2_ftz(fmaf(s, kLog2e, neg_m2));
-      l += p;
-      float vr[D];
-      load_row<D, T, false>(vb + j * kRow, vr);
+      for (int j = lt; j < jend; j += 32) {
+        float s;
+        if constexpr (kInPlace) s = sb[j];
+        else s = logit<D, T, kRound>(qr, kb + j * kRow, scale, bias_at(j));
+        const float p = exp2_ftz(fmaf(s, kLog2e, neg_m2));
+        l += p;
+        float vr[D];
+        load_row<D, T, false>(vb + j * kRow, vr);
 #pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
-    }
+        for (int c = 0; c < D; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
+      }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
+      for (int off = 16; off > 0; off >>= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, off);
 #pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-    }
-    if (i < n) {
-      float* oi = out + ((size_t)bh * n + i) * D;
-      const float inv = 1.f / l;
+        for (int c = 0; c < D; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+      }
+      if (i < n) {
+        float* oi = out + ((size_t)bh * n + i) * D;
+        const float inv = 1.f / l;
 #pragma unroll
-      for (int c = 0; c < D; ++c)
-        if ((c & 31) == lt) oi[c] = acc[c] * inv;
+        for (int c = 0; c < D; ++c)
+          if ((c & 31) == lt) oi[c] = acc[c] * inv;
+      }
     }
     __syncthreads();  // the slot and K/V are free for the next item's writes
   }
   cp_async_wait<0>();
 }
 
-// one kernel name per precision, as profilers list them
+// one kernel name per precision and bias flag, as profilers list them
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     biased_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ bias,
                             float* __restrict__ out, int heads, int n, int tiles, int items,
                             float scale, int stage_bytes, int kv_bytes) {
-  attention_body<D, float, float>(q, k, v, bias, out, heads, n, tiles, items, scale, stage_bytes,
-                                  kv_bytes);
+  attention_body<D, float, float, true>(q, k, v, bias, out, heads, n, tiles, items, scale,
+                                        stage_bytes, kv_bytes);
 }
 
 template <int D, typename TQ>
@@ -307,20 +372,42 @@ __global__ void __launch_bounds__(kThreads)
                                  const uint16_t* __restrict__ v, const uint16_t* __restrict__ bias,
                                  float* __restrict__ out, int heads, int n, int tiles, int items,
                                  float scale, int stage_bytes, int kv_bytes) {
-  attention_body<D, uint16_t, TQ>(q, k, v, bias, out, heads, n, tiles, items, scale, stage_bytes,
-                                  kv_bytes);
+  attention_body<D, uint16_t, TQ, true>(q, k, v, bias, out, heads, n, tiles, items, scale,
+                                        stage_bytes, kv_bytes);
 }
 
-template <int D, typename T, typename TQ>
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attention_nobias_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ bias,
+                            float* __restrict__ out, int heads, int n, int tiles, int items,
+                            float scale, int stage_bytes, int kv_bytes) {
+  attention_body<D, float, float, false>(q, k, v, bias, out, heads, n, tiles, items, scale,
+                                         stage_bytes, kv_bytes);
+}
+
+template <int D, typename TQ>
+__global__ void __launch_bounds__(kThreads)
+    attention_nobias_bf16_kernel(const TQ* __restrict__ q, const uint16_t* __restrict__ k,
+                                 const uint16_t* __restrict__ v, const uint16_t* __restrict__ bias,
+                                 float* __restrict__ out, int heads, int n, int tiles, int items,
+                                 float scale, int stage_bytes, int kv_bytes) {
+  attention_body<D, uint16_t, TQ, false>(q, k, v, bias, out, heads, n, tiles, items, scale,
+                                         stage_bytes, kv_bytes);
+}
+
+template <int D, typename T, typename TQ, bool BIAS>
 int launch(const TQ* q, const T* k, const T* v, const T* bias, float* out, int B, int heads, int n,
            cudaStream_t stream) {
-  const int stage_bytes = span_bytes((long long)RS * n, sizeof(T));
+  const int stage_bytes = BIAS ? span_bytes((long long)RS * n, sizeof(T)) : 0;
   const int kv_bytes = span_bytes((long long)n * D, sizeof(T));
   const size_t smem = 2 * (size_t)kv_bytes + (size_t)kStages * stage_bytes;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   auto kern = [] {
-    if constexpr (sizeof(T) == 4) return biased_attention_kernel<D>;
-    else return biased_attention_bf16_kernel<D, TQ>;
+    if constexpr (sizeof(T) == 4 && BIAS) return biased_attention_kernel<D>;
+    else if constexpr (sizeof(T) == 4) return attention_nobias_kernel<D>;
+    else if constexpr (BIAS) return biased_attention_bf16_kernel<D, TQ>;
+    else return attention_nobias_bf16_kernel<D, TQ>;
   }();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -341,7 +428,7 @@ int launch(const TQ* q, const T* k, const T* v, const T* bias, float* out, int B
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TQ>
+template <typename T, typename TQ, bool BIAS>
 int fwd(const void* q, const void* k, const void* v, const void* bias, void* out, int B, int heads,
         int n, int d, void* stream) {
   if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
@@ -359,12 +446,17 @@ int fwd(const void* q, const void* k, const void* v, const void* bias, void* out
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 4: return launch<4, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
-    case 8: return launch<8, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
-    case 16: return launch<16, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
-    case 32: return launch<32, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 4: return launch<4, T, TQ, BIAS>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 8: return launch<8, T, TQ, BIAS>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 16: return launch<16, T, TQ, BIAS>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 32: return launch<32, T, TQ, BIAS>(qt, kt, vt, bt, of, B, heads, n, s);
+    default: break;
   }
+  if constexpr (!BIAS) {  // the global variant's head dims, no bias
+    if (d == 64) return launch<64, T, TQ, BIAS>(qt, kt, vt, bt, of, B, heads, n, s);
+    if (d == 128) return launch<128, T, TQ, BIAS>(qt, kt, vt, bt, of, B, heads, n, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- key-tiled float32 forward: any n ----------------------------------
@@ -491,15 +583,29 @@ int launch_tiled(const float* q, const float* k, const float* v, const float* bi
 // float32 q, k, v, bias
 extern "C" int biased_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                                     void* out, int B, int heads, int n, int d, void* stream) {
-  return fwd<float, float>(q, k, v, bias, out, B, heads, n, d, stream);
+  return fwd<float, float, true>(q, k, v, bias, out, B, heads, n, d, stream);
 }
 
 // bf16 k, v, bias; q_bf16: 1 if q is bf16 (the logit is rounded to bf16), 0 if float32
 extern "C" int biased_attention_bf16_fwd(const void* q, const void* k, const void* v,
                                          const void* bias, void* out, int B, int heads, int n,
                                          int d, int q_bf16, void* stream) {
-  if (q_bf16) return fwd<uint16_t, uint16_t>(q, k, v, bias, out, B, heads, n, d, stream);
-  return fwd<uint16_t, float>(q, k, v, bias, out, B, heads, n, d, stream);
+  if (q_bf16) return fwd<uint16_t, uint16_t, true>(q, k, v, bias, out, B, heads, n, d, stream);
+  return fwd<uint16_t, float, true>(q, k, v, bias, out, B, heads, n, d, stream);
+}
+
+// float32 q, k, v, no bias
+extern "C" int biased_attention_nobias_fwd(const void* q, const void* k, const void* v, void* out,
+                                           int B, int heads, int n, int d, void* stream) {
+  return fwd<float, float, false>(q, k, v, nullptr, out, B, heads, n, d, stream);
+}
+
+// bf16 k, v, no bias; q_bf16 as in biased_attention_bf16_fwd
+extern "C" int biased_attention_nobias_bf16_fwd(const void* q, const void* k, const void* v,
+                                                void* out, int B, int heads, int n, int d,
+                                                int q_bf16, void* stream) {
+  if (q_bf16) return fwd<uint16_t, uint16_t, false>(q, k, v, nullptr, out, B, heads, n, d, stream);
+  return fwd<uint16_t, float, false>(q, k, v, nullptr, out, B, heads, n, d, stream);
 }
 
 // float32 q, k, v, bias, any n: the key-tiled kernel

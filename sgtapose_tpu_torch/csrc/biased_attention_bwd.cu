@@ -1,4 +1,6 @@
-// Biased attention backward: the gradients of
+// Biased attention backward (and, on the cluster path, its no-bias
+// instantiation: the plain MHA of the global-attention variant, no dbias):
+// the gradients of
 //   O = softmax(S) v,   S = q k^T / sqrt(d) + bias
 // with respect to q, k, v (B, heads, n, d) and the (heads, n, n) bias shared
 // across the batch, given dO (B, heads, n, d) and the forward's output O.
@@ -49,6 +51,12 @@
 // What bounds it on an H100: bytes, ~2.3 MB at level 2, batch 8 (0.7 us);
 // the block's latency chain (a cold load, two phases, a cluster barrier) is
 // what remains, not work.
+// Without a bias (biased_attention_bwd_nobias and _nobias_bf16, the global
+// variant's (28, d) for d = 4 ... 128): the same blocks stage no bias tile
+// and keep no dbias tile, form no dS sum over b, write no dbias and need no
+// cluster barrier. Beyond d = 32 the row phase reads the query and dO rows
+// from shared memory (broadcasts) instead of holding them in registers, and
+// the column phase gives each thread a 32-wide slice of a row.
 //
 // The row-split cluster path, for each (n, d) too large for one block whose
 // query rows split over the 8 ranks of a cluster at most 48 rows a rank and
@@ -161,6 +169,24 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p, float (&r)
     const float4 u = __ldg(reinterpret_cast<const float4*>(p) + c);
     r[4 * c] = u.x; r[4 * c + 1] = u.y; r[4 * c + 2] = u.z; r[4 * c + 3] = u.w;
   }
+}
+
+// a . b for a and b 16-byte aligned rows in shared memory (d > 32: unrolled
+// by 8 float4 pairs, so the loads in flight stay within the 128 registers a
+// 512-thread block leaves a thread)
+template <int D>
+__device__ __forceinline__ float dot4s(const float* a, const float* b) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < D / 4; ++c) {
+    const float4 x = reinterpret_cast<const float4*>(a)[c];
+    const float4 u = reinterpret_cast<const float4*>(b)[c];
+    s = fmaf(x.x, u.x, s);
+    s = fmaf(x.y, u.y, s);
+    s = fmaf(x.z, u.z, s);
+    s = fmaf(x.w, u.w, s);
+  }
+  return s;
 }
 
 // a . b for b a 16-byte aligned row in shared memory
@@ -371,9 +397,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // shared-memory floats of the cluster path (ops/attention_kernel.py:
 // bwd_cluster_smem_bytes mirrors it); the bf16 instantiation stages its
-// inputs as float32, so both share it
-size_t cluster_floats(int n, int d) {
-  return 2 * (size_t)n * (d + 4) + 3 * (size_t)n * d + 4 * (size_t)n * n + n;
+// inputs as float32, so both share it; without a bias no bias or dbias tile
+size_t cluster_floats(int n, int d, bool bias = true) {
+  return 2 * (size_t)n * (d + 4) + 3 * (size_t)n * d + (bias ? 4 : 2) * (size_t)n * n + n;
 }
 
 // one element of T (float, or bf16 held as uint16_t) into shared memory as
@@ -400,7 +426,7 @@ __device__ __forceinline__ float round_bf16(float v) { return bf16f(to_bf16(v));
 // and dO are float32 in both (the bf16 forward returns float32). All
 // arithmetic is float32; every output is rounded once, dbias after the
 // rank-ordered sum of float32 dS.
-template <int D, typename TQ, typename TKV>
+template <int D, typename TQ, typename TKV, bool BIAS>
 __device__ __forceinline__ void cluster_body(const TQ* __restrict__ q, const TKV* __restrict__ k,
                                              const TKV* __restrict__ v,
                                              const TKV* __restrict__ bias,
@@ -412,23 +438,28 @@ __device__ __forceinline__ void cluster_body(const TQ* __restrict__ q, const TKV
   constexpr bool QB = sizeof(TQ) == 2;  // q bf16: logits and their cotangent rounded
   constexpr bool F32 = sizeof(TKV) == 4 && !QB;
   constexpr int DP = D + 4;  // padded K and V rows
+  constexpr bool kRegRows = D <= 32;  // q and dO rows held in registers in the row phase
+  constexpr int DC = D < 32 ? D : 32;  // columns of a column-phase thread
+  constexpr int NC = D / DC;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;          // [n][DP]
   float* vs = ks + n * DP;   // [n][DP]
   float* qs = vs + n * DP;   // [n][D]
   float* os = qs + n * D;    // [n][D] the forward's output
   float* gs = os + n * D;    // [n][D] dO
-  float* bs = gs + n * D;    // [n][n] the head's bias
-  float* ps = bs + n * n;    // [n][n] P of the current b
+  float* ps = gs + n * D;    // [n][n] P of the current b
   float* dss = ps + n * n;   // [n][n] dS of the current b (bf16 q: dS / sqrt(d), rounded)
-  float* acc = dss + n * n;  // [n][n] this block's dbias: dS summed over its b
+  float* bs = dss + n * n;   // [n][n] the head's bias (BIAS only)
+  float* acc = bs + n * n;   // [n][n] this block's dbias: dS summed over its b (BIAS only)
   const int rank = blockIdx.x, cs = gridDim.x;  // one cluster spans the x extent
   const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lt = tid & 31;
-  const TKV* bias_h = bias + (size_t)h * n * n;
-  for (int e = tid; e < n * n; e += kCThreads) {
-    stage1(bs + e, bias_h + e);
-    acc[e] = 0.f;
+  if constexpr (BIAS) {
+    const TKV* bias_h = bias + (size_t)h * n * n;
+    for (int e = tid; e < n * n; e += kCThreads) {
+      stage1(bs + e, bias_h + e);
+      acc[e] = 0.f;
+    }
   }
   for (int b = rank; b < B; b += cs) {
     const size_t bh = (size_t)b * heads + h;
@@ -446,11 +477,15 @@ __device__ __forceinline__ void cluster_body(const TQ* __restrict__ q, const TKV
     __syncthreads();
     // row phase: one warp per query row, lanes strided over the keys
     for (int i = warp; i < n; i += kCWarps) {
-      float qr[D], gr[D];  // the same addresses in every lane: broadcasts
+      // q_i and dO_i: in registers, or (d > 32) read from shared memory
+      // at each use; the same addresses in every lane: broadcasts
+      float qr[kRegRows ? D : 1], gr[kRegRows ? D : 1];
+      if constexpr (kRegRows) {
 #pragma unroll
-      for (int c = 0; c < D; ++c) {
-        qr[c] = qs[i * D + c];
-        gr[c] = gs[i * D + c];
+        for (int c = 0; c < D; ++c) {
+          qr[c] = qs[i * D + c];
+          gr[c] = gs[i * D + c];
+        }
       }
       const float* brow = bs + i * n;
       float* prow = ps + i * n;
@@ -458,9 +493,11 @@ __device__ __forceinline__ void cluster_body(const TQ* __restrict__ q, const TKV
       float* arow = acc + i * n;
       float m = -INFINITY;
       for (int j = lt; j < n; j += 32) {
-        float e = dot4<D>(qr, ks + j * DP);
+        float e;
+        if constexpr (kRegRows) e = dot4<D>(qr, ks + j * DP);
+        else e = dot4s<D>(qs + i * D, ks + j * DP);
         if constexpr (QB) e = round_bf16(e);  // the forward's bf16 logit
-        const float s = fmaf(e, scale, brow[j]);
+        const float s = BIAS ? fmaf(e, scale, brow[j]) : e * scale;
         prow[j] = s;
         m = fmaxf(m, s);
       }
@@ -474,33 +511,38 @@ __device__ __forceinline__ void cluster_body(const TQ* __restrict__ q, const TKV
       }
       l = warp_sum(l);
       const float inv_l = 1.f / l;
-      const float dlt = dot4<D>(gr, os + i * D);
+      float dlt;
+      if constexpr (kRegRows) dlt = dot4<D>(gr, os + i * D);
+      else dlt = dot4s<D>(gs + i * D, os + i * D);
       for (int j = lt; j < n; j += 32) {
         const float p = prow[j] * inv_l;
-        const float ds = p * (dot4<D>(gr, vs + j * DP) - dlt);
+        float gv;
+        if constexpr (kRegRows) gv = dot4<D>(gr, vs + j * DP);
+        else gv = dot4s<D>(gs + i * D, vs + j * DP);
+        const float ds = p * (gv - dlt);
         prow[j] = p;
         if constexpr (QB) drow[j] = round_bf16(ds * scale);  // the bf16 logit's cotangent
         else drow[j] = ds;
-        arow[j] += ds;
+        if constexpr (BIAS) arow[j] += ds;
       }
     }
     __syncthreads();
-    // column phase: one thread per row of dq, dk or dv; each step of its
-    // length-n sum reads one P or dS element and one broadcast row of K, q
-    // or dO for its d products
-    for (int e = tid; e < 3 * n; e += kCThreads) {
-      const int which = e / n, r = e % n;
-      float a[D];
+    // column phase: one thread per row of dq, dk or dv (per 32-wide slice
+    // of it beyond d = 32); each step of its length-n sum reads one P or dS
+    // element and one broadcast row of K, q or dO for its products
+    for (int e = tid; e < 3 * n * NC; e += kCThreads) {
+      const int which = e / (n * NC), r = (e / NC) % n, c0 = (e % NC) * DC;
+      float a[DC];
 #pragma unroll
-      for (int c = 0; c < D; ++c) a[c] = 0.f;
+      for (int c = 0; c < DC; ++c) a[c] = 0.f;
       const float* tile = which == 2 ? ps : dss;
       const float* rows = which == 0 ? ks : (which == 1 ? qs : gs);
       const int pitch = which == 0 ? DP : D;
       for (int j = 0; j < n; ++j) {
         const float w = which == 0 ? tile[r * n + j] : tile[j * n + r];
-        const float4* row = reinterpret_cast<const float4*>(rows + j * pitch);
+        const float4* row = reinterpret_cast<const float4*>(rows + j * pitch + c0);
 #pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
+        for (int c = 0; c < DC / 4; ++c) {
           const float4 u = row[c];
           a[4 * c] = fmaf(w, u.x, a[4 * c]);
           a[4 * c + 1] = fmaf(w, u.y, a[4 * c + 1]);
@@ -510,21 +552,22 @@ __device__ __forceinline__ void cluster_body(const TQ* __restrict__ q, const TKV
       }
       const float mul = (which == 2 || QB) ? 1.f : scale;
       if constexpr (F32) {
-        float* dst = (which == 0 ? dq : (which == 1 ? dk : dv)) + (bh * n + r) * D;
+        float* dst = (which == 0 ? dq : (which == 1 ? dk : dv)) + (bh * n + r) * D + c0;
 #pragma unroll
-        for (int c = 0; c < D / 4; ++c)
+        for (int c = 0; c < DC / 4; ++c)
           reinterpret_cast<float4*>(dst)[c] =
               make_float4(a[4 * c] * mul, a[4 * c + 1] * mul, a[4 * c + 2] * mul, a[4 * c + 3] * mul);
       } else if (which == 0) {
 #pragma unroll
-        for (int c = 0; c < D; ++c) store1(dq + (bh * n + r) * D + c, a[c] * mul);
+        for (int c = 0; c < DC; ++c) store1(dq + (bh * n + r) * D + c0 + c, a[c] * mul);
       } else {
-        TKV* dst = (which == 1 ? dk : dv) + (bh * n + r) * D;
+        TKV* dst = (which == 1 ? dk : dv) + (bh * n + r) * D + c0;
 #pragma unroll
-        for (int c = 0; c < D; ++c) store1(dst + c, a[c] * mul);
+        for (int c = 0; c < DC; ++c) store1(dst + c, a[c] * mul);
       }
     }
   }
+  if constexpr (!BIAS) return;
   // dbias: rank r adds the ranks' tiles over its band of rows in rank order
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -551,7 +594,8 @@ __global__ void __launch_bounds__(kCThreads)
                                         float* __restrict__ dq, float* __restrict__ dk,
                                         float* __restrict__ dv, float* __restrict__ dbias, int B,
                                         int heads, int n, float scale) {
-  cluster_body<D, float, float>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
+  cluster_body<D, float, float, true>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n,
+                                      scale);
 }
 
 template <int D, typename TQ>
@@ -563,7 +607,34 @@ __global__ void __launch_bounds__(kCThreads)
                                      TQ* __restrict__ dq, uint16_t* __restrict__ dk,
                                      uint16_t* __restrict__ dv, uint16_t* __restrict__ dbias, int B,
                                      int heads, int n, float scale) {
-  cluster_body<D, TQ, uint16_t>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
+  cluster_body<D, TQ, uint16_t, true>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n,
+                                      scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kCThreads)
+    attention_bwd_nobias_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ bias,
+                                const float* __restrict__ out, const float* __restrict__ dout,
+                                float* __restrict__ dq, float* __restrict__ dk,
+                                float* __restrict__ dv, float* __restrict__ dbias, int B,
+                                int heads, int n, float scale) {
+  cluster_body<D, float, float, false>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n,
+                                       scale);
+}
+
+template <int D, typename TQ>
+__global__ void __launch_bounds__(kCThreads)
+    attention_bwd_nobias_bf16_kernel(const TQ* __restrict__ q, const uint16_t* __restrict__ k,
+                                     const uint16_t* __restrict__ v,
+                                     const uint16_t* __restrict__ bias,
+                                     const float* __restrict__ out,
+                                     const float* __restrict__ dout, TQ* __restrict__ dq,
+                                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                                     uint16_t* __restrict__ dbias, int B, int heads, int n,
+                                     float scale) {
+  cluster_body<D, TQ, uint16_t, false>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n,
+                                       scale);
 }
 
 // ---- the row-split cluster path ----------------------------------------
@@ -918,18 +989,22 @@ int launch_rows(const float* q, const float* k, const float* v, const float* bia
   return (int)cudaGetLastError();
 }
 
-template <int D, typename TQ, typename TKV>
+template <int D, typename TQ, typename TKV, bool BIAS = true>
 int launch_cluster(const TQ* q, const TKV* k, const TKV* v, const TKV* bias, const float* out,
                    const float* dout, TQ* dq, TKV* dk, TKV* dv, TKV* dbias, int B, int heads, int n,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * cluster_floats(n, D);
+  const size_t smem = sizeof(float) * cluster_floats(n, D, BIAS);
   if (smem > 227 * 1024 || heads > 65535) return (int)cudaErrorInvalidValue;
   void (*kern)(const TQ*, const TKV*, const TKV*, const TKV*, const float*, const float*, TQ*, TKV*,
                TKV*, TKV*, int, int, int, float);
-  if constexpr (sizeof(TKV) == 4)
+  if constexpr (sizeof(TKV) == 4 && BIAS)
     kern = biased_attention_bwd_cluster_kernel<D>;
-  else
+  else if constexpr (sizeof(TKV) == 4)
+    kern = attention_bwd_nobias_kernel<D>;
+  else if constexpr (BIAS)
     kern = biased_attention_bf16_bwd_kernel<D, TQ>;
+  else
+    kern = attention_bwd_nobias_bf16_kernel<D, TQ>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int cs = B < kMaxCluster ? B : kMaxCluster;
@@ -1082,6 +1157,77 @@ extern "C" int biased_attention_bwd_bf16(const void* q, const void* k, const voi
     CASE(8)
     CASE(16)
     CASE(32)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// no bias, the cluster path (cluster_floats(n, d, false) * 4 bytes within a
+// block's shared memory, as at the global variant's (28, d <= 128)): float32
+// q, k, v, out, dout -> dq, dk, dv; no dbias
+extern "C" int biased_attention_bwd_nobias(const void* q, const void* k, const void* v,
+                                           const void* out, const void* dout, void* dq, void* dk,
+                                           void* dv, int B, int heads, int n, int d, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(dout)) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const float* a[5] = {static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<const float*>(out),
+                       static_cast<const float*>(dout)};
+  float* o[3] = {static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define CASE(DD)                                                                                   \
+  case DD:                                                                                         \
+    return launch_cluster<DD, float, float, false>(a[0], a[1], a[2], nullptr, a[3], a[4], o[0],    \
+                                                   o[1], o[2], nullptr, B, heads, n, s);
+    CASE(4)
+    CASE(8)
+    CASE(16)
+    CASE(32)
+    CASE(64)
+    CASE(128)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// no bias, bf16 training's cluster path: k, v bf16, q bf16 when q_bf16, else
+// float32; out and dout float32 -> dq in q's dtype, dk and dv bf16
+extern "C" int biased_attention_bwd_nobias_bf16(const void* q, const void* k, const void* v,
+                                                const void* out, const void* dout, void* dq,
+                                                void* dk, void* dv, int B, int heads, int n, int d,
+                                                int q_bf16, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 7) != 0 ||
+      (reinterpret_cast<uintptr_t>(q) & (q_bf16 ? 7 : 15)) != 0 ||
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(dout)) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  using bf = uint16_t;
+  const bf* kb = static_cast<const bf*>(k);
+  const bf* vb = static_cast<const bf*>(v);
+  const float* o = static_cast<const float*>(out);
+  const float* g = static_cast<const float*>(dout);
+  bf* dkb = static_cast<bf*>(dk);
+  bf* dvb = static_cast<bf*>(dv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define CASE(DD)                                                                                   \
+  case DD:                                                                                         \
+    return q_bf16 ? launch_cluster<DD, bf, bf, false>(static_cast<const bf*>(q), kb, vb, nullptr,  \
+                                                      o, g, static_cast<bf*>(dq), dkb, dvb,        \
+                                                      nullptr, B, heads, n, s)                     \
+                  : launch_cluster<DD, float, bf, false>(static_cast<const float*>(q), kb, vb,     \
+                                                         nullptr, o, g, static_cast<float*>(dq),   \
+                                                         dkb, dvb, nullptr, B, heads, n, s);
+    CASE(4)
+    CASE(8)
+    CASE(16)
+    CASE(32)
+    CASE(64)
+    CASE(128)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 """Host-side batch loader: PNG decode and JSON parse on worker threads, a
 2-batch prefetch window ahead of the training loop.
 
-Counterpart of `sgtapose_tpu/data/loader.py:SeqBatchLoader`. The host only
+Counterpart of `sgtapose_tpu/data/loader.py:SeqBatchLoader` and
+`TripleBatchLoader` (three-frame windows for the PlanA_three phase). The host only
 reads files here: batches are numpy `RawSample`s (uint8 frames, float32
 projections and robot-frame points), and no worker thread touches CUDA. The
 training loop moves each batch to the card on its own thread, where
@@ -19,9 +20,9 @@ from typing import Iterator, List, Sequence
 import numpy as np
 
 from sgtapose_tpu_torch.config import Config
-from sgtapose_tpu_torch.data.discovery import FramePair, remap_seq_frame
+from sgtapose_tpu_torch.data.discovery import FramePair, FrameTriple, remap_seq_frame
 from sgtapose_tpu_torch.data.loaders import load_depth_keypoints, load_image, load_seq_keypoints
-from sgtapose_tpu_torch.data.pipeline import RawSample
+from sgtapose_tpu_torch.data.pipeline import RawSample, RawSampleThree
 
 
 class SeqBatchLoader:
@@ -137,3 +138,30 @@ class SeqBatchLoader:
                 yield batch
         finally:
             stop.set()
+
+
+class TripleBatchLoader(SeqBatchLoader):
+    """Epochs of collated RawSampleThree batches (three-frame windows from
+    `data/discovery.find_ndds_seq_triples_in_dir`, no seq_frame remap): the
+    pair loader's epoch machinery with its own per-sample load and
+    collate."""
+
+    def _load_one(self, triple: FrameTriple) -> RawSampleThree:
+        def kp(path):
+            return load_seq_keypoints(path, self.robot_name, self.keypoint_names, self.camera_K)
+
+        ppre_kp, pre_kp, next_kp = (kp(p) for p in (triple.ppre_data_path, triple.pre_data_path,
+                                                    triple.next_data_path))
+        return RawSampleThree(
+            ppre_img=load_image(triple.ppre_img_path), pre_img=load_image(triple.pre_img_path),
+            next_img=load_image(triple.next_img_path),
+            ppre_projs=ppre_kp["projections"].astype(np.float32),
+            pre_projs=pre_kp["projections"].astype(np.float32),
+            next_projs=next_kp["projections"].astype(np.float32),
+            ppre_x3d_rob=ppre_kp["positions_wrt_robot"].astype(np.float32),
+            pre_x3d_rob=pre_kp["positions_wrt_robot"].astype(np.float32),
+            next_x3d_rob=next_kp["positions_wrt_robot"].astype(np.float32))
+
+    @staticmethod
+    def _collate(samples: List[RawSampleThree]) -> RawSampleThree:
+        return RawSampleThree(*(np.stack([getattr(s, f) for s in samples]) for f in RawSampleThree._fields))

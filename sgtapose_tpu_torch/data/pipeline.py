@@ -3,8 +3,9 @@
 regression targets, the noised PnP structure prior and the prior heatmaps.
 
 Counterpart of `sgtapose_tpu/data/pipeline.py` (`RawSample`, `_border`,
-`_derive_affine`, `augment_and_render`, `make_batch_fn`; the three-frame
-variant is not ported yet). JAX's key splits cannot be reproduced with torch
+`_derive_affine`, `augment_and_render`, `make_batch_fn`, and the three-frame
+window's `RawSampleThree`, `augment_and_render_three`,
+`make_batch_fn_three`). JAX's key splits cannot be reproduced with torch
 generators, so each random function is split in two: `draw_augment` draws
 every random number a batch needs from a `torch.Generator` (`Draws`), and
 `augment_and_render` is a deterministic function of one sample's draws. The
@@ -178,5 +179,87 @@ def make_batch_fn(cfg: Config, camera_K, augment: bool = True, cache_prior: bool
         B, n_kp = samples.prev_projs.shape[:2]
         draws = draw_augment(generator, B, n_kp, samples.prev_img.shape[1:3], augment, device=dev)
         return render_batch(draws, samples, K, cfg, cache_prior)
+
+    return batch_fn
+
+
+class RawSampleThree(NamedTuple):
+    """Raw inputs of a three-frame window (ppre, pre, next), a leading batch
+    dim when batched."""
+
+    ppre_img: torch.Tensor
+    pre_img: torch.Tensor
+    next_img: torch.Tensor
+    ppre_projs: torch.Tensor
+    pre_projs: torch.Tensor
+    next_projs: torch.Tensor
+    ppre_x3d_rob: torch.Tensor
+    pre_x3d_rob: torch.Tensor
+    next_x3d_rob: torch.Tensor
+
+
+class DrawsThree(NamedTuple):
+    """The random numbers of one three-frame sample, in the JAX function's
+    order: the (pre, next) pair's, then the ppre -> pre prior chain's."""
+
+    pair: Draws
+    ppre_prior_noise: torch.Tensor  # (K, 2) N(0,1)
+    ppre_prior_keep_u: torch.Tensor  # (K,) U[0,1)
+
+
+def draw_augment_three(generator: torch.Generator, batch: int, n_kp: int, raw_hw, augment: bool = True,
+                       device="cuda") -> DrawsThree:
+    """A batch's three-frame draws from `generator` (the pair's, as
+    `draw_augment` draws them, then the ppre prior chain's)."""
+    pair = draw_augment(generator, batch, n_kp, raw_hw, augment, device)
+    shape = (batch, n_kp)
+    noise = torch.randn(shape + (2,), generator=generator)
+    keep = torch.rand(shape, generator=generator)
+    return DrawsThree(pair, noise.to(device), keep.to(device))
+
+
+def augment_and_render_three(draws: DrawsThree, sample: RawSampleThree, camera_K: torch.Tensor,
+                             cfg: Config) -> Dict[str, torch.Tensor]:
+    """One three-frame sample's training inputs (vmap-safe): the (pre, next)
+    pair as `augment_and_render` builds it, which fixes the window's affine;
+    the ppre frame warped with the same affine; the noised ppre -> pre PnP
+    prior's ppre heatmaps."""
+    pair = RawSample(prev_img=sample.pre_img, next_img=sample.next_img, prev_projs=sample.pre_projs,
+                     next_projs=sample.next_projs, prev_x3d_rob=sample.pre_x3d_rob,
+                     next_x3d_rob=sample.next_x3d_rob)
+    out = augment_and_render(draws.pair, pair, camera_K, cfg)
+    H_raw, W_raw = sample.pre_img.shape[0], sample.pre_img.shape[1]
+    in_h, in_w = cfg.model.input_res
+    out_h, out_w = cfg.model.output_res
+    tc = cfg.train
+    trans_input, trans_output = _derive_affine(draws.pair, H_raw, W_raw, cfg)
+    ppre_in = geometry.normalize_image(geometry.warp_affine(sample.ppre_img, trans_input, (in_h, in_w)),
+                                       IMAGE_MEAN, IMAGE_STD)
+    ok2, _, ppre_noised, _ = pnp.noised_pnp_prior(
+        draws.ppre_prior_noise, draws.ppre_prior_keep_u, sample.ppre_x3d_rob, sample.ppre_projs,
+        sample.pre_x3d_rob, camera_K, tc.hm_disturb, tc.lost_disturb)
+    ok2f = ok2.to(torch.float32)
+    ppre_hm = geometry.render_prior_heatmap(ppre_noised, trans_input, in_w, in_h, W_raw, H_raw) * ok2f
+    ppre_hm_cls = geometry.render_prior_heatmap_cls(ppre_noised, trans_output, out_w, out_h, W_raw, H_raw) * ok2f
+    out.update(ppre_img=ppre_in, ppre_hm=ppre_hm[..., None], ppre_hm_cls=ppre_hm_cls.permute(1, 2, 0))
+    return out
+
+
+def render_batch_three(draws: DrawsThree, samples: RawSampleThree, camera_K: torch.Tensor,
+                       cfg: Config) -> Dict[str, torch.Tensor]:
+    """`augment_and_render_three` over a batch (torch.func.vmap)."""
+    return torch.func.vmap(lambda d, s: augment_and_render_three(d, s, camera_K, cfg))(draws, samples)
+
+
+def make_batch_fn_three(cfg: Config, camera_K, augment: bool = True):
+    """fn(generator, batched RawSampleThree) -> the model batch dict of the
+    PlanA_three phase (B, ...) on the samples' device."""
+
+    def batch_fn(generator: torch.Generator, samples: RawSampleThree) -> Dict[str, torch.Tensor]:
+        dev = samples.pre_img.device
+        K = torch.as_tensor(camera_K, dtype=torch.float32, device=dev)
+        B, n_kp = samples.pre_projs.shape[:2]
+        draws = draw_augment_three(generator, B, n_kp, samples.pre_img.shape[1:3], augment, device=dev)
+        return render_batch_three(draws, samples, K, cfg)
 
     return batch_fn

@@ -21,8 +21,16 @@ carry; each frame runs five stages over the whole batch:
   5. decode  sigmoid, peak decode, inverse affine to raw pixels, score
              threshold, batched over V.
 
+The exact and batched runners take a `phase` (JAX's `_phase_model_inputs`):
+which of the rendered priors the model consumes (the flagship's six inputs
+for PlanA_win; the image pair and the 1-channel priors for PlanA, PlanACAT
+and the ablations; current and previous images and the detection prior for
+CenterTrack; the current image for CenterNet); the trunk stage runs the
+model's `trunk_features`, the fuse stage its `fuse_features`. The
+feature-cache runner is the flagship's only, as in JAX.
+
 The model may be float32 or bf16 (`utils/precision.bf16_inference_model`):
-its six inputs are cast to its parameter dtype and its heads back to float32,
+its inputs are cast to its parameter dtype and its heads back to float32,
 as the JAX package's `make_bf16_apply` does; PnP, rendering and decode stay
 float32. Everything stays on the device; the frame loop never reads a value
 back to the host (PnP's eigh/SVD check their own status, see core/pnp.py).
@@ -104,6 +112,20 @@ def preprocess_frames(raw_images: torch.Tensor, cfg: Config):
     return geometry.normalize_image(warped, IMAGE_MEAN, IMAGE_STD), trans_input, trans_output
 
 
+def _phase_model_inputs(phase: str, cur, pre_img, pre_hm, repro_hm, pre_cls, repro_cls):
+    """The model inputs of an inference phase, from the frame step's images
+    and rendered priors."""
+    if phase == "PlanA_win":
+        return (cur, pre_img, pre_hm, repro_hm, pre_cls, repro_cls)
+    if phase in ("PlanA", "PlanACAT", "ablation_shared_repro", "ablation_shared", "ablation_wo_shared"):
+        return (cur, pre_img, pre_hm, repro_hm)
+    if phase == "CenterTrack":
+        return (cur, pre_img, pre_hm)
+    if phase == "CenterNet":
+        return (cur,)
+    raise ValueError(f"unknown detector phase: {phase}")
+
+
 def _render_priors(detected_kps, repro_kps, any_valid, trans_input, trans_output,
                    cfg: Config, raw_wh: Tuple[int, int], with_pre_hm: bool = True):
     """For (V, K, 2) keypoints: pre/repro heatmaps at input res (V,H,W,1) and
@@ -138,7 +160,10 @@ class VideoDetector:
 
     def __init__(self, model, cfg: Config, camera_K, raw_hw: Tuple[int, int], device,
                  debug_outputs: bool = False,
-                 stage_timer: Optional[Callable[[str], contextlib.AbstractContextManager]] = None):
+                 stage_timer: Optional[Callable[[str], contextlib.AbstractContextManager]] = None,
+                 phase: str = "PlanA_win"):
+        _phase_model_inputs(phase, *(None,) * 6)  # an unknown phase raises here
+        self.phase = phase
         self.device = resolve_device(device)
         p = next(model.parameters())
         if p.device.type != self.device.type:
@@ -174,15 +199,14 @@ class VideoDetector:
         return (pose,) + priors
 
     def _network(self, cur_img, pre_img, pre_hm, repro_hm, pre_cls, repro_cls):
-        """Stages 3-4: the heads, cast to float32."""
+        """Stages 3-4 on the phase's inputs: the heads, cast to float32."""
         dt = self.dtype
-        V = cur_img.shape[0]
+        inputs = tuple(x.to(dt) for x in _phase_model_inputs(self.phase, cur_img, pre_img, pre_hm, repro_hm,
+                                                              pre_cls, repro_cls))
         with self._stage("trunk"):
-            feats = self.model.trunk(torch.cat([pre_img, cur_img]).to(dt),
-                                     torch.cat([pre_hm, repro_hm]).to(dt))
+            feats = self.model.trunk_features(*inputs)
         with self._stage("fuse"):
-            out = self.model.fuse([f[:V] for f in feats], [f[V:] for f in feats],
-                                  pre_cls.to(dt), repro_cls.to(dt))
+            out = self.model.fuse_features(feats, *inputs)
         return {k: v.to(torch.float32) for k, v in out.items()}
 
     def _decode(self, out):
@@ -312,24 +336,26 @@ class CachedVideoDetector(VideoDetector):
 
 
 def make_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int], device="cuda",
-                        debug_outputs: bool = False, stage_timer=None) -> VideoDetector:
+                        debug_outputs: bool = False, stage_timer=None,
+                        phase: str = "PlanA_win") -> VideoDetector:
     """Single-video exact streaming detector: fn(VideoFrames) -> FrameResult
-    stacked over T. `model` is an `SGTAPose` on `device`, float32 or bf16
-    (trunk/fuse are called per frame). debug_outputs adds the per-frame
-    post-sigmoid heatmaps and rendered prior."""
+    stacked over T. `model` is the phase's model (`models/sgta.create_model`)
+    on `device`, float32 or bf16 (its trunk_features / fuse_features are
+    called per frame). debug_outputs adds the per-frame post-sigmoid heatmaps
+    and rendered prior."""
     return VideoDetector(model, cfg, camera_K, raw_hw, device, debug_outputs=debug_outputs,
-                         stage_timer=stage_timer)
+                         stage_timer=stage_timer, phase=phase)
 
 
 def make_batched_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int],
                                 device="cuda", debug_outputs: bool = False,
-                                stage_timer=None) -> BatchedVideoDetector:
+                                stage_timer=None, phase: str = "PlanA_win") -> BatchedVideoDetector:
     """The exact detector over a batch of videos (frames depend on each other,
     videos do not): fn(VideoFrames with a leading video dim) -> FrameResult
-    fields (V, T, ...). One trunk pass over 2V images, one fuse over V and one
-    batched PnP solve per frame step."""
+    fields (V, T, ...). One trunk pass over the V videos' frames, one fuse
+    over V and one batched PnP solve per frame step."""
     return BatchedVideoDetector(model, cfg, camera_K, raw_hw, device, debug_outputs=debug_outputs,
-                                stage_timer=stage_timer)
+                                stage_timer=stage_timer, phase=phase)
 
 
 def make_cached_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int],

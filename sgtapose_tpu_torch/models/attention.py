@@ -57,13 +57,35 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         norm.eps)
 
 
+def _topk_flat_ids(hm: torch.Tensor, k: int) -> torch.Tensor:
+    """hm (B, H, W, C) -> (B, C*k) flat pixel ids y*W + x of each channel's
+    top-k values, channel-major, ties broken toward the lowest id."""
+    B, H, W, C = hm.shape
+    flat = hm.permute(0, 3, 1, 2).reshape(B, C, H * W)
+    return torch.sort(flat, dim=-1, descending=True, stable=True).indices[..., :k].reshape(B, C * k)
+
+
 def topk_class_indices(hm_cls: torch.Tensor, k: int) -> torch.Tensor:
     """hm_cls (B, H, W, C) -> (B, C*k, 2) float32 (x, y) of each class's top-k
     pixels, class-major, ties broken toward the lowest flat index."""
-    B, H, W, C = hm_cls.shape
-    flat = hm_cls.permute(0, 3, 1, 2).reshape(B, C, H * W)
-    idx = torch.sort(flat, dim=-1, descending=True, stable=True).indices[..., :k].reshape(B, C * k)
+    W = hm_cls.shape[2]
+    idx = _topk_flat_ids(hm_cls, k)
     return torch.stack([(idx % W).to(torch.float32), (idx // W).to(torch.float32)], dim=-1)
+
+
+def topk_flat_fractions(hm: torch.Tensor, k: int) -> torch.Tensor:
+    """hm (B, H, W, C) -> (B, C*k) float32: each channel's top-k flat pixel
+    ids (ties toward the lowest id) as fractions id / (H*W), the float32
+    quotient the global variant rescales into each level's id space."""
+    H, W = hm.shape[1], hm.shape[2]
+    return _topk_flat_ids(hm, k).to(torch.float32) / torch.tensor(H * W, dtype=torch.float32, device=hm.device)
+
+
+def flat_ids_from_fractions(frac: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, M) fractions -> (B, M) int64 flat ids at this level's resolution:
+    the float32 product frac * (H*W), truncated."""
+    prod = frac * torch.tensor(height * width, dtype=torch.float32, device=frac.device)
+    return prod.to(torch.int32).to(torch.int64)
 
 
 def window_feat_ids(topk_xy: torch.Tensor, scale: float, kernel: int, height: int,
@@ -147,8 +169,10 @@ def set_dropout_rate(model: nn.Module, rate: float) -> None:
 
 
 class MultiHeadCrossAttention(nn.Module):
-    """Multi-head attention with a learned (heads, n, n) position bias; the
-    attention itself always goes through `fused_biased_attention`."""
+    """Multi-head attention with a learned (heads, n, n) position bias, or
+    without one (pos_embed=False: the global variant's plain MHA); the
+    attention itself always goes through `fused_biased_attention`, whose
+    no-bias kernels take bias None."""
 
     def __init__(self, n_heads: int, inp_dim: int, hid_dim: int, n_tokens: int,
                  pos_embed: bool = True):
@@ -172,10 +196,7 @@ class MultiHeadCrossAttention(nn.Module):
 
         q = heads(dense(self.w_q, query))
         k, v = heads(dense(self.w_k, key)), heads(dense(self.w_v, value))
-        bias = self.pos_embed
-        if bias is None:
-            bias = torch.zeros(h, N, N, dtype=k.dtype, device=k.device)
-        out = fused_biased_attention(q, k, v, bias)  # float32
+        out = fused_biased_attention(q, k, v, self.pos_embed)  # float32
         return dense(self.fc, out.transpose(1, 2).reshape(B, N, self.hid_dim))
 
 
@@ -221,12 +242,14 @@ class TransformerEncoder(nn.Module):
 
 
 class CatLayer(nn.Module):
-    """2-layer MLP merging attended + current features (2C -> 4C -> C)."""
+    """2-layer MLP merging attended + current features: 2C -> 4C -> C, or,
+    given `inputs` and `hidden`, inputs -> hidden -> C (the three-frame
+    variant's 3C -> 6C -> C)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, hidden: int | None = None, inputs: int | None = None):
         super().__init__()
-        self.fc1 = nn.Linear(2 * features, 4 * features)
-        self.fc2 = nn.Linear(4 * features, features)
+        self.fc1 = nn.Linear(inputs or 2 * features, hidden or 4 * features)
+        self.fc2 = nn.Linear(hidden or 4 * features, features)
 
     def forward(self, x):
         return dense(self.fc2, F.relu(dense(self.fc1, x)))

@@ -35,6 +35,14 @@ bf16 q the logit's cotangent dS / sqrt(d) is rounded to bf16 before the dq
 and dk products and dq, dk, dv come out bf16; with a float32 q, dq is
 float32 and dk, dv are rounded once; dbias is the batch sum of float32 dS,
 rounded once to bf16 (pos_embed is bf16, promoted in `energy + bias`).
+
+No bias (`bias=None`): the plain MHA of the global-attention variant
+(`sgtapose_tpu/models/variants.py:SGTAPoseGlobal`, `pos_embed=False`) at
+(n, d) = (28, 4 ... 128). On the card the forward runs the no-bias
+instantiations of the same kernels (`biased_attention_nobias`, `_bf16`: no
+bias read, no bias span staged) and the backward those of the cluster path
+(`biased_attention_bwd_nobias`, `_bf16`: no dbias formed or written); an
+(n, d) beyond the cluster path raises. The gradient of the bias is None.
 """
 
 from __future__ import annotations
@@ -51,21 +59,30 @@ KERNEL_TILED = "biased_attention_tiled"
 BWD_KERNEL = "biased_attention_bwd"
 BWD_KERNEL_BF16 = "biased_attention_bwd_bf16"
 BWD_KERNEL_ROWS = "biased_attention_bwd_rows"
-SUPPORTED_HEAD_DIMS = (4, 8, 16, 32)
+KERNEL_NOBIAS = "biased_attention_nobias"
+KERNEL_NOBIAS_BF16 = "biased_attention_nobias_bf16"
+BWD_KERNEL_NOBIAS = "biased_attention_bwd_nobias"
+BWD_KERNEL_NOBIAS_BF16 = "biased_attention_bwd_nobias_bf16"
+SUPPORTED_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+# 64 and 128 are the global variant's, which has no bias
+BIASED_HEAD_DIM_MAX = 32
+# the biased backward's head dims (the flagship's 4 ... 16 and 32); the
+# no-bias cluster path takes every SUPPORTED_HEAD_DIMS
+BWD_HEAD_DIMS = (4, 8, 16, 32)
 # the kernel's layout (csrc/biased_attention.cu): blocks of 8 warps, one
 # warp (ROW_LANES lanes) per query row, a 2-stage ring of bias spans
 ROW_LANES, _ROWS, _STAGES = 32, 8, 2
 _SMEM_LIMIT = 227 * 1024
 
 
-def kernel_smem_bytes(n: int, d: int, elem_bytes: int = 4) -> int:
-    """Shared memory the kernel needs: K and V of one head and the ring of
-    8-row bias spans, each copied in whole 16-byte lines from any element's
-    start (up to 16 - elem_bytes bytes of line offset); elem_bytes is 4 for
-    float32, 2 for bf16."""
+def kernel_smem_bytes(n: int, d: int, elem_bytes: int = 4, bias: bool = True) -> int:
+    """Shared memory the kernel needs: K and V of one head and (with a bias)
+    the ring of 8-row bias spans, each copied in whole 16-byte lines from
+    any element's start (up to 16 - elem_bytes bytes of line offset);
+    elem_bytes is 4 for float32, 2 for bf16."""
     def span(elems):
         return 16 * ((elem_bytes * elems + 31 - elem_bytes) // 16)
-    return 2 * span(n * d) + _STAGES * span(_ROWS * n)
+    return 2 * span(n * d) + (_STAGES * span(_ROWS * n) if bias else 0)
 
 
 def fits_smem(n: int, d: int, elem_bytes: int = 4) -> bool:
@@ -74,11 +91,22 @@ def fits_smem(n: int, d: int, elem_bytes: int = 4) -> bool:
     return kernel_smem_bytes(n, d, elem_bytes) <= _SMEM_LIMIT
 
 
+def _add_bias(energy, bias):
+    return energy if bias is None else energy + bias
+
+
+def sqrt_d(d: int) -> float:
+    """sqrt(d) rounded to float32, the JAX form's divisor in every dtype
+    (`jnp.sqrt(jnp.float32(d))`; in float32 the same as math.sqrt(d))."""
+    return float(torch.tensor(float(d), dtype=torch.float32).sqrt())
+
+
 def plain_biased_attention(q, k, v, bias):
-    """q, k, v: (B, heads, n, d); bias: (heads, n, n) -> (B, heads, n, d)."""
+    """q, k, v: (B, heads, n, d); bias: (heads, n, n) or None -> (B, heads,
+    n, d)."""
     d = q.shape[-1]
-    energy = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(d)
-    p = torch.softmax(energy + bias, dim=-1)
+    energy = torch.einsum("bhid,bhjd->bhij", q, k) / sqrt_d(d)
+    p = torch.softmax(_add_bias(energy, bias), dim=-1)
     return torch.einsum("bhij,bhjd->bhid", p, v)
 
 
@@ -86,15 +114,15 @@ def plain_biased_attention_backward(q, k, v, bias, out, dout):
     """The backward's formulas step by step (float32): with S = q k^T / sqrt(d)
     + bias, P = softmax(S), D_i = dO_i . O_i and dS = P (dO v^T - D),
     returns dq = dS k / sqrt(d), dk = dS^T q / sqrt(d), dv = P^T dO and
-    dbias = sum over the batch of dS."""
+    dbias = sum over the batch of dS (None without a bias)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.softmax(torch.einsum("bhid,bhjd->bhij", q, k) * scale + bias, dim=-1)
+    p = torch.softmax(_add_bias(torch.einsum("bhid,bhjd->bhij", q, k) * scale, bias), dim=-1)
     delta = (dout * out).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhid,bhjd->bhij", dout, v) - delta)
     dq = torch.einsum("bhij,bhjd->bhid", ds, k) * scale
     dk = torch.einsum("bhij,bhid->bhjd", ds, q) * scale
     dv = torch.einsum("bhij,bhid->bhjd", p, dout)
-    return dq, dk, dv, ds.sum(0)
+    return dq, dk, dv, None if bias is None else ds.sum(0)
 
 
 def plain_biased_attention_bf16(q, k, v, bias):
@@ -106,7 +134,7 @@ def plain_biased_attention_bf16(q, k, v, bias):
     energy = torch.einsum("bhid,bhjd->bhij", q.to(f32), k.to(f32))
     if q.dtype == torch.bfloat16:
         energy = energy.to(torch.bfloat16).to(f32)
-    p = torch.softmax(energy / math.sqrt(d) + bias.to(f32), dim=-1)
+    p = torch.softmax(_add_bias(energy / math.sqrt(d), None if bias is None else bias.to(f32)), dim=-1)
     return torch.einsum("bhij,bhjd->bhid", p, v.to(f32))
 
 
@@ -122,7 +150,7 @@ def plain_biased_attention_backward_bf16(q, k, v, bias, out, dout):
     energy = torch.einsum("bhid,bhjd->bhij", qf, kf)
     if q.dtype == bf16:
         energy = energy.to(bf16).to(f32)
-    p = torch.softmax(energy / math.sqrt(d) + bias.to(f32), dim=-1)
+    p = torch.softmax(_add_bias(energy / math.sqrt(d), None if bias is None else bias.to(f32)), dim=-1)
     delta = (dout * out).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhid,bhjd->bhij", dout, vf) - delta)
     de = ds / math.sqrt(d)
@@ -131,7 +159,7 @@ def plain_biased_attention_backward_bf16(q, k, v, bias, out, dout):
     dq = torch.einsum("bhij,bhjd->bhid", de, kf)
     dk = torch.einsum("bhij,bhid->bhjd", de, qf)
     dv = torch.einsum("bhij,bhid->bhjd", p, dout)
-    return dq.to(q.dtype), dk.to(bf16), dv.to(bf16), ds.sum(0).to(bf16)
+    return dq.to(q.dtype), dk.to(bf16), dv.to(bf16), None if bias is None else ds.sum(0).to(bf16)
 
 
 def split_lane_attention(q, k, v, bias):
@@ -190,15 +218,16 @@ def key_tiled_attention(q, k, v, bias, tile_keys: int = TILE_KEYS):
 def _check(q, k, v, bias, bf16: bool = False, smem: bool = True):
     """Shapes, devices, dtypes (float32; or bf16 k, v, bias with a bf16 or
     float32 q), contiguity and the kernel's limits (with smem, the
-    shared-memory kernel's)."""
+    shared-memory kernel's). bias may be None."""
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q, k, v must share one (B, heads, n, d) shape, got {q.shape}, {k.shape}, {v.shape}")
     B, h, n, d = q.shape
-    if tuple(bias.shape) != (h, n, n):
+    if bias is not None and tuple(bias.shape) != (h, n, n):
         raise ValueError(f"bias must be (heads, n, n) = {(h, n, n)}, got {tuple(bias.shape)}")
     kv_dtype = torch.bfloat16 if bf16 else torch.float32
     q_dtypes = (torch.bfloat16, torch.float32) if bf16 else (torch.float32,)
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+    named = (("q", q), ("k", k), ("v", v)) + ((("bias", bias),) if bias is not None else ())
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype not in (q_dtypes if name == "q" else (kv_dtype,)):
@@ -207,13 +236,16 @@ def _check(q, k, v, bias, bf16: bool = False, smem: bool = True):
             raise ValueError(f"{name} must be contiguous")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported by the CUDA kernel {SUPPORTED_HEAD_DIMS}")
-    need = kernel_smem_bytes(n, d, 2 if bf16 else 4)
+    if bias is not None and d > BIASED_HEAD_DIM_MAX:
+        raise ValueError(f"head dim {d}: the kernel takes a bias at head dims up to {BIASED_HEAD_DIM_MAX}")
+    need = kernel_smem_bytes(n, d, 2 if bf16 else 4, bias is not None)
     if smem and need > _SMEM_LIMIT:
         raise ValueError(f"n={n}, d={d} needs {need} B of shared memory, more than the kernel's {_SMEM_LIMIT}")
 
 
 def biased_attention_cuda(q, k, v, bias):
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+    """Launch the CUDA kernel on the current stream (CUDA tensors only);
+    bias None launches the no-bias instantiation."""
     _check(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_cuda needs CUDA tensors")
@@ -221,13 +253,14 @@ def biased_attention_cuda(q, k, v, bias):
         raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as float4)")
     B, h, n, d = q.shape
     out = torch.empty_like(q)
-    fn = build.kernel_fn(KERNEL)
+    name = KERNEL if bias is not None else KERNEL_NOBIAS
+    fn = build.kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 B, h, n, d, stream)
-    build.check(KERNEL, err)
-    build.count_launch(KERNEL)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr()) + ((bias.data_ptr(),) if bias is not None else ())
+        err = fn(*ptrs, out.data_ptr(), B, h, n, d, stream)
+    build.check(name, err)
+    build.count_launch(name)
     return out
 
 
@@ -238,6 +271,8 @@ def biased_attention_tiled_cuda(q, k, v, bias):
     _check(q, k, v, bias, smem=False)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_tiled_cuda needs CUDA tensors")
+    if bias is None or q.shape[-1] > 32:
+        raise ValueError(f"the key-tiled kernel takes a bias and d <= 32, got d={q.shape[-1]}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as float4)")
     B, h, n, d = q.shape
@@ -254,7 +289,8 @@ def biased_attention_tiled_cuda(q, k, v, bias):
 
 def biased_attention_bf16_cuda(q, k, v, bias):
     """Launch the bf16 CUDA kernel on the current stream (CUDA tensors only):
-    bf16 k, v, bias; bf16 or float32 q; float32 out."""
+    bf16 k, v, bias (or None: the no-bias instantiation); bf16 or float32 q;
+    float32 out."""
     _check(q, k, v, bias, bf16=True)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_bf16_cuda needs CUDA tensors")
@@ -262,13 +298,14 @@ def biased_attention_bf16_cuda(q, k, v, bias):
         raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as vectors)")
     B, h, n, d = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    fn = build.kernel_fn(KERNEL_BF16)
+    name = KERNEL_BF16 if bias is not None else KERNEL_NOBIAS_BF16
+    fn = build.kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 B, h, n, d, int(q.dtype == torch.bfloat16), stream)
-    build.check(KERNEL_BF16, err)
-    build.count_launch(KERNEL_BF16)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr()) + ((bias.data_ptr(),) if bias is not None else ())
+        err = fn(*ptrs, out.data_ptr(), B, h, n, d, int(q.dtype == torch.bfloat16), stream)
+    build.check(name, err)
+    build.count_launch(name)
     return out
 
 
@@ -283,18 +320,21 @@ def bwd_smem_bytes(n: int, d: int) -> int:
 BWD_CLUSTER = 8
 
 
-def bwd_cluster_smem_bytes(n: int, d: int) -> int:
+def bwd_cluster_smem_bytes(n: int, d: int, bias: bool = True) -> int:
     """Shared memory of the backward's one-pass cluster path: K and V of one
-    (batch, head) in rows padded to d + 4 floats, q, O and dO, the head's
-    bias, P, dS and the block's dbias sum (n x n each), and D (n)."""
-    return 4 * (2 * n * (d + 4) + 3 * n * d + 4 * n * n + n)
+    (batch, head) in rows padded to d + 4 floats, q, O and dO, P and dS
+    (n x n each), with a bias the head's bias and the block's dbias sum
+    (n x n each), and D (n)."""
+    return 4 * (2 * n * (d + 4) + 3 * n * d + (4 if bias else 2) * n * n + n)
 
 
-def bwd_uses_cluster(n: int, d: int) -> bool:
+def bwd_uses_cluster(n: int, d: int, bias: bool = True) -> bool:
     """The backward's path: one cluster launch when a whole (batch, head)
     problem fits in one block's shared memory (level 2 of the flagship,
-    (63, 16), and (100, 8)); else `bwd_uses_rows` or the two-pass kernels."""
-    return bwd_cluster_smem_bytes(n, d) <= _SMEM_LIMIT
+    (63, 16), and (100, 8); without a bias the global variant's (28, d), d
+    up to 128); else `bwd_uses_rows` or the two-pass kernels (with a bias;
+    without one, nothing)."""
+    return bwd_cluster_smem_bytes(n, d, bias) <= _SMEM_LIMIT
 
 
 # the row-split path (csrc/biased_attention_bwd.cu): a cluster of BWD_CLUSTER
@@ -320,10 +360,14 @@ def bwd_uses_rows(n: int, d: int) -> bool:
             and bwd_rows_smem_bytes(n, d) <= _SMEM_LIMIT)
 
 
-def bwd_path(n: int, d: int) -> str:
-    """The float32 backward's path at (n, d): "cluster", "rows" or "two_pass"."""
-    if bwd_uses_cluster(n, d):
+def bwd_path(n: int, d: int, bias: bool = True) -> str:
+    """The float32 backward's path at (n, d): "cluster", "rows" or
+    "two_pass"; without a bias "cluster" or, beyond it, "none" (raises on
+    the card)."""
+    if bwd_uses_cluster(n, d, bias):
         return "cluster"
+    if not bias:
+        return "none"
     return "rows" if bwd_uses_rows(n, d) else "two_pass"
 
 
@@ -397,6 +441,8 @@ def biased_attention_bwd_cuda(q, k, v, bias, out, dout, path: str | None = None)
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("q, k, v, out, dout must start on a 16-byte boundary (rows are read as float4)")
     B, h, n, d = q.shape
+    if bias is None or d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the biased backward takes a bias and head dims {BWD_HEAD_DIMS}, got d={d}")
     path = path or bwd_path(n, d)
     takes = {"cluster": bwd_uses_cluster(n, d), "rows": bwd_uses_rows(n, d),
              "two_pass": bwd_smem_bytes(n, d) <= _SMEM_LIMIT}
@@ -445,6 +491,8 @@ def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("q, k, v, out, dout must start on a 16-byte boundary (rows are read as vectors)")
     B, h, n, d = q.shape
+    if bias is None or d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the biased backward takes a bias and head dims {BWD_HEAD_DIMS}, got d={d}")
     if not bwd_uses_cluster(n, d):
         raise NotImplementedError(
             f"biased attention backward in bf16 at (n, d) = {(n, d)}: beyond the one-pass cluster path "
@@ -464,6 +512,42 @@ def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
     return dq, dk, dv, dbias
 
 
+def attention_bwd_nobias_cuda(q, k, v, out, dout):
+    """Launch the no-bias backward on the current stream (CUDA tensors only):
+    (dq, dk, dv) of `plain_biased_attention_backward` (or, for bf16 k and v,
+    of `plain_biased_attention_backward_bf16`) with bias None; one cluster
+    launch; an (n, d) beyond the cluster path raises NotImplementedError
+    (no variant reaches one)."""
+    bf16 = k.dtype == torch.bfloat16
+    _check(q, k, v, None, bf16=bf16, smem=False)
+    if q.device.type != "cuda":
+        raise ValueError("attention_bwd_nobias_cuda needs CUDA tensors")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {tuple(q.shape)} tensor on {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("q, k, v, out, dout must start on a 16-byte boundary (rows are read as vectors)")
+    B, h, n, d = q.shape
+    if not bwd_uses_cluster(n, d, bias=False):
+        raise NotImplementedError(
+            f"attention backward without a bias at (n, d) = {(n, d)}: beyond the one-pass cluster path "
+            f"({bwd_cluster_smem_bytes(n, d, False)} B of shared memory); no ported model reaches it")
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    name = BWD_KERNEL_NOBIAS_BF16 if bf16 else BWD_KERNEL_NOBIAS
+    fn = build.kernel_fn(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, h, n, d]
+        if bf16:
+            args.append(int(q.dtype == torch.bfloat16))
+        err = fn(*args, stream)
+    build.check(name, err)
+    build.count_launch(name)
+    return dq, dk, dv
+
+
 class _BiasedAttention(torch.autograd.Function):
     """Forward through the kernel of the inputs' dtype and size (plain on
     the CPU); backward through `biased_attention_bwd_cuda` or, for bf16
@@ -476,7 +560,7 @@ class _BiasedAttention(torch.autograd.Function):
             out = plain_biased_attention_bf16(q, k, v, bias) if bf16 else plain_biased_attention(q, k, v, bias)
         elif bf16:
             out = biased_attention_bf16_cuda(q, k, v, bias)
-        elif fits_smem(q.shape[-2], q.shape[-1]):
+        elif bias is None or fits_smem(q.shape[-2], q.shape[-1]):
             out = biased_attention_cuda(q, k, v, bias)
         else:
             out = biased_attention_tiled_cuda(q, k, v, bias)
@@ -487,6 +571,8 @@ class _BiasedAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, bias, out = ctx.saved_tensors
         dout = dout.contiguous()
+        if bias is None and q.device.type != "cpu":
+            return attention_bwd_nobias_cuda(q, k, v, out, dout) + (None,)
         if k.dtype == torch.bfloat16:
             if q.device.type == "cpu":
                 return plain_biased_attention_backward_bf16(q, k, v, bias, out, dout)
@@ -498,10 +584,11 @@ class _BiasedAttention(torch.autograd.Function):
 
 def fused_biased_attention(q, k, v, bias):
     """softmax(q k^T / sqrt(d) + bias) v with q, k, v (B, heads, n, d) and a
-    (heads, n, n) bias shared across the batch; float32, or bf16 k, v, bias
-    (module docstring), always returning float32. Differentiable in both
-    (bf16 on the card at the cluster path's (n, d)). CUDA tensors go through
-    the hand-written kernels of their dtype (float32 beyond the shared-memory
-    kernel's n: the key-tiled kernel; bf16 there raises); CPU tensors take
-    the plain versions."""
+    (heads, n, n) bias shared across the batch, or bias None (no bias);
+    float32, or bf16 k, v, bias (module docstring), always returning
+    float32. Differentiable in both (bf16 on the card at the cluster path's
+    (n, d); without a bias at the cluster path's (n, d) only). CUDA tensors
+    go through the hand-written kernels of their dtype (float32 beyond the
+    shared-memory kernel's n: the key-tiled kernel; bf16 there, and no bias
+    there, raise); CPU tensors take the plain versions."""
     return _BiasedAttention.apply(q, k, v, bias)

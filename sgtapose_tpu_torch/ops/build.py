@@ -34,7 +34,8 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # kernel name -> source file under csrc/ (the bf16 kernels, of serving and
 # of bf16 training, are the second instantiation of their float32 kernel's
 # design, in the same source; the key-tiled attention shares the attention
-# source, the row-split attention backward the backward's)
+# source, the row-split attention backward the backward's; the no-bias
+# attention forward and backward are instantiations of their biased designs)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -51,6 +52,10 @@ KERNEL_SOURCES = {
     "biased_attention_bwd_rows": "biased_attention_bwd.cu",
     "deform_conv_wgrad": "deform_conv_wgrad.cu",
     "deform_conv_wgrad_bf16": "deform_conv_wgrad.cu",
+    "biased_attention_nobias": "biased_attention.cu",
+    "biased_attention_nobias_bf16": "biased_attention.cu",
+    "biased_attention_bwd_nobias": "biased_attention_bwd.cu",
+    "biased_attention_bwd_nobias_bf16": "biased_attention_bwd.cu",
 }
 
 NVCC_FLAGS = (
@@ -93,6 +98,14 @@ _SIGNATURES = {
     "deform_conv_wgrad": ("deform_conv_wgrad", [_P] * 6 + [_I] * 6 + [_P]),
     # the same with bf16 x, dy and dw
     "deform_conv_wgrad_bf16": ("deform_conv_wgrad_bf16", [_P] * 6 + [_I] * 6 + [_P]),
+    # q, k, v, out, B, heads, n, d, stream (no bias)
+    "biased_attention_nobias": ("biased_attention_nobias_fwd", [_P] * 4 + [_I] * 4 + [_P]),
+    # q, k, v, out, B, heads, n, d, q_bf16, stream (bf16 k, v; no bias)
+    "biased_attention_nobias_bf16": ("biased_attention_nobias_bf16_fwd", [_P] * 4 + [_I] * 5 + [_P]),
+    # q, k, v, out, dout, dq, dk, dv, B, heads, n, d, stream (no bias, no dbias)
+    "biased_attention_bwd_nobias": ("biased_attention_bwd_nobias", [_P] * 8 + [_I] * 4 + [_P]),
+    # the same with bf16 k, v, dk, dv and q_bf16 before the stream
+    "biased_attention_bwd_nobias_bf16": ("biased_attention_bwd_nobias_bf16", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _LOCK = threading.Lock()

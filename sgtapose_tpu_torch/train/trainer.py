@@ -1,4 +1,4 @@
-"""The trainer: one optimizer step of the flagship model (float32, or bf16
+"""The trainer: one optimizer step of a phase's model (float32, or bf16
 mixed precision), evaluation and prediction forwards, and checkpoints.
 
 Counterpart of `sgtapose_tpu/train/trainer.py` on one device. The JAX
@@ -39,22 +39,23 @@ from typing import Callable, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from sgtapose_tpu_torch.config import Config
 from sgtapose_tpu_torch.decode.peaks import decode_heatmaps_batch
 from sgtapose_tpu_torch.eval.metrics import keypoint_metrics
 from sgtapose_tpu_torch.models.attention import set_dropout_generator
-from sgtapose_tpu_torch.models.sgta import SGTAPose, create_model
+from sgtapose_tpu_torch.models.sgta import create_model
 from sgtapose_tpu_torch.parallel import mesh
 from sgtapose_tpu_torch.train.loss import sgta_loss
-from sgtapose_tpu_torch.train.phases import input_names, loss_weights, model_inputs
+from sgtapose_tpu_torch.train.phases import loss_weights, model_inputs, model_wiring
 from sgtapose_tpu_torch.train.schedule import warmup_poly_schedule
 from sgtapose_tpu_torch.utils.precision import bf16_forward
 
 
 @dataclass
 class TrainState:
-    model: SGTAPose
+    model: nn.Module
     optimizer: torch.optim.Adam
     schedule: Callable[[int], float]
     dropout_generator: torch.Generator
@@ -78,6 +79,7 @@ def example_batch(cfg: Config, batch_size: int = 1, device="cuda") -> Dict[str, 
         "pre_hm": z(B, H, W, 1), "repro_hm": z(B, H, W, 1),
         "pre_hm_cls": z(B, Ho, Wo, C), "repro_hm_cls": z(B, Ho, Wo, C),
         "pre_origin_hm": z(B, H, W, 1),
+        "ppre_img": z(B, H, W, 3), "ppre_hm": z(B, H, W, 1), "ppre_hm_cls": z(B, Ho, Wo, C),
         "gt_belief_maps": z(B, Ho, Wo, C), "kp_int": z(B, C, 2, dtype=torch.int32),
         "reg_target": z(B, C, 2), "tracking_target": z(B, C, 2),
     }
@@ -85,11 +87,14 @@ def example_batch(cfg: Config, batch_size: int = 1, device="cuda") -> Dict[str, 
 
 def create_train_state(cfg: Config, seed: int, max_iters: int = 100000, device="cuda",
                        phase: str = "PlanA_win", schedule=None) -> TrainState:
-    """The flagship model (weights drawn from `seed`) in train mode on
-    `device`, Adam (b1 0.9, b2 0.999, eps 1e-8) and the warmup-poly schedule
-    of cfg.train over `max_iters` steps unless `schedule` is given."""
-    input_names(phase)  # raises for a phase that is not ported
-    model = create_model(cfg.model, device=device, seed=seed).train()
+    """The model of cfg.model.arch wired for `phase` (`phases.model_wiring`;
+    the counterpart of JAX's `create_train_state_for_phase`, the flagship's
+    PlanA_win by default), weights drawn from `seed`, in train mode on
+    `device`; Adam (b1 0.9, b2 0.999, eps 1e-8) and the warmup-poly
+    schedule of cfg.train over `max_iters` steps unless `schedule` is
+    given."""
+    model_cfg, tracking = model_wiring(cfg.model, phase)
+    model = create_model(model_cfg, device=device, seed=seed, tracking=tracking).train()
     if schedule is None:
         schedule = warmup_poly_schedule(cfg.train.lr, max_iters, cfg.train.warmup_iters,
                                         power=cfg.train.poly_power)

@@ -1,4 +1,5 @@
-"""Carry a flax `SGTAPose` variable tree into the port's `SGTAPose`.
+"""Carry a flax variable tree into the port's model (any arch of
+`models/sgta.build_model`), and back (`export_flax_variables`).
 
 `variables` is the flax `{"params": ..., "batch_stats": ...}` tree with numpy
 (or array-like) leaves. The port's submodules carry the flax module names, so
@@ -17,7 +18,10 @@ the module type decide the layout change:
   batch_stats mean / var            -> running_mean / running_var
 
 Strict in both directions: a flax leaf with no port tensor, a port tensor no
-leaf sets, or a shape mismatch raises.
+leaf sets, or a shape mismatch raises. `export_flax_variables` is the exact
+inverse: the model's tensors as a flax tree, which `load_flax_variables`
+carries back bit for bit (`utils/torch_convert.py` maps reference state
+dicts through it).
 
 `load_flax_train_state` carries a whole JAX train state across the same way:
 the variables into the model, optax Adam's moments mu / nu (trees shaped like
@@ -126,3 +130,54 @@ def load_flax_train_state(state, flax_state: Mapping) -> None:
         }
     state.schedule_count = int(np.asarray(flax_state["schedule_count"]))
     state.step = int(np.asarray(flax_state["step"]))
+
+
+def _nest(flat: Mapping[tuple, np.ndarray]) -> Dict:
+    out: Dict = {}
+    for path, value in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+    return out
+
+
+def _flax_leaf(model: nn.Module, name: str, value: np.ndarray):
+    """(collection, flax path, array in flax's layout) of one port tensor,
+    or None for a tensor flax has no leaf for (num_batches_tracked)."""
+    *mod_path, attr = name.split(".")
+    mod = model.get_submodule(".".join(mod_path))
+    path = tuple(mod_path)
+    if attr in ("running_mean", "running_var"):
+        return "batch_stats", path + ({"running_mean": "mean", "running_var": "var"}[attr],), value
+    if attr == "num_batches_tracked":
+        return None
+    if attr == "weight":
+        if isinstance(mod, nn.ConvTranspose2d):
+            return "params", path + ("kernel",), value.transpose(2, 3, 1, 0)[::-1, ::-1]
+        if isinstance(mod, nn.Conv2d):
+            return "params", path + ("kernel",), value.transpose(2, 3, 1, 0)
+        if isinstance(mod, nn.Linear):
+            parent = model.get_submodule(".".join(mod_path[:-1])) if len(mod_path) > 1 else model
+            kernel = value.T
+            if type(parent).__name__ == "DeformConv2d":  # the 1x1 (1, 1, 9C, O) contraction
+                kernel = kernel.reshape(1, 1, *kernel.shape)
+            return "params", path + ("kernel",), kernel
+        return "params", path + ("scale",), value  # BatchNorm / LayerNorm
+    if attr in ("bias", "pos_embed"):
+        return "params", path + (attr,), value
+    raise KeyError(f"port tensor {name} has no flax leaf")
+
+
+@torch.no_grad()
+def export_flax_variables(model: nn.Module) -> Dict[str, Dict]:
+    """The model's parameters and BatchNorm statistics as a flax variable
+    tree {"params", "batch_stats"} of float32 numpy arrays in flax's layout
+    (the inverse of `load_flax_variables`)."""
+    flat: Dict[str, Dict[tuple, np.ndarray]] = {"params": {}, "batch_stats": {}}
+    for name, t in model.state_dict().items():
+        leaf = _flax_leaf(model, name, t.detach().to("cpu", torch.float32).numpy())
+        if leaf is not None:
+            collection, path, arr = leaf
+            flat[collection][path] = np.ascontiguousarray(arr)
+    return {c: _nest(f) for c, f in flat.items()}

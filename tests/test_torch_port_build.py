@@ -48,6 +48,16 @@ KERNEL_MODULES = {
                           "deform_conv_wgrad_cuda"),
     "deform_conv_wgrad_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv_wgrad",
                                "deform_conv_wgrad_cuda"),
+    # the no-bias instantiations (bias=None) behind the same forward
+    # wrappers, and the no-bias backward's own wrapper
+    "biased_attention_nobias": ("sgtapose_tpu_torch.ops.attention_kernel", "plain_biased_attention",
+                                "biased_attention_cuda"),
+    "biased_attention_nobias_bf16": ("sgtapose_tpu_torch.ops.attention_kernel", "plain_biased_attention_bf16",
+                                     "biased_attention_bf16_cuda"),
+    "biased_attention_bwd_nobias": ("sgtapose_tpu_torch.ops.attention_kernel",
+                                    "plain_biased_attention_backward", "attention_bwd_nobias_cuda"),
+    "biased_attention_bwd_nobias_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
+                                         "plain_biased_attention_backward_bf16", "attention_bwd_nobias_cuda"),
 }
 
 
@@ -74,5 +84,6 @@ def test_every_kernel_has_its_plain_version(name):
     names = {getattr(mod, a, None)
              for a in ("KERNEL", "KERNEL_BF16", "KERNEL_TILED", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
                       "DGRAD_KERNEL", "BWD_KERNEL_BF16", "DGRAD_KERNEL_BF16", "BWD_KERNEL_ROWS", "WGRAD_KERNEL",
-                      "WGRAD_KERNEL_BF16")}
+                      "WGRAD_KERNEL_BF16", "KERNEL_NOBIAS", "KERNEL_NOBIAS_BF16", "BWD_KERNEL_NOBIAS",
+                      "BWD_KERNEL_NOBIAS_BF16")}
     assert name in names

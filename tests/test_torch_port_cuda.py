@@ -90,8 +90,11 @@ def test_biased_attention_kernel_unaligned_bias_base(dev):
 
 # (H, W, C, O): the decoder's 16 nodes at 480x480 by input shape and output
 # width, and one ragged shape (C % 4 != 0, O below one tile)
+# the concat baseline's decoder (SGTAPoseCat, every width doubled) at 480x480
+CAT_DCN_SHAPES = [(15, 15, 1024, 512), (30, 30, 512, 512), (30, 30, 512, 256), (30, 30, 512, 128),
+                  (60, 60, 256, 256), (60, 60, 256, 128), (120, 120, 128, 128)]
 DCN_SHAPES = [(15, 15, 512, 256), (30, 30, 256, 256), (30, 30, 256, 128), (30, 30, 256, 64),
-              (60, 60, 128, 128), (60, 60, 128, 64), (120, 120, 64, 64), (9, 11, 6, 5)]
+              (60, 60, 128, 128), (60, 60, 128, 64), (120, 120, 64, 64), (9, 11, 6, 5)] + CAT_DCN_SHAPES
 
 
 @pytest.mark.parametrize("B", [1, 2])
@@ -343,6 +346,7 @@ def test_training_gradients_reach_every_parameter_on_the_card(dev):
 DGRAD_SHAPES = [(8, 15, 15, 512, 256, 3.0), (8, 30, 30, 256, 128, 3.0), (8, 60, 60, 128, 64, 3.0),
                 (8, 120, 120, 64, 64, 3.0), (2, 9, 11, 6, 5, 3.0), (2, 30, 30, 64, 64, 0.0),
                 (2, 30, 30, 64, 64, 12.0), (1, 17, 23, 20, 36, 5.0)]
+DGRAD_SHAPES += [(8, H, W, C, O, 3.0) for H, W, C, O in CAT_DCN_SHAPES]
 
 
 @pytest.mark.parametrize("B,H,W,C,O,span", DGRAD_SHAPES)
@@ -581,3 +585,81 @@ def test_deform_conv_wgrad_kernel_matches_plain(dev, B, H, W, C, O, span, dtype)
     bar = BWD_REL if dtype == torch.float32 else BWD_BF16_REL
     assert _rel_err(dw.float(), ref.float()) <= bar, _rel_err(dw.float(), ref.float())
     assert torch.equal(dw, deform_conv.deform_conv_wgrad_cuda(x, offsets, masks, dy))
+
+
+GLOBAL_DIMS = (4, 8, 16, 32, 64, 128)  # SGTAPoseGlobal's head dim per level, n = 28
+
+
+@pytest.mark.parametrize("bf16,q_bf16", [(False, False), (True, True), (True, False)],
+                         ids=["f32", "bf16_q_bf16", "bf16_q_f32"])
+@pytest.mark.parametrize("B", [1, 8, 9])
+@pytest.mark.parametrize("d", GLOBAL_DIMS)
+def test_attention_nobias_kernel_matches_plain(dev, d, B, bf16, q_bf16):
+    """The no-bias forward at the global variant's (28, d), B = 1 (serving),
+    8 (training) and a ragged 9; routed by fused_biased_attention(..., None)."""
+    g = torch.Generator(device=dev).manual_seed(d + B)
+    q, k, v = (torch.randn(B, 8, 28, d, generator=g, device=dev) for _ in range(3))
+    name = "biased_attention_nobias_bf16" if bf16 else "biased_attention_nobias"
+    if bf16:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        q = q.to(torch.bfloat16 if q_bf16 else torch.float32)
+    before = build.launch_counts()[name]
+    out = attention_kernel.fused_biased_attention(q, k, v, None)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 1
+    if bf16:
+        ref = attention_kernel.plain_biased_attention_bf16(q, k, v, None)
+        assert (out - ref).abs().max().item() <= ATTN_BF16_ATOL
+    else:
+        ref = attention_kernel.plain_biased_attention(q, k, v, None)
+        assert (out - ref).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("bf16,q_bf16", [(False, False), (True, True), (True, False)],
+                         ids=["f32", "bf16_q_bf16", "bf16_q_f32"])
+@pytest.mark.parametrize("B", [8, 9, 1])
+@pytest.mark.parametrize("d", GLOBAL_DIMS)
+def test_attention_bwd_nobias_kernel_matches_plain(dev, d, B, bf16, q_bf16):
+    """The no-bias backward (cluster path, no dbias) at the global variant's
+    (28, d); every output the same bit for bit in two runs; autograd routes
+    a no-bias backward to it."""
+    g = torch.Generator(device=dev).manual_seed(d * B + 3)
+    q, k, v = (torch.randn(B, 8, 28, d, generator=g, device=dev) for _ in range(3))
+    name = "biased_attention_bwd_nobias_bf16" if bf16 else "biased_attention_bwd_nobias"
+    if bf16:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        q = q.to(torch.bfloat16 if q_bf16 else torch.float32)
+        out = attention_kernel.plain_biased_attention_bf16(q, k, v, None)
+    else:
+        out = attention_kernel.plain_biased_attention(q, k, v, None)
+    dout = torch.randn(B, 8, 28, d, generator=g, device=dev)
+    before = build.launch_counts()[name]
+    got = attention_kernel.attention_bwd_nobias_cuda(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 1
+    plain = (attention_kernel.plain_biased_attention_backward_bf16 if bf16
+             else attention_kernel.plain_biased_attention_backward)
+    ref = plain(q, k, v, None, out, dout)
+    assert ref[3] is None
+    bar = BWD_BF16_REL if bf16 else BWD_REL
+    for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, nm
+        assert _rel_err(a.float(), b.float()) <= bar, (nm, _rel_err(a.float(), b.float()))
+    again = attention_kernel.attention_bwd_nobias_cuda(q, k, v, out, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qs = q.detach().clone().requires_grad_()
+    attention_kernel.fused_biased_attention(qs, k, v, None).backward(dout)
+    assert build.launch_counts()[name] == before + 3
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_kernel_refuses_a_bias_at_the_global_dims(dev, d):
+    """The kernels take a bias at head dims up to 32 only (no model runs a
+    biased attention at 64 or 128): it raises, in float32 and bf16."""
+    q = torch.randn(1, 8, 28, d, device=dev)
+    bias = torch.zeros(8, 28, 28, device=dev)
+    with pytest.raises(ValueError, match="up to 32"):
+        attention_kernel.fused_biased_attention(q, q, q, bias)
+    kv, bias = q.to(torch.bfloat16), bias.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 32"):
+        attention_kernel.fused_biased_attention(q, kv, kv, bias)

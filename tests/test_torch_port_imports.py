@@ -45,7 +45,9 @@ def test_port_imports_no_jax_and_builds_nothing():
                 "sgtapose_tpu_torch.utils.profiling", "sgtapose_tpu_torch.utils.visualize",
                 "sgtapose_tpu_torch.utils.debugger", "sgtapose_tpu_torch.data.discovery",
                 "sgtapose_tpu_torch.data.loader", "sgtapose_tpu_torch.utils.logging",
-                "sgtapose_tpu_torch.parallel.mesh", "sgtapose_tpu_torch.cli.train"}
+                "sgtapose_tpu_torch.parallel.mesh", "sgtapose_tpu_torch.cli.train",
+                "sgtapose_tpu_torch.models.variants", "sgtapose_tpu_torch.utils.torch_convert",
+                "sgtapose_tpu_torch.cli.convert"}
     assert expected <= set(res["modules"])
 
 

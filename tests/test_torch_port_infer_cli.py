@@ -171,8 +171,8 @@ def test_main_with_checkpoint_equals_direct_call(warm, tmp_path):
     (["--is_ct", "false"], NotImplementedError),
     (["--quant", "int8"], NotImplementedError),
     (["--quant_min_ch", "64"], NotImplementedError),
-    (["--phase", "PlanA"], NotImplementedError),
-    (["--arch", "dlapawdl3_34"], NotImplementedError),
+    (["--phase", "Dream"], NotImplementedError),
+    (["--arch", "dreamhourglass_34"], NotImplementedError),
     (["--flip_test"], SystemExit),
     (["--ckpt", "."], NotImplementedError),  # a directory: an orbax checkpoint
     (["--device", "cuda"], RuntimeError),

@@ -83,7 +83,7 @@ def test_create_model_flagship_only_and_device_explicit():
     assert not model.training and next(model.parameters()).device.type == "cpu"
     assert torch.all(model.hm.Conv_1.bias == cfg.prior_bias)
     with pytest.raises(ValueError):
-        create_model(cfg.__class__(arch="dlapa_34"), device="cpu")
+        create_model(cfg.__class__(arch="dlapawglobal_34"), device="cpu")  # no such arch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             create_model(cfg)  # the default device is the card; no CPU fallback

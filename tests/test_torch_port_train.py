@@ -38,7 +38,7 @@ from sgtapose_tpu_torch.train import loss as tloss, schedule as tsched, trainer 
 from sgtapose_tpu_torch.utils import weights as tweights
 
 from torch_port_common import (adam_state, jax_cfg, no_dropout, port_cfg, random_train_batch,
-                               train_variables)
+                               replay_draws, train_variables)
 
 B = 2
 LR, MAX_ITERS, WARMUP = 1e-3, 20, 4
@@ -105,25 +105,6 @@ def test_schedules_match_jax():
 # ------------------------------------------------------ batch pipeline ---------
 
 
-def _replay_draws(rng, n_kp, H_raw, W_raw):
-    """The random numbers augment_and_render draws from `rng`, by the JAX
-    package's key splits (`_derive_affine`, `noised_pnp_prior`,
-    `render_noised_prior_heatmap`)."""
-    k_aug_s, k_aug_c, k_prior, k_prevhm = jax.random.split(rng, 4)
-    aug_s = jax.random.choice(k_aug_s, jnp.arange(0.6, 1.4, 0.1, dtype=jnp.float32))
-    wb, hb = jpipe._border(128, W_raw), jpipe._border(128, H_raw)
-    cx = jax.random.randint(k_aug_c, (), wb, W_raw - wb)
-    cy = jax.random.randint(jax.random.fold_in(k_aug_c, 1), (), hb, H_raw - hb)
-    k_jit, k_drop = jax.random.split(k_prior)
-    o_jit, o_drop, o_fp, o_fpjit = jax.random.split(k_prevhm, 4)
-    draws = tpipe.Draws(
-        aug_s=aug_s, center=jnp.stack([cx, cy]).astype(jnp.float32),
-        prior_noise=jax.random.normal(k_jit, (n_kp, 2)), prior_keep_u=jax.random.uniform(k_drop, (n_kp,)),
-        origin_noise=jax.random.normal(o_jit, (n_kp, 2)), origin_keep_u=jax.random.uniform(o_drop, (n_kp,)),
-        origin_fp_u=jax.random.uniform(o_fp, (n_kp,)), origin_fp_noise=jax.random.normal(o_fpjit, (n_kp, 2)))
-    return tpipe.Draws(*(_t(np.asarray(a)) for a in draws))
-
-
 @pytest.fixture(scope="module")
 def pipeline_case():
     """Two raw pairs from the JAX generator, each sample's JAX batch tensors
@@ -142,7 +123,7 @@ def pipeline_case():
         rng = jax.random.PRNGKey(100 + b)
         sample = jpipe.RawSample(*(a[b] for a in raw))
         refs.append(jax.tree_util.tree_map(np.asarray, both(rng, sample)))
-        draws.append(_replay_draws(rng, 7, jsyn.RAW_H, jsyn.RAW_W))
+        draws.append(replay_draws(rng, 7, jsyn.RAW_H, jsyn.RAW_W))
     return raw, refs, draws
 
 
@@ -202,7 +183,10 @@ def test_make_batch_fn_and_raw_batch_shapes():
     assert raw.prev_img.shape == (B, tsyn.RAW_H, tsyn.RAW_W, 3) and raw.prev_x3d_rob.shape == (B, 7, 3)
     batch = tpipe.make_batch_fn(cfg, tsyn.camera_K())(torch.Generator().manual_seed(1), raw)
     expect = ttrainer.example_batch(cfg, B, device="cpu")
-    for k, v in expect.items():
+    # the example batch also holds the three-frame pipeline's ppre_* inputs
+    assert set(batch) == {k for k in expect if not k.startswith("ppre_")}
+    for k in batch:
+        v = expect[k]
         assert batch[k].shape == v.shape and batch[k].dtype == v.dtype, k
         assert torch.isfinite(batch[k].float()).all(), k
     # without augmentation the crop is the whole raw frame, centered
@@ -382,7 +366,7 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        ttrainer.create_train_state(PortConfig(model=port_cfg()), 0, device="cpu", phase="CenterTrack")
+        ttrainer.create_train_state(PortConfig(model=port_cfg()), 0, device="cpu", phase="Dream")
 
 
 def test_train_demo_cli_runs_on_the_cpu_and_refuses_later_flags(tmp_path):
@@ -402,7 +386,7 @@ def test_train_demo_cli_runs_on_the_cpu_and_refuses_later_flags(tmp_path):
     res2 = train_demo.main(["--device", "cpu", "--steps", "1", "--batch", "2", "--input_res", "64",
                             "--eval_videos", "0", "--init_ckpt", ckpt, "--resume_step", "5"])
     assert res2["state"].step == 6 and res2["state"].schedule_count == 6
-    for flag in (["--quant_train"], ["--init_backbone", "x.pth"], ["--dcn_chunks", "2"], ["--dcn_remat"]):
+    for flag in (["--quant_train"], ["--dcn_chunks", "2"], ["--dcn_remat"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             train_demo.main(["--device", "cpu"] + flag)
     if not torch.cuda.is_available():

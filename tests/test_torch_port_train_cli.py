@@ -479,8 +479,8 @@ def test_cli_depth_and_kuka(sets, tmp_path):
     assert km["num_gt_inframe"] + km["num_gt_outframe"] == 2 * 3 * 9
 
 
-@pytest.mark.parametrize("flags", [["--bf16", "--depth"], ["--init_backbone", "x.pth"], ["--init_backbone_stem"],
-                                   ["--phase", "PlanA_three"], ["--arch", "dlapawglobal_34"],
+@pytest.mark.parametrize("flags", [["--bf16", "--depth"], ["--phase", "Dream"], ["--arch", "dreamhourglass_34"],
+                                   ["--arch", "resnetsimple_34"], ["--phase", "Dream", "--arch", "dreamhourglass_34"],
                                    ["--dcn_chunks", "2"], ["--dcn_remat"]])
 def test_cli_unported_flags_raise(sets, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
