@@ -173,7 +173,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      (its template state on the card) to a reference-format .pth and back (the same tensors bit for bit, the
      same keypoints), then `cli/train.main --init_backbone` (at lr 0) from
      the port's own ImageNet-format export of its trunk;
- 16. a `{"kernels": [...]}` line, the card line, and last the device line
+ 16. the DREAM baselines (no hand-written kernel runs: every launch counter
+     asserted 0 in each run): (a) DreamHourglass and ResnetSimple (resnet101
+     depth) at 480x480 in float32, card against CPU at phase 8's bar, with
+     the card's batch-1 forward time; (b) `infer/dream_detector.py` on a
+     16-frame synthetic 640x360 video for both archs, with and without
+     flip_test: ms per frame by stage (host preprocess, forward, decode,
+     host conversion), fps, and the device's busy share from torch.profiler;
+     (c) `cli/infer.main --is_ct false --arch dreamhourglass --flip_test` on
+     phase 12's synthetic set, its fps and seconds per video by stage; (d)
+     `cli/train.main --phase Dream --arch dreamhourglass` for one epoch on
+     phase 13 (A)'s set at batch 4, float32 and --bf16: ms per step by
+     stage, steps/s, peak memory; (e) the Dream phase's eval-mode 480x480 gradient card against
+     CPU float64 at phase 11's bars;
+ 17. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 The detector runs of phase 9 take 8 frames each (16 before the training
@@ -980,11 +993,13 @@ def main() -> int:
         # ---- 15. the arch zoo ----------------------------------------------
         zoo = zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64)
         report["zoo"] = zoo
+        # ---- 16. the DREAM baselines ---------------------------------------
+        report["dream"] = dream_phase(torch, dev, cfg, cold_ms, no_launches, work, ref64)
         del ref64
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 16. kernels line --------------------------------------------------
+    # ---- 17. kernels line --------------------------------------------------
     per_frame = shape_sum
 
     rates = {"biased_attention": "67 TFLOP/s float32 FMA", "deform_sample": "67 TFLOP/s float32 FMA",
@@ -1386,7 +1401,7 @@ def eval_mode_gradient_check(torch, dev, cfg, batch_cpu, no_launches, keep, phas
     live = [name for name, g in ref.items() if g.abs().max().item() > 1e-6]
     res = dict(grad_errors(grads["card"], ref, live), tensors=len(live), seconds=seconds,
                bars=[EVAL_GRAD_WORST_TOL, EVAL_GRAD_L2_TOL], input="480x480, batch 1, BN eval mode",
-               offset_grad_max=max(ref[n].abs().max().item() for n in live if "conv_offset_mask" in n))
+               offset_grad_max=max((ref[n].abs().max().item() for n in live if "conv_offset_mask" in n), default=None))
     # the layers in network order: where the error enters
     res["by_module"] = {}
     for name in live:
@@ -2368,6 +2383,198 @@ def zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64):
     out["converter"] = conv
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+DREAM_FRAMES = 16  # phase 9's synthetic 640x360 video at its earlier length
+DREAM_ARCHS = ("dreamhourglass", "resnetsimple")
+
+
+def dream_phase(torch, dev, cfg, cold_ms, no_launches, work, ref64):
+    """Phase 16 (module docstring): the DREAM baselines on the card, where
+    no hand-written kernel runs (every counter stays 0, asserted per run).
+    (a) DreamHourglass and ResnetSimple (resnet101 depth) at 480x480, float32,
+    card against the CPU, heads at phase 8's bar; (b) `make_dream_detector`
+    on a 16-frame synthetic 640x360 video for both archs with and without
+    flip_test: ms per stage (host preprocess, forward, decode, host
+    conversion, the port's StageTimer: the device synchronised at each
+    edge), fps, and the device's busy share from torch.profiler over one
+    more run; (c) `cli/infer.main --is_ct false --arch dreamhourglass
+    --flip_test` on phase 12's synthetic set; (d) `cli/train.main --phase
+    Dream --arch dreamhourglass` for one epoch on phase 13 (A)'s set at batch
+    4, float32 and --bf16; (e) the Dream phase's eval-mode 480x480 gradient, card against CPU
+    float64, at phase 11's bars."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgtapose_tpu_torch.cli import infer as infer_cli, train as train_cli
+    from sgtapose_tpu_torch.data import synthetic
+    from sgtapose_tpu_torch.infer.dream_detector import make_dream_detector
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.ops import build
+    from sgtapose_tpu_torch.utils.profiling import StageTimer as SyncedTimer
+
+    out = {}
+    t_phase = time.perf_counter()
+
+    def assert_no_launches(what):
+        counts = build.launch_counts()
+        if counts != no_launches:
+            raise AssertionError(f"DREAM {what}: hand-written kernels launched: "
+                                 f"{ {k: v for k, v in counts.items() if v} }")
+
+    # ---- (a) full-width forward, card vs CPU -------------------------------
+    H, W = cfg.model.input_res
+    image = torch.randn(1, H, W, 3, generator=torch.Generator().manual_seed(31))
+    out["forward"] = {}
+    for arch in DREAM_ARCHS:
+        mcfg = dataclasses.replace(cfg.model, arch=arch)
+        model_cpu = create_model(mcfg, device="cpu", seed=0)
+        perturb_zero_init(model_cpu, torch.Generator().manual_seed(1))
+        model = copy.deepcopy(model_cpu).to(dev)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = model_cpu(image)["hm"]
+            cpu_s = time.perf_counter() - t0
+            build.reset_launch_counts()
+            got = model(image.to(dev))["hm"]
+            torch.cuda.synchronize()
+            assert_no_launches(f"{arch} forward")
+            x1 = image.to(dev)
+            ms = cold_ms(lambda: model(x1), iters=5, warmup=1)
+            macs = conv_macs(torch, model, x1)
+        got = got.cpu()
+        down = 4 if arch == "dreamhourglass" else 2
+        if got.shape != (1, H // down, W // down, cfg.model.num_classes) or not torch.isfinite(got).all():
+            raise AssertionError(f"DREAM {arch} forward: shape {tuple(got.shape)} or non-finite values")
+        scale = max(1.0, ref.abs().max().item())
+        err = (got - ref).abs().max().item()
+        n_params = sum(p.numel() for p in model.parameters())
+        b_ms, b_by = bound_ms(4 * n_params, 2 * macs)
+        rec = {"hm_shape": list(got.shape), "max_abs_err": err, "max_abs_cpu": ref.abs().max().item(),
+               "cpu_seconds": cpu_s, "card_ms_batch1": ms, "params_m": n_params / 1e6, "conv_gmac": macs / 1e9,
+               "bound_ms": b_ms, "bound_by": b_by, "bound_note": "2 x MACs at 67 TFLOP/s float32 FMA; weights "
+               "read once at 3.35 TB/s"}
+        print(f"DREAM forward {arch} 480x480 card vs cpu: " + json.dumps(rec))
+        if err > FORWARD_REL_TOL * scale:
+            raise AssertionError(f"DREAM {arch} forward: card vs CPU max abs err {err} > {FORWARD_REL_TOL} x {scale}")
+        out["forward"][arch] = rec
+        del model_cpu, model
+
+    # ---- (b) the single-frame detector -------------------------------------
+    _, raw, _ = synthetic.make_sequence(torch.Generator().manual_seed(3), DREAM_FRAMES, return_pos_cam=True,
+                                        device=dev)
+    frames = raw.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+    raw_wh = (synthetic.RAW_W, synthetic.RAW_H)
+    out["detector"] = {}
+    for arch in DREAM_ARCHS:
+        mcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, arch=arch))
+        model = create_model(mcfg.model, device=dev, seed=0)
+        for flip in (False, True):
+            name = f"{arch}" + ("/flip_test" if flip else "")
+            timer = SyncedTimer(dev)
+            det = make_dream_detector(model, mcfg, raw_wh, flip_test=flip, device=dev, stage_timer=timer.stage)
+            det(frames)  # first use
+            timer.totals.clear()
+            timer.counts.clear()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            kps, scores = det(frames)
+            wall = time.perf_counter() - t0
+            assert_no_launches(f"detector {name}")
+            K = cfg.model.num_classes
+            if kps.shape != (DREAM_FRAMES, K, 2) or scores.shape != (DREAM_FRAMES, K) or not (
+                    np.isfinite(kps).all() and np.isfinite(scores).all()):
+                raise AssertionError(f"DREAM detector {name}: shapes {kps.shape} {scores.shape} or non-finite")
+            # the device's busy share over one more run, unsynchronised
+            plain = make_dream_detector(model, mcfg, raw_wh, flip_test=flip, device=dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                plain(frames)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t1) * 1e3
+            device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                            if e.device_type == DeviceType.CUDA) / 1e3
+            stage_ms = {k: v * 1e3 / DREAM_FRAMES for k, v in timer.summary().items()}
+            rec = {"frames": DREAM_FRAMES, "fps": DREAM_FRAMES / wall, "wall_ms": wall * 1e3,
+                   "stage_ms_per_frame": stage_ms, "profiled_wall_ms": prof_wall_ms,
+                   "device_kernel_ms": device_ms, "busy_share": device_ms / prof_wall_ms,
+                   "valid_detections": int((kps[..., 0] > -999.0).sum())}
+            print(f"DREAM detector {name}: " + json.dumps(rec))
+            out["detector"][name] = rec
+        del model
+
+    # ---- (c) the inference CLI, --is_ct false --flip_test ------------------
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = infer_cli.main(["--dataset", os.path.join(work, "syn"), "--output_dir", os.path.join(work, "dream_infer"),
+                          "--is_ct", "false", "--arch", "dreamhourglass", "--flip_test", "--device", "cuda"])
+    torch.cuda.synchronize()
+    assert_no_launches("cli/infer --is_ct false --flip_test")
+    km = res["keypoint_metrics"]
+    if km["num_gt_inframe"] + km["num_gt_outframe"] != CLI_VIDEOS * CLI_FRAMES * cfg.model.num_classes:
+        raise AssertionError(f"DREAM cli/infer: {km}")
+    out["infer_cli"] = {"wall_s_with_setup": time.perf_counter() - t0, "fps": res["timing"]["fps"],
+                        "frames": res["timing"]["frames"], "stage_s_per_video": res["timing"]["stage_s"]}
+    print("DREAM cli/infer --is_ct false --flip_test: " + json.dumps(out["infer_cli"]))
+
+    # ---- (d) the training CLI, --phase Dream (float32 and --bf16) ---------
+    out["train_cli"] = {}
+    for name, flags in (("float32", []), ("bf16", ["--bf16"])):
+        timer = StageTimer()
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_cli.main(["--dataset", os.path.join(work, "train_syn"), "--output_dir",
+                              os.path.join(work, f"dream_{name}"), "--phase", "Dream", "--arch", "dreamhourglass",
+                              "--num_epochs", "1", "--batch_size", str(TRAIN_CLI_BATCH), "--log_every", "1",
+                              "--image_log_every", "0", "--device", "cuda"] + flags, stage_timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert_no_launches(f"cli/train --phase Dream {name}")
+        state = res["state"]
+        steps = state.step
+        if steps != 2 or type(state.model).__name__ != "DreamHourglass" or not all(
+                torch.isfinite(p).all() for p in state.model.parameters()):
+            raise AssertionError(f"DREAM cli/train {name}: {steps} steps of {type(state.model).__name__}")
+        stage_ms = timer.per_frame_ms(steps)
+        step_ms = sum(stage_ms.get(st, 0.0) for st in CLI_STAGES)
+        rec = {"steps": steps, "batch": TRAIN_CLI_BATCH, "wall_s_with_setup": wall,
+               "stage_ms_per_step": {st: stage_ms.get(st, 0.0) for st in CLI_STAGES}, "step_ms": step_ms,
+               "steps_per_s": 1e3 / step_ms, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"DREAM cli/train --phase Dream {name}: " + json.dumps(rec))
+        out["train_cli"][name] = rec
+        del res, state
+
+    # ---- (e) the Dream phase's eval-mode gradient vs float64 ---------------
+    dcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, arch="dreamhourglass"))
+    out["grad_eval_mode_vs_float64"] = eval_mode_gradient_check(torch, dev, dcfg, ref64["batch"], no_launches, None,
+                                                                phase="Dream", expect=no_launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"DREAM phase: {out['seconds']:.1f} s")
+    return out
+
+
+def conv_macs(torch, model, x) -> int:
+    """Multiply-adds of the model's convolutions (transposed ones included)
+    in one forward of x, counted from their output shapes."""
+    macs = []
+
+    def hook(mod, inp, out):
+        # a conv: each output takes (in / groups) k k products; a transposed
+        # conv: each input scatters into (out / groups) k k outputs
+        macs.append(out.numel() * mod.weight[0].numel() if isinstance(mod, torch.nn.Conv2d)
+                    else inp[0].numel() * mod.weight[0].numel())
+
+    convs = [m for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    handles = [m.register_forward_hook(hook) for m in convs]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(macs)
 
 
 def zoo_kernel_rows(zoo, per_step_sum):

@@ -21,6 +21,11 @@ flagship dlapawdl3new_34 and the zoo, dlapa_34, dlapawd_34, dlapacat_34,
 dlaabla_34, dlaseg_34) and which rendered priors it consumes (PlanA_win,
 PlanA, PlanACAT, ablation_shared_repro / _shared / _wo_shared, which also set
 the ablation's wiring, CenterTrack, CenterNet), as the JAX CLI's do.
+--is_ct false runs the DREAM single-frame detector
+(`infer/dream_detector.py`: no priors, no PnP, every frame of a video in one
+batched forward) with a DREAM baseline (--arch dreamhourglass or
+resnetsimple; --phase defaults to Dream), and --flip_test adds its
+flip-averaged second half of the batch.
 
 --ckpt is a `train/trainer.save_checkpoint` file (its "model" entry), e.g.
 one `python -m sgtapose_tpu_torch.cli.convert --torch_ckpt X.pth --out
@@ -29,8 +34,7 @@ C.pt` wrote from a reference-format .pth; without it the weights are random
 goes through JAX's converter first (`python -m sgtapose_tpu.cli.convert
 --ckpt DIR --out_pth X.pth`, then `--torch_ckpt X.pth`). Not ported yet,
 and raising NotImplementedError with the ROADMAP.md Queue 1 item that brings
-each: --is_ct false, --flip_test and --phase Dream (the DREAM detector, 6),
---quant / --quant_static / --quant_min_ch (int8, 8).
+them: --quant / --quant_static / --quant_min_ch (int8, 8).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from sgtapose_tpu_torch.config import KEYPOINT_NAMES, SYNTHETIC_CAMERA_K, Config
 from sgtapose_tpu_torch.data import loaders
 from sgtapose_tpu_torch.eval.analysis import analyze_sequence_results
 from sgtapose_tpu_torch.infer import detector as det_lib
+from sgtapose_tpu_torch.infer.dream_detector import make_dream_detector
 from sgtapose_tpu_torch.models.sgta import create_model
 from sgtapose_tpu_torch.train.phases import model_wiring
 from sgtapose_tpu_torch.utils.profiling import StageTimer
@@ -69,7 +74,7 @@ def parse_args(argv=None):
     p.add_argument("--split_info", default=None, help="real split json path")
     p.add_argument("--arch", default=FLAGSHIP_ARCH,
                    help="dlapawdl3new_34 (the flagship), dlapa_34, dlapawd_34, dlapacat_34, dlaabla_34, "
-                        "dlaseg_34 (the DREAM baselines are not ported)")
+                        "dlaseg_34; dreamhourglass or resnetsimple with --is_ct false")
     p.add_argument("--input_res", type=int, default=480)
     p.add_argument("--dla_node", default="dcn", choices=["dcn", "conv"])
     p.add_argument("--kernel_list", default="12,6,3,1,1,1", help="per-level attention window sizes")
@@ -85,12 +90,13 @@ def parse_args(argv=None):
     p.add_argument("--decode_coord", default="reg", choices=["reg", "avg", "logquad", "mean"],
                    help="final sub-pixel coordinate estimator (decode/peaks.py)")
     p.add_argument("--phase", default=None,
-                   help="inference phase: PlanA_win (default) | PlanA | PlanACAT | ablation_* | CenterTrack | "
-                        "CenterNet (Dream is not ported)")
+                   help="inference phase: PlanA_win (default; Dream with --is_ct false) | PlanA | PlanACAT | "
+                        "ablation_* | CenterTrack | CenterNet")
     p.add_argument("--flip_test", action="store_true",
-                   help="flip test-time augmentation of the DREAM single-frame mode (not ported)")
+                   help="flip test-time augmentation of the DREAM single-frame mode (--is_ct false): the "
+                        "mirrored frames' belief maps mirrored back and averaged in")
     p.add_argument("--is_ct", default="true", choices=["true", "false"],
-                   help="false = the DREAM single-frame mode (not ported)")
+                   help="false = the DREAM single-frame mode (infer/dream_detector.py)")
     p.add_argument("--depth", action="store_true", help="42-joint depth-variant evaluation")
     p.add_argument("--track", action="store_true",
                    help="association pass per video; writes tracks.json")
@@ -115,8 +121,6 @@ def _refuse_unported(args) -> None:
             "ill-posed there because the PnP prior and attention cls maps are not "
             "mirror-equivariant.")
     unported = [
-        ("--is_ct false / --flip_test (the DREAM single-frame detector)", args.is_ct == "false", 6),
-        ("--phase Dream (the DREAM baselines)", args.phase == "Dream", 6),
         ("--quant", args.quant is not None, 8),
         ("--quant_static", args.quant_static, 8),
         ("--quant_min_ch > 0", args.quant_min_ch > 0, 8),
@@ -138,10 +142,16 @@ class DetOut:
         self.debug_pre_hm = debug_pre_hm  # (T, H_in, W_in, 1), --debug only
 
 
-def _make_runner(args, model, cfg: Config, camera_K, raw_hw):
-    """The exact streaming detector of one raw resolution: fn(raw uint8
-    frames (T,H,W,3), x3d (T,K,3)) -> DetOut with raw-pixel detections (the
-    device synchronised)."""
+def _make_runner(args, model, cfg: Config, camera_K, raw_hw, timer=None):
+    """The detector of one raw resolution: fn(raw uint8 frames (T,H,W,3),
+    x3d (T,K,3)) -> DetOut with raw-pixel detections (the device
+    synchronised). The exact streaming detector, or with --is_ct false the
+    DREAM single-frame detector (no tracking head; its stages timed in
+    `timer`, a StageTimer, where given)."""
+    if args.is_ct == "false":
+        dream = make_dream_detector(model, cfg, (raw_hw[1], raw_hw[0]), flip_test=args.flip_test,
+                                    device=args.device, stage_timer=None if timer is None else timer.stage)
+        return lambda imgs_np, x3d: DetOut(*dream(imgs_np))
     debug = args.debug > 0
     detector = det_lib.make_video_detector(model, cfg, camera_K, raw_hw, device=args.device,
                                            debug_outputs=debug, phase=args.phase)
@@ -187,7 +197,8 @@ class _VideoLoop:
         if raw_hw not in self.runners:
             if self.runners:
                 print(f"{vname}: new resolution {raw_hw}; building runner")
-            self.runners[raw_hw] = _make_runner(self.args, self.model, self.cfg, self.camera_K, raw_hw)
+            self.runners[raw_hw] = _make_runner(self.args, self.model, self.cfg, self.camera_K, raw_hw,
+                                                timer=self.timer)
         self.frame_res += [(imgs_np.shape[2], imgs_np.shape[1])] * imgs_np.shape[0]
         t0 = time.perf_counter()
         if self.timer is not None:

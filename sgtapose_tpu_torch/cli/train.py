@@ -39,16 +39,21 @@ the JAX CLI.
 --phase PlanA_three trains the three-frame model on three-frame windows
 (`data/discovery.find_ndds_seq_triples_in_dir`, `data/loader.TripleBatchLoader`,
 `data/pipeline.make_batch_fn_three`) and refuses --depth, whose sets are
-two-frame. --init_backbone X.pth loads a bare ImageNet DLA-34 state dict
-into the trunk (`utils/torch_convert.convert_imagenet_dla34`; with
---init_backbone_stem also into the image stem) before --resume.
+two-frame. --phase Dream trains a DREAM baseline (--arch dreamhourglass) on
+the current image with the heatmap loss alone, no hand-written kernel on its
+path (with --bf16 through the same bf16 parameter view, cuDNN's bf16
+convolutions); ResnetSimple's map is at input/2, the targets at input/4, so
+--arch resnetsimple raises ValueError at its first loss, where the JAX step
+fails on the shapes. --init_backbone X.pth loads a bare ImageNet DLA-34
+state dict into the trunk (`utils/torch_convert.convert_imagenet_dla34`;
+with --init_backbone_stem also into the image stem) before --resume.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP.md Queue 1
-item that brings each: --phase Dream (6, the DREAM baselines),
---dcn_chunks > 1 and --dcn_remat (9), --bf16 with --depth (10: a
-42-keypoint model's levels 0 and 1 need a bf16 key-tiled forward, its level
-2 the two-pass bf16 backward). An orbax checkpoint directory as --resume
-raises with the two commands that convert it (`cli/convert.py`).
+item that brings each: --dcn_chunks > 1 and --dcn_remat (9), --bf16 with
+--depth (10: a 42-keypoint model's levels 0 and 1 need a bf16 key-tiled
+forward, its level 2 the two-pass bf16 backward). An orbax checkpoint
+directory as --resume raises with the two commands that convert it
+(`cli/convert.py`).
 """
 
 from __future__ import annotations
@@ -88,7 +93,7 @@ def parse_args(argv=None):
                    help="'ROBOT NAME' tag in the meta jsons (default: --robot)")
     p.add_argument("--arch", default=FLAGSHIP_ARCH,
                    help="dlapawdl3new_34 (the flagship), dlapa_34, dlapawd_34, dlapawd3_34, dlapawd3shared_34, "
-                        "dlapacat_34, dlaabla_34, dlaseg_34 (the DREAM baselines are not ported)")
+                        "dlapacat_34, dlaabla_34, dlaseg_34, dreamhourglass (--phase Dream)")
     p.add_argument("--num_epochs", type=int, default=20)
     p.add_argument("--batch_size", type=int, default=4, help="per rank")
     p.add_argument("--lr", type=float, default=1.25e-4)
@@ -122,7 +127,7 @@ def parse_args(argv=None):
                         "validation in float32); not with --depth yet")
     p.add_argument("--phase", default="PlanA_win",
                    help="training phase (train/phases.py): PlanA_win | PlanA_three | PlanA | PlanACAT | "
-                        "ablation_* | CenterTrack | CenterNet (Dream is not ported)")
+                        "ablation_* | CenterTrack | CenterNet | Dream")
     p.add_argument("--resume", default=None,
                    help="checkpoint file of this CLI (restores the step, the schedule count and Adam)")
     p.add_argument("--init_backbone", default=None,
@@ -142,7 +147,6 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     unported = [
         ("--bf16 --depth", args.bf16 and args.depth, 10),
-        ("--phase Dream (the DREAM baselines)", args.phase == "Dream", 6),
         ("--dcn_chunks > 1", args.dcn_chunks > 1, 9),
         ("--dcn_remat", args.dcn_remat, 9),
     ]

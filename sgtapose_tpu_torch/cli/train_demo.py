@@ -68,7 +68,7 @@ def parse_args(argv=None):
                    help="warm-start the model (parameters and BN statistics) from a checkpoint; "
                         "fresh optimizer and schedule")
     p.add_argument("--resume_step", type=int, default=0,
-                   help="with --init_ckpt: continue the parent run's schedule from this step")
+                   help="with --init_ckpt: continue the parent run's schedule and batch stream from this step")
     p.add_argument("--init_backbone", default=None,
                    help="ImageNet DLA-34 .pth (a bare state_dict) to initialise the trunk from")
     p.add_argument("--init_backbone_stem", action="store_true",
@@ -107,17 +107,22 @@ def make_config(args) -> Config:
 
 def train_loop(state, cfg: Config, args, device, stage_timer=None):
     """args.steps steps on fresh batches; returns the loss terms of the
-    logged steps. stage_timer: optional fn(name) -> context manager around
-    "batch" (raw batch and augmentation, the PnP priors included) and the
-    train step's stages."""
+    logged steps. Each step's batch draws from the stream of the run's
+    step, args.resume_step + it, so a warm start at --resume_step S goes on
+    with the batches a run from step 0 would draw from step S (the JAX CLI
+    draws from `it`, replaying the parent run's first batches).
+    stage_timer: optional fn(name) -> context manager around "batch" (raw
+    batch and augmentation, the PnP priors included) and the train step's
+    stages."""
     timed = stage_timer or (lambda name: contextlib.nullcontext())
     batch_fn = pipeline.make_batch_fn(cfg, synthetic.camera_K(), cache_prior=args.cache_prior)
     logged = []
     t0 = time.time()
     for it in range(args.steps):
         with timed("batch"):
-            raw = synthetic.make_raw_batch(step_generator(args.seed, it, 0), args.batch, device=device)
-            batch = batch_fn(step_generator(args.seed, it, 1), raw)
+            step = args.resume_step + it
+            raw = synthetic.make_raw_batch(step_generator(args.seed, step, 0), args.batch, device=device)
+            batch = batch_fn(step_generator(args.seed, step, 1), raw)
         stats = trainer.train_step(state, batch, reg_weight=args.reg_weight, bf16=args.bf16,
                                    stage_timer=stage_timer)
         if it % args.log_every == 0 or it == args.steps - 1:

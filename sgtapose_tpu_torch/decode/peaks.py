@@ -133,6 +133,7 @@ def decode_heatmaps(
     ambiguity_gap: float = 0.25,
     peak_offset: float = 0.4395,
     sigma: float = 3.0,
+    use_reg: bool = True,
     ref_sort: str = "score",
     coord_mode: str = "reg",
 ) -> DecodedKeypoints:
@@ -140,9 +141,13 @@ def decode_heatmaps(
     ref_sort: "score" or "y" (the reference's sort by refined y).
     coord_mode: "reg" (int(refined) + reg head), "avg" (5x5 average +
     offset), "logquad" (log-parabola on the blurred map), "mean" (average of
-    reg and logquad)."""
+    reg and logquad). use_reg=False (a model with no reg head, the DREAM
+    baselines): "logquad" stays, the reg-dependent modes fall back to
+    "avg"."""
     if coord_mode not in COORD_MODES:
         raise ValueError(f"unknown coord_mode {coord_mode!r}")
+    if not use_reg:
+        coord_mode = "logquad" if coord_mode == "logquad" else "avg"
     H, W, C = hm.shape
     blurred = gaussian_blur(hm, sigma)
     mask = _local_max_mask(blurred, peak_thresh)

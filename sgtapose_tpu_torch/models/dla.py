@@ -28,12 +28,13 @@ BN_MOMENTUM = 0.9  # flax convention: running = 0.9 running + 0.1 batch
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over NCHW. Eval mode:
-    the running statistics, as `nn.BatchNorm2d`. Train mode: the batch's
-    statistics over N*H*W, its BIASED variance both for normalising and for
-    the running average, running = 0.9 running + 0.1 batch (nn.BatchNorm2d
-    feeds the unbiased variance into running_var). Under several
-    data-parallel ranks the statistics are the global batch's
+    """flax `nn.BatchNorm(momentum=momentum, epsilon=1e-5)` over NCHW. Eval
+    mode: the running statistics, as `nn.BatchNorm2d`. Train mode: the
+    batch's statistics over N*H*W, its BIASED variance both for normalising
+    and for the running average, running = momentum running + (1 - momentum)
+    batch (flax's convention: the DLA models' 0.9 by default, the DREAM
+    baselines pass 0.1; nn.BatchNorm2d feeds the unbiased variance into
+    running_var). Under several data-parallel ranks the statistics are the global batch's
     (`parallel/mesh.global_moments`), as the JAX mesh step computes them.
 
     bf16 training (bf16 input and parameters, float32 running statistics,
@@ -43,8 +44,9 @@ class BatchNorm(nn.BatchNorm2d):
     averages updated in float32; in eval mode the float32 running
     statistics. (bf16 serving casts the statistics too.)"""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, momentum: float = BN_MOMENTUM):
         super().__init__(c, eps=1e-5)
+        self.flax_momentum = momentum
 
     def forward(self, x):
         # the parameters in the statistics' dtype: a no-op but in bf16
@@ -65,8 +67,9 @@ class BatchNorm(nn.BatchNorm2d):
             with torch.no_grad():
                 var, mean = torch.var_mean(x.to(stat_dtype), dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(stat_dtype), alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var.to(stat_dtype), alpha=1 - BN_MOMENTUM)
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mean.to(stat_dtype), alpha=1 - m)
+            self.running_var.mul_(m).add_(var.to(stat_dtype), alpha=1 - m)
         return out
 
 

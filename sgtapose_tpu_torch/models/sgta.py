@@ -2,8 +2,8 @@
 
 Counterpart of `sgtapose_tpu/models/sgta.py` (`HeadConv`, `SGTAPose`,
 `CenterNetSingle`, and `create_model`, which builds every arch of the JAX
-factory but the two DREAM baselines; the temporal variants are in
-`models/variants.py`). The Siamese trunk runs once on
+factory; the temporal variants are in `models/variants.py`, the DREAM
+baselines in `models/dream_baselines.py`). The Siamese trunk runs once on
 the previous and current frames stacked along the batch (same stems and
 weights); levels 0-2 fuse through 3x weight-tied cross-attention, levels 3-5
 substitute the previous frame's window features; the DLAUp/IDAUp decoder
@@ -179,13 +179,16 @@ class SGTAPose(Siamese, DecoderHeads):
 @torch.no_grad()
 def reset_parameters(model: nn.Module, generator: torch.Generator, prior_bias: float) -> None:
     """Flax's initialisation, drawn from `generator`: lecun-normal
-    (truncated) conv/dense kernels, zero biases, except the zero-initialised
-    DCN offset/mask convs, the bilinear up-convs, the pos_embed biases
-    (zero) and the hm heads' prior bias; BN/LayerNorm at identity."""
+    (truncated) conv/dense kernels, the DREAM baselines' transposed convs
+    included, zero biases, except the zero-initialised DCN offset/mask
+    convs, the bilinear (depthwise) up-convs, the pos_embed biases (zero)
+    and the hm heads' prior bias; BN/LayerNorm at identity."""
     for name, mod in model.named_modules():
-        if not isinstance(mod, (nn.Conv2d, nn.Linear)) or name.endswith("conv_offset_mask"):
+        deconv = isinstance(mod, nn.ConvTranspose2d) and mod.groups == 1
+        if not (deconv or isinstance(mod, (nn.Conv2d, nn.Linear))) or name.endswith("conv_offset_mask"):
             continue
-        fan_in = mod.weight[0].numel()
+        # flax's fan-in: a transposed conv's kernel is (kh, kw, in, out)
+        fan_in = mod.weight[:, 0].numel() if deconv else mod.weight[0].numel()
         std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
         nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
         if mod.bias is not None:
@@ -236,8 +239,9 @@ def build_model(cfg: ModelConfig, tracking: bool = False) -> nn.Module:
     first "_"), its parameters uninitialised. With tracking the single-frame
     archs take pre_img and a prior heatmap (the CenterTrack wiring;
     `train/phases.model_wiring` gives it per phase). The DREAM baselines
-    raise NotImplementedError; an unknown name raises ValueError."""
-    from sgtapose_tpu_torch.models import variants
+    (`models/dream_baselines.py`) take the image alone. An unknown name
+    raises ValueError."""
+    from sgtapose_tpu_torch.models import dream_baselines, variants
 
     arch = cfg.arch.split("_")[0]
     if arch == "dlapawdl3new":
@@ -254,10 +258,10 @@ def build_model(cfg: ModelConfig, tracking: bool = False) -> nn.Module:
         return variants.SGTAPoseThree(cfg, shared_ca=True)
     if arch == "dlapacat":
         return variants.SGTAPoseCat(cfg)
-    if arch in DREAM_ARCHS:
-        raise NotImplementedError(
-            f"arch {cfg.arch!r}: the DREAM baselines are not ported to sgtapose_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 6)")
+    if arch == "dreamhourglass":
+        return dream_baselines.DreamHourglass(cfg.num_classes)
+    if arch == "resnetsimple":
+        return dream_baselines.ResnetSimple(cfg.num_classes)
     if arch in SINGLE_FRAME_ARCHS:
         return CenterNetSingle(cfg, tracking=tracking)
     raise ValueError(f"unknown arch: {cfg.arch}")

@@ -33,7 +33,13 @@ def sgta_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
               tracking_weight: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {"tot", "hm", "reg", "tracking"}) from the heads' logits and a
     batch with gt_belief_maps (B, H/4, W/4, C), kp_int (B, K, 2), reg_target
-    and tracking_target (B, K, 2)."""
+    and tracking_target (B, K, 2). Raises ValueError when the heatmap and
+    its targets differ in shape, where the JAX loss fails to broadcast:
+    ResnetSimple's map is at input/2, the pipeline's targets at input/4."""
+    if outputs["hm"].shape != batch["gt_belief_maps"].shape:
+        raise ValueError(f"heatmap logits {tuple(outputs['hm'].shape)} and gt_belief_maps "
+                         f"{tuple(batch['gt_belief_maps'].shape)} differ: the model's output stride is not the "
+                         "targets' (input/4); ResnetSimple's map is at input/2 and cannot train on them")
     hm = clamped_sigmoid(outputs["hm"])
     hm_loss = ((hm - batch["gt_belief_maps"]) ** 2).mean()
     zero = hm_loss.new_zeros(())

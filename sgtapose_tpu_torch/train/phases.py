@@ -9,7 +9,8 @@ batch tensors feed the model and which loss terms apply.
   CenterTrack   the current and previous images and the noised previous
                 ground-truth prior
   CenterNet     the current image alone
-  Dream         the DREAM baselines (heatmap loss only): not ported yet
+  Dream         the DREAM baselines (`models/dream_baselines.py`): the
+                current image alone, the heatmap loss only
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ PHASES = (
     "ablation_shared_repro", "ablation_shared", "ablation_wo_shared",
     "CenterTrack", "CenterNet", "Dream",
 )
-PORTED = PHASES[:-1]
 
 _PAIR = ("cur_img", "pre_img", "pre_hm", "repro_hm")
 _INPUTS = {
@@ -34,17 +34,13 @@ _INPUTS = {
     "PlanA": _PAIR, "PlanACAT": _PAIR, "ablation_shared_repro": _PAIR,
     "ablation_shared": _PAIR, "ablation_wo_shared": _PAIR,
     "CenterTrack": ("cur_img", "pre_img", "pre_origin_hm"),
-    "CenterNet": ("cur_img",),
+    "CenterNet": ("cur_img",), "Dream": ("cur_img",),
 }
 
 
 def _check(phase: str) -> None:
     if phase not in PHASES:
         raise ValueError(f"unknown phase: {phase}")
-    if phase not in PORTED:
-        raise NotImplementedError(
-            f"phase {phase!r} (the DREAM baselines) is not ported to sgtapose_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 6)")
 
 
 def input_names(phase: str) -> Tuple[str, ...]:
@@ -62,8 +58,17 @@ def model_wiring(cfg: ModelConfig, phase: str) -> Tuple[ModelConfig, bool]:
     """How `phase` wires cfg.arch's model: the model config (an ablation_*
     phase sets its ablation_mode; other phases keep cfg's) and whether the
     single-frame model takes the previous frame and a prior (CenterTrack),
-    the arguments of `models/sgta.create_model` / `build_model`."""
+    the arguments of `models/sgta.create_model` / `build_model`. Raises
+    ValueError where a DREAM baseline, which takes the image alone, meets a
+    phase that feeds more, or the Dream phase a model that needs more."""
+    from sgtapose_tpu_torch.models.sgta import DREAM_ARCHS, SINGLE_FRAME_ARCHS
+
     _check(phase)
+    arch = cfg.arch.split("_")[0]
+    if (arch in DREAM_ARCHS and len(_INPUTS[phase]) > 1) or (
+            phase == "Dream" and arch not in DREAM_ARCHS + SINGLE_FRAME_ARCHS):
+        raise ValueError(f"phase {phase!r} feeds {_INPUTS[phase]}, which arch {cfg.arch!r} does not take: the "
+                         f"DREAM baselines {DREAM_ARCHS} take the current image alone (phase Dream)")
     if phase.startswith("ablation_"):
         cfg = dataclasses.replace(cfg, ablation_mode=phase[len("ablation_"):])
     return cfg, phase == "CenterTrack"

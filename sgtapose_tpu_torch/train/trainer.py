@@ -175,9 +175,12 @@ def _eval_forward(state: TrainState, batch, phase: str):
 
 
 def _prediction_heads(out) -> Dict[str, torch.Tensor]:
-    """Sigmoided heatmaps, reg and tracking in float32."""
-    return {"hm": torch.sigmoid(out["hm"].to(torch.float32)), "reg": out["reg"].to(torch.float32),
-            "tracking": out["tracking"].to(torch.float32)}
+    """Sigmoided heatmaps, reg and tracking in float32 (zeros for a head
+    the model does not have: the DREAM baselines have the heatmap only)."""
+    hm = torch.sigmoid(out["hm"].to(torch.float32))
+    zeros = hm.new_zeros(hm.shape[:3] + (2,))
+    return {"hm": hm, "reg": out.get("reg", zeros).to(torch.float32),
+            "tracking": out.get("tracking", zeros).to(torch.float32)}
 
 
 def eval_step(state: TrainState, batch, phase: str = "PlanA_win") -> Dict[str, torch.Tensor]:

@@ -25,7 +25,10 @@ tied copies) are not reported. Strict by default: a missing or mismatched
 tensor raises; strict=False reports them (and keeps the model's value).
 
 Archs with a mapping: dlapawdl3new (both dla_node), dlapa, dlapawd, dlapacat,
-dlaabla and dlaabla_wo_shared (the wo_shared ablation's second trunk). The
+dlaabla and dlaabla_wo_shared (the wo_shared ablation's second trunk); the
+DREAM baselines through `convert_dream_state_dict` (their transposed convs
+(I, O, k, k) -> (k, k, I, O), rotated by 180 degrees; no channel flip by
+default), which `cli/convert.py` does not route, as JAX's does not. The
 ImageNet DLA-34 release format (a bare trunk) converts into `base`
 (`convert_imagenet_dla34`, with map_stem also into the image stem) and
 exports from it (`export_imagenet_dla34`).
@@ -354,6 +357,91 @@ def arch_key(arch: str, ablation_mode: str = "shared_repro") -> str:
     second trunk and maps as dlaabla_wo_shared)."""
     base = arch.split("_")[0]
     return "dlaabla_wo_shared" if base == "dlaabla" and ablation_mode == "wo_shared" else base
+
+
+def _deconv(w):
+    return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1].copy()
+
+
+def _dream_hourglass_map(deconv_decoder: bool = False, full_output: bool = False) -> Mapping_:
+    """flax path -> reference name of DreamHourglass: the encoder's VGG
+    feature indices, the decoder's and heads' Sequential indices."""
+    m: Mapping_ = {}
+    enc = (("layer_0_1_down", (0, 2)), ("layer_0_2_down", (5, 7)), ("layer_0_3_down", (10, 12, 14, 16)),
+           ("layer_0_4_down", (19, 21, 23, 25)), ("layer_0_5_down", (28, 30, 32, 34)))
+
+    def conv(our: str, ref: str, tf=_conv):
+        m[f"{our}/kernel"] = (f"{ref}.weight", tf)
+        m[f"{our}/bias"] = (f"{ref}.bias", None)
+
+    for name, idxs in enc:
+        for i, idx in enumerate(idxs):
+            conv(f"{name}/conv{i}", f"{name}.{idx}")
+    if deconv_decoder:
+        for name, has_conv in (("deconv_0_4", True), ("deconv_0_3", True), ("deconv_0_2", True),
+                               ("deconv_0_1", False)):
+            conv(f"{name}_deconv", f"{name}.0", _deconv)
+            if has_conv:
+                conv(f"{name}_conv", f"{name}.2")
+    else:
+        for name in ("upsample_0_4", "upsample_0_3"):
+            conv(f"{name}_conv1", f"{name}.4")
+            conv(f"{name}_conv2", f"{name}.6")
+        if full_output:
+            for name in ("upsample_0_2", "upsample_0_1"):
+                conv(f"{name}_conv1", f"{name}.2")
+                conv(f"{name}_conv2", f"{name}.4")
+    for our, idx in (("heads_0_conv1", 0), ("heads_0_conv2", 2), ("heads_0_out", 4)):
+        conv(our, f"heads_0.{idx}")
+    return m
+
+
+def _resnet_simple_map(full: bool = False, blocks=(3, 4, 23, 3)) -> Mapping_:
+    """flax path -> reference name of ResnetSimple: torchvision's resnet
+    names and the upsample Sequential."""
+    m: Mapping_ = {"conv1/kernel": ("conv1.weight", _conv), "bn1": ("bn1", None)}
+    for L, n in enumerate(blocks, start=1):
+        for b in range(n):
+            pre, ref = f"layer{L}_{b}", f"layer{L}.{b}"
+            for c in (1, 2, 3):
+                m[f"{pre}/conv{c}/kernel"] = (f"{ref}.conv{c}.weight", _conv)
+                m[f"{pre}/bn{c}"] = (f"{ref}.bn{c}", None)
+            if b == 0:
+                m[f"{pre}/downsample_conv/kernel"] = (f"{ref}.downsample.0.weight", _conv)
+                m[f"{pre}/downsample_bn"] = (f"{ref}.downsample.1", None)
+    stages = [(f"up{i}", f"upsample.{3 * i}", f"upsample.{3 * i + 1}") for i in range(4)]
+    if full:
+        stages.append(("up4", "upsample2.0", "upsample2.1"))
+    for our, deconv, bn in stages:
+        m[f"{our}_deconv/kernel"] = (f"{deconv}.weight", _deconv)
+        m[f"{our}_deconv/bias"] = (f"{deconv}.bias", None)
+        m[f"{our}_bn"] = (bn, None)
+    head = "upsample2.3" if full else "upsample.12"
+    m["head/kernel"] = (f"{head}.weight", _conv)
+    m["head/bias"] = (f"{head}.bias", None)
+    return m
+
+
+def convert_dream_state_dict(state_dict: Mapping, model: nn.Module, bgr_to_rgb: bool = False,
+                             strict: bool = True) -> Dict:
+    """Load a reference-format DREAM baseline state dict into `model` (a
+    `DreamHourglass` or `ResnetSimple`, whose options pick the mapping) in
+    place; returns the report. `module.` prefixes are stripped and
+    num_batches_tracked is not reported. bgr_to_rgb flips the first conv's
+    input channels, for a checkpoint trained on cv2's BGR frames (the DREAM
+    release trains on PIL's RGB, hence the default)."""
+    from sgtapose_tpu_torch.models.dream_baselines import DreamHourglass, ResnetSimple
+
+    if isinstance(model, DreamHourglass):
+        mapping = _dream_hourglass_map(model.deconv_decoder, model.full_output)
+        first = "layer_0_1_down/conv0/kernel"
+    elif isinstance(model, ResnetSimple):
+        mapping = _resnet_simple_map(model.full, model.blocks)
+        first = "conv1/kernel"
+    else:
+        raise ValueError(f"not a DREAM baseline: {type(model).__name__}")
+    return _convert_into(model, _strip(state_dict), mapping, (first,) if bgr_to_rgb else (), strict,
+                         lambda k: "num_batches_tracked" not in k)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:

@@ -14,6 +14,9 @@ the module type decide the layout change:
                                        rotated by 180 degrees (the flax op is
                                        an lhs-dilated conv, which correlates
                                        with the flipped transposed-conv kernel)
+  deconv kernel (k, k, I, O)        -> ConvTranspose2d weight (I, O, k, k),
+                                       rotated the same way (the DREAM
+                                       baselines' TorchDeconv)
   scale / bias / pos_embed          -> weight / bias / pos_embed
   batch_stats mean / var            -> running_mean / running_var
 
@@ -58,7 +61,8 @@ def _target(model: nn.Module, collection: str, path: tuple):
         return f"{pre}{attr}", None
     if leaf == "kernel":
         if isinstance(mod, nn.ConvTranspose2d):
-            return f"{pre}weight", lambda w: w[::-1, ::-1].transpose(3, 2, 0, 1)
+            axes = (3, 2, 0, 1) if mod.groups > 1 else (2, 3, 0, 1)
+            return f"{pre}weight", lambda w: w[::-1, ::-1].transpose(axes)
         if isinstance(mod, nn.Conv2d):
             return f"{pre}weight", lambda w: w.transpose(3, 2, 0, 1)
         if isinstance(mod, nn.Linear):
@@ -154,7 +158,8 @@ def _flax_leaf(model: nn.Module, name: str, value: np.ndarray):
         return None
     if attr == "weight":
         if isinstance(mod, nn.ConvTranspose2d):
-            return "params", path + ("kernel",), value.transpose(2, 3, 1, 0)[::-1, ::-1]
+            axes = (2, 3, 1, 0) if mod.groups > 1 else (2, 3, 0, 1)
+            return "params", path + ("kernel",), value.transpose(axes)[::-1, ::-1]
         if isinstance(mod, nn.Conv2d):
             return "params", path + ("kernel",), value.transpose(2, 3, 1, 0)
         if isinstance(mod, nn.Linear):

@@ -22,8 +22,10 @@ test_torch_port_infer_cli_sets.py.
     optima (ROADMAP.md Queue 3), so only frame 0 of each video is compared.
 (c) `main()` with --ckpt (a `trainer.save_checkpoint` file) equals the
     direct call of (b).
-(d) Flags that are not ported raise, and --device cuda raises without a
-    card.
+(d) Flags that are not ported raise, and so do wirings no model takes, and
+    --device cuda raises without a card; the DREAM single-frame mode
+    (--is_ct false, both archs, --flip_test) runs on the synthetic set
+    (its parity: test_torch_port_dream.py).
 """
 
 import json
@@ -168,20 +170,29 @@ def test_main_with_checkpoint_equals_direct_call(warm, tmp_path):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--is_ct", "false"], NotImplementedError),
+    (["--is_ct", "false", "--arch", "dreamhourglass_34"], None),
     (["--quant", "int8"], NotImplementedError),
     (["--quant_min_ch", "64"], NotImplementedError),
-    (["--phase", "Dream"], NotImplementedError),
-    (["--arch", "dreamhourglass_34"], NotImplementedError),
+    (["--is_ct", "false", "--phase", "Dream", "--arch", "resnetsimple_34"], None),
+    (["--is_ct", "false", "--arch", "dreamhourglass_34", "--flip_test"], None),
     (["--flip_test"], SystemExit),
     (["--ckpt", "."], NotImplementedError),  # a directory: an orbax checkpoint
     (["--device", "cuda"], RuntimeError),
-], ids=["is_ct", "quant", "quant_min_ch", "phase", "arch", "flip_test", "orbax", "cuda"])
-def test_unported_flags_raise(flags, error, tmp_path):
+    (["--is_ct", "false"], ValueError),  # the flagship takes priors
+    (["--arch", "dreamhourglass_34"], ValueError),  # a DREAM model under PlanA_win
+], ids=["is_ct", "quant", "quant_min_ch", "phase", "arch", "flip_test", "orbax", "cuda", "is_ct_flagship",
+        "arch_temporal"])
+def test_unported_flags_raise(flags, error, tmp_path, data):
+    """The flags that are not ported raise, and so do wirings no model takes;
+    the DREAM single-frame mode (error None) runs on the synthetic set."""
     if flags == ["--device", "cuda"] and torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda runs")
-    argv = ["--dataset", str(tmp_path), "--output_dir", str(tmp_path / "out"), "--input_res", "64",
-            "--kernel_list", "3,3,3,1,1,1"]
+    argv = ["--dataset", data["syn"] if error is None else str(tmp_path), "--output_dir", str(tmp_path / "out"),
+            "--input_res", "64", "--kernel_list", "3,3,3,1,1,1"]
     argv += flags if "--device" in flags else flags + ["--device", "cpu"]
+    if error is None:
+        km = tinfer.main(argv)["keypoint_metrics"]
+        assert km["num_gt_inframe"] + km["num_gt_outframe"] == 2 * 2 * 7
+        return
     with pytest.raises(error):
         tinfer.main(argv)

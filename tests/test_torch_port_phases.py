@@ -58,14 +58,14 @@ def test_train_step_matches_jax(phase, monkeypatch):
 
 
 def test_phase_table_and_wiring():
-    """The port's phase table is JAX's; Dream raises, naming the ROADMAP
-    item; eval and predict steps run every ported phase's model."""
-    for phase in tphases.PORTED:
+    """The port's phase table is JAX's, Dream included (the current image,
+    the heatmap loss only); eval and predict steps run every phase's
+    model."""
+    for phase in tphases.PHASES:
         assert tphases.input_names(phase) == jax_input_names(phase)
         assert tphases.loss_weights(phase) == jax_loss_weights(phase)
-    assert set(tphases.PHASES) - set(tphases.PORTED) == {"Dream"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tphases.input_names("Dream")
+    assert tphases.input_names("Dream") == ("cur_img",)
+    assert tphases.loss_weights("Dream") == {"hm_weight": 1.0, "reg_weight": 0.0, "tracking_weight": 0.0}
     with pytest.raises(ValueError, match="unknown phase"):
         tphases.input_names("PlanB")
     batch = {k: _t(v.astype(np.float32) if v.dtype == np.float64 else v) for k, v in phase_train_batch().items()}
@@ -76,7 +76,7 @@ def test_phase_table_and_wiring():
     pred = ttrainer.predict_step(state, batch, phase="ablation_wo_shared")
     assert np.isfinite(stats["tot"].item()) and pred["hm"].shape == (2, 16, 16, 7)
     example = ttrainer.example_batch(PortConfig(model=port_cfg()), 2, device="cpu")
-    for phase in tphases.PORTED:
+    for phase in tphases.PHASES:
         assert set(tphases.input_names(phase)) <= set(example), phase
 
 

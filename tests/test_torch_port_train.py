@@ -17,6 +17,8 @@ port against JAX in float32: gradients up to 9.3 % of a tensor's largest
 tensor and 3 % in L2, 1e-4, 1e-4, 3e-5.
 """
 
+import dataclasses
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -364,8 +366,44 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
         LR, MAX_ITERS, WARMUP)(15)), rel=1e-6)
 
 
+def test_train_demo_resume_step_continues_the_batch_stream(tmp_path, monkeypatch):
+    """Two segments of 2 steps, the second a warm start at --resume_step 2,
+    draw the raw batches and augmentations of one 4-step run (the train step
+    itself stubbed out: the stream is what is checked)."""
+    from sgtapose_tpu_torch.cli import train_demo
+
+    drawn = []
+
+    def raw_batch(gen, batch, device):
+        drawn.append(("raw", gen.initial_seed()))
+
+    def batch_fn(gen, raw):
+        drawn.append(("aug", gen.initial_seed()))
+
+    def step(state, batch, **kw):
+        state.step += 1
+        return {"tot": torch.zeros(())}
+
+    monkeypatch.setattr(train_demo.synthetic, "make_raw_batch", raw_batch)
+    monkeypatch.setattr(train_demo.pipeline, "make_batch_fn", lambda *a, **k: batch_fn)
+    monkeypatch.setattr(train_demo.trainer, "train_step", step)
+    common = ["--device", "cpu", "--batch", "1", "--input_res", "64", "--eval_videos", "0", "--steps"]
+    train_demo.main(common + ["4"])
+    whole, drawn[:] = list(drawn), []
+    ckpt = str(tmp_path / "first.pt")
+    train_demo.main(common + ["2", "--ckpt_out", ckpt])
+    res = train_demo.main(common + ["2", "--init_ckpt", ckpt, "--resume_step", "2"])
+    assert res["state"].step == 4
+    assert drawn == whole and len(set(whole)) == 8
+
+
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """The Dream phase is ported: it builds a DREAM baseline in train mode;
+    it refuses the flagship, which takes the previous frame and priors."""
+    state = ttrainer.create_train_state(
+        PortConfig(model=dataclasses.replace(port_cfg(), arch="dreamhourglass")), 0, device="cpu", phase="Dream")
+    assert type(state.model).__name__ == "DreamHourglass" and state.model.training
+    with pytest.raises(ValueError, match="take the current image alone"):
         ttrainer.create_train_state(PortConfig(model=port_cfg()), 0, device="cpu", phase="Dream")
 
 

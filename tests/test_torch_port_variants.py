@@ -125,9 +125,9 @@ def test_variant_loader_is_strict(case_id):
 
 
 def test_create_model_dispatches_every_arch():
-    """Every name of the JAX factory but the DREAM baselines builds its
-    variant on the asked device; those two raise NotImplementedError, an
-    unknown name ValueError."""
+    """Every name of the JAX factory builds its variant on the asked
+    device, the DREAM baselines included; an unknown name raises
+    ValueError."""
     expect = {"dlapawdl3new_34": SGTAPose, "dlapa_34": variants.SGTAPoseGlobal,
               "dlapawd_34": variants.SGTAPoseWindowDense, "dlaabla_34": variants.SGTAPoseAblation,
               "dlapawd3_34": variants.SGTAPoseThree, "dlapawthree_34": variants.SGTAPoseThree,
@@ -143,9 +143,8 @@ def test_create_model_dispatches_every_arch():
     ablation = dataclasses.replace(port_cfg(), arch="dlaabla_34")
     for phase, mode in (("ablation_wo_shared", "wo_shared"), ("ablation_shared", "shared"), ("PlanA", "shared_repro")):
         assert build_model(*model_wiring(ablation, phase)).mode == mode, phase
-    for arch in ("dreamhourglass_34", "resnetsimple_34"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dataclasses.replace(port_cfg(), arch=arch))
+    for arch, name in (("dreamhourglass_34", "DreamHourglass"), ("resnetsimple_34", "ResnetSimple")):
+        assert type(build_model(dataclasses.replace(port_cfg(), arch=arch))).__name__ == name
     with pytest.raises(ValueError, match="unknown arch"):
         build_model(dataclasses.replace(port_cfg(), arch="dlapawglobal_34"))
     with pytest.raises(ValueError, match="ablation_mode"):

@@ -220,7 +220,8 @@ ADAM_COUNT, SCHED_COUNT = 5, 7
 # phase -> arch of its model
 PHASE_ARCH = {"PlanA": "dlapa_34", "PlanA_three": "dlapawd3_34", "PlanACAT": "dlapacat_34",
               "ablation_shared_repro": "dlaabla_34", "ablation_shared": "dlaabla_34",
-              "ablation_wo_shared": "dlaabla_34", "CenterTrack": "dlaseg_34", "CenterNet": "dlaseg_34"}
+              "ablation_wo_shared": "dlaabla_34", "CenterTrack": "dlaseg_34", "CenterNet": "dlaseg_34",
+              "Dream": "dreamhourglass"}
 
 
 def _rel_err(a, b, floor=1.0):
@@ -280,7 +281,7 @@ def _jax_phase_step_x64(module, variables, mu, nu, phase, batch):
     opt_state = (adam._replace(count=jnp.int32(ADAM_COUNT), mu=mu, nu=nu),
                  sched._replace(count=jnp.int32(SCHED_COUNT)))
     state = jtrainer.TrainState(step=jnp.int32(SCHED_COUNT), params=variables["params"],
-                                batch_stats=variables["batch_stats"], opt_state=opt_state,
+                                batch_stats=variables.get("batch_stats", {}), opt_state=opt_state,
                                 apply_fn=module.apply, tx=tx)
 
     def step(state, batch):
@@ -320,7 +321,7 @@ def check_phase_train_step(phase, monkeypatch):
     assert getattr(state.model, "mode", None) == (pcfg.ablation_mode if PHASE_ARCH[phase] == "dlaabla_34" else None)
     state.model.double()
     tweights.load_flax_train_state(state, {
-        "params": variables["params"], "batch_stats": variables["batch_stats"], "mu": mu, "nu": nu,
+        "params": variables["params"], "batch_stats": variables.get("batch_stats", {}), "mu": mu, "nu": nu,
         "adam_count": ADAM_COUNT, "schedule_count": SCHED_COUNT, "step": SCHED_COUNT})
     set_dropout_rate(state.model, 0.0)
     model = state.model
@@ -335,7 +336,7 @@ def check_phase_train_step(phase, monkeypatch):
     unused = [k for k, g in ref_grads.items() if np.abs(g).max() == 0]
     assert all(np.abs(port_grads[k]).max() == 0 for k in unused), unused
     live = [k for k, g in ref_grads.items() if np.abs(g).max() > 1e-9]
-    assert len(live) > 100
+    assert len(live) > 100 or len(live) == len(ref_grads)  # the DREAM hourglass has 46 tensors, all live
     worst = max((_rel_err(port_grads[k], ref_grads[k], floor=1e-30), k) for k in live)
     assert worst[0] <= 1e-6, worst
 
