@@ -186,7 +186,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase 13 (A)'s set at batch 4, float32 and --bf16: ms per step by
      stage, steps/s, peak memory; (e) the Dream phase's eval-mode 480x480 gradient card against
      CPU float64 at phase 11's bars;
- 17. a `{"kernels": [...]}` line, the card line, and last the device line
+ 17. `--bf16 --depth` and multi-GPU serving: (a) the bf16 key-tiled
+     forward (kernel A) against its plain bf16 version at a 42-keypoint
+     model's level 0, (7098, 4), at batch 1 and 2, q bf16 and q float32, with
+     cold / warm / clean / plain times, bounds and SDPA in bf16 with a float
+     mask as the yardstick; (b) the bf16 shared-memory kernel the same way at
+     level 1, (2058, 8), which fits it in bf16; (c) the bf16 row-split
+     backward (kernel B) against its plain version at level 2, (378, 16), at
+     batch 1, 2 and 8 and a ragged (200, 8), q bf16 and float32, every output
+     the same bit for bit in two runs, SDPA's bf16 backward as the
+     yardstick; (d) a full-width 42-keypoint model (480x480, DCN decoder,
+     seeded weights) in bf16: one forward card against CPU bf16 at phase 8's
+     bar, then the bf16 exact runner over 4 frames of a 42-keypoint video,
+     launches asserted per frame (3 of A, 6 of the bf16 shared-memory kernel,
+     16 deform_conv_bf16, no float32 kernel), fps and ms by stage; (e)
+     `cli/train.main --depth --bf16` for one epoch on phase 13 (B)'s set at
+     batch 2: launches asserted per call (a step: 3 of A, 6 bf16
+     shared-memory, 3 of B, the bf16 DCN kernels; a mosaic forward: the
+     float32 kernels), ms a step by stage, steps/s, peak memory; (f)
+     `infer/detector.make_sharded_video_detector` as one rank (no process
+     group) on phase 9's 8-video batch, its launches asserted and its
+     results held to the batched runner's;
+ 18. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 The detector runs of phase 9 take 8 frames each (16 before the training
@@ -273,6 +294,12 @@ EVAL_GRAD_L2_TOL = 1e-4
 # when float32 sums run in another order: two bf16 units in the last place
 # at the top of the range, 2^-6 of max(1, max|ref|) per output
 BWD_BF16_REL_TOL = 2.0 ** -6
+# Kernel B (the bf16 row-split backward) and its plain version round the same
+# float32 values once to bf16, summed in other orders: a rounding that falls
+# on the other side of a boundary moves an output by one bf16 unit in the
+# last place, at most 2^-7 of that output's magnitude. Per output, 2^-7 of
+# max|ref| (no floor of 1: these gradients lie well below 1)
+ROWS_BWD_BF16_REL_TOL = 2.0 ** -7
 # The 480x480 bf16 gradient (batch 1, BatchNorm in eval mode, the DCN
 # offset/mask convs perturbed), per tensor relative to its largest reference
 # gradient, and over all gradients in L2: card bf16 against CPU bf16 (plain
@@ -327,7 +354,9 @@ DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "d
                 "biased_attention_nobias": "attention_nobias_kernel",
                 "biased_attention_nobias_bf16": "attention_nobias_bf16_kernel",
                 "biased_attention_bwd_nobias": "attention_bwd_nobias_kernel",
-                "biased_attention_bwd_nobias_bf16": "attention_bwd_nobias_bf16_kernel"}
+                "biased_attention_bwd_nobias_bf16": "attention_bwd_nobias_bf16_kernel",
+                "biased_attention_tiled_bf16": "biased_attention_tiled_bf16_kernel",
+                "biased_attention_bwd_rows_bf16": "biased_attention_rows_bf16_bwd_kernel"}
 
 
 def kernel_device_ms(events, kernel: str) -> float:
@@ -350,6 +379,11 @@ def shape_sum(rows, key, unit="per_frame"):
 def rel_err(a, b) -> float:
     """max|a - b| / max(1, max|b|)."""
     return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+def rel_err_of_max(a, b) -> float:
+    """max|a - b| / max|b|."""
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -392,8 +426,13 @@ def main() -> int:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     report = {"card": card}
     t_start = time.perf_counter()
+    phase_starts = {}  # phase -> seconds after the card check at its start
+
+    def mark(phase):
+        phase_starts[phase] = time.perf_counter() - t_start
 
     # ---- 2. build -------------------------------------------------------
+    mark("2")
     build.build_all()
     print(f"build: {build.BUILD_INFO['seconds']:.1f} s for {build.BUILD_INFO['compiled']} "
           f"into {build.BUILD_INFO['dir']}")
@@ -454,6 +493,7 @@ def main() -> int:
     h = cfg.model.n_heads
 
     # ---- 3. float32 attention kernel vs plain ----------------------------
+    mark("3")
     attn_rows = []
     shapes = []
     for i in range(3):
@@ -512,6 +552,7 @@ def main() -> int:
     report["attention_tiled_shapes"] = tiled_rows
 
     # ---- 4. DCN sampling kernel and its backward vs plain -------------------
+    mark("4")
     # at the training batch: the routes deform_conv_wgrad (4c) and
     # deform_conv_dgrad (4b) replaced, launched on no path; their per-step
     # sums are those of the 16 nodes they ran on
@@ -563,6 +604,7 @@ def main() -> int:
     report["deform_sample_bwd_shapes"] = dcn_bwd_rows
 
     # ---- 4b. float32 DCN data gradient (deform_conv_dgrad) vs plain -------
+    mark("4b")
     # the training backward's dx and d(om) at every decoder node at the
     # training batch, offsets at zero (flax's init), within the kernel's halo
     # tile (+-3) and beyond it (+-12); times at +-3 against the unfused pair
@@ -617,6 +659,7 @@ def main() -> int:
     report["deform_conv_dgrad_shapes"] = dgrad_rows
 
     # ---- 4c. DCN weight gradient (deform_conv_wgrad), float32 and bf16 ----
+    mark("4c")
     # dW of every decoder node at the training batch and of the ragged
     # shape, offsets at zero, +-3 and +-12 px, against the plain version at
     # the kernel's split of the pixels, dW the same bit for bit in two runs;
@@ -687,6 +730,7 @@ def main() -> int:
         return tuple(t.to(dtype) for t in (x, om, weight, bias_o))
 
     # ---- 5. float32 fused DCN kernel vs plain -----------------------------
+    mark("5")
     conv_rows = []
     for H, C, O, per_frame in DCN_NODES + [RAGGED_DCN]:
         W = H + 2 if per_frame == 0 else H
@@ -718,6 +762,7 @@ def main() -> int:
     report["deform_conv_shapes"] = conv_rows
 
     # ---- 6. bf16 attention kernel vs plain bf16 ---------------------------
+    mark("6")
     # per frame each level runs its 3 tied layers: q bf16 on the first, q
     # float32 (from the float32 LayerNorm) on the other two; the batched
     # runner's fuse launches each at batch 8 (those rows stay out of the
@@ -755,6 +800,7 @@ def main() -> int:
     report["attention_bf16_shapes"] = attn16_rows
 
     # ---- 7. bf16 fused DCN kernel vs plain bf16 ---------------------------
+    mark("7")
     # (the batched runner's fuse launches each node at batch 8)
     conv16_rows = []
     cases = [(node, B) for B in (1, N_VIDEOS) for node in DCN_NODES] + [(RAGGED_DCN, 1)]
@@ -783,6 +829,7 @@ def main() -> int:
     report["deform_conv_bf16_shapes"] = conv16_rows
 
     # ---- 8. full-width forward: card vs CPU, float32 and bf16 ------------
+    mark("8")
     model_cpu = create_model(cfg.model, device="cpu", seed=0)
     nodes = sorted((m.kernel.in_features // 9, m.kernel.out_features) for m in model_cpu.modules()
                    if isinstance(m, deform_conv.DeformConv2d))
@@ -863,6 +910,7 @@ def main() -> int:
     report["forward_bf16"] = fwd16
 
     # ---- 9. the streaming detectors on the card ---------------------------
+    mark("9")
     projs, raw, pos_cam = synthetic.make_sequence(torch.Generator().manual_seed(3), T_FRAMES,
                                                   return_pos_cam=True, device=dev)
     images, _, _ = det_lib.preprocess_frames(raw, cfg)
@@ -946,12 +994,13 @@ def main() -> int:
                                  init_kps=bprojs[:, 0])
     batched16 = det_lib.make_batched_video_detector(model16, cfg, K, raw_hw, device=dev,
                                                     stage_timer=timer)
-    runs["bf16_batched_8_videos"], _ = drive(
+    runs["bf16_batched_8_videos"], batched16_res = drive(
         "bf16_batched_8_videos", batched16, bvideo, T_FRAMES, per_frame_launches16,
         {k: (N_VIDEOS,) + s for k, s in single_shapes.items()}, n_streams=N_VIDEOS)
     report["detector"] = runs
 
     # ---- 10. the eval harness on the card ---------------------------------
+    mark("10")
     # the bf16 exact run's detections (random weights: few or none), then
     # the ground truth with 0.5 px of seeded noise, whose scores are known:
     # every in-frame keypoint found within a pixel on average, every PnP
@@ -976,30 +1025,43 @@ def main() -> int:
         raise AssertionError(f"eval harness on noisy ground truth: {kp} {pm}")
 
     # ---- 11. training; 12. the inference CLI on its checkpoint -------------
+    mark("11")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         ckpt = os.path.join(work, "train_demo.pt")
         ref64 = {}
         train = training_phase(torch, dev, gen, cfg, cold_ms, no_launches, ckpt, ref64)
         report["training"] = train
+        mark("12")
         cli = cli_phase(torch, ckpt, work, no_launches)
         report["cli"] = cli
         # ---- 13. the training CLI ------------------------------------------
+        mark("13")
         train_cli = train_cli_phase(torch, work, no_launches)
         report["train_cli"] = train_cli
         # ---- 14. bf16 training ---------------------------------------------
+        mark("14")
         bf16_train = bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
         report["bf16_training"] = bf16_train
         # ---- 15. the arch zoo ----------------------------------------------
+        mark("15")
         zoo = zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64)
         report["zoo"] = zoo
         # ---- 16. the DREAM baselines ---------------------------------------
+        mark("16")
         report["dream"] = dream_phase(torch, dev, cfg, cold_ms, no_launches, work, ref64)
         del ref64
+        # ---- 17. --bf16 --depth; multi-GPU serving as one rank ---------------
+        mark("17")
+        serving = {"model": model16, "K": K, "raw_hw": raw_hw, "videos": bvideo, "batched_result": batched16_res,
+                   "per_frame_launches": per_frame_launches16}
+        report["bf16_depth"] = bf16_depth_phase(torch, dev, gen, cfg, cold_ms, warm_ms, no_launches, work, serving)
+        del serving
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 17. kernels line --------------------------------------------------
+    # ---- 18. kernels line --------------------------------------------------
+    mark("18")
     per_frame = shape_sum
 
     rates = {"biased_attention": "67 TFLOP/s float32 FMA", "deform_sample": "67 TFLOP/s float32 FMA",
@@ -1131,8 +1193,22 @@ def main() -> int:
     bf16_train["deform_conv_wgrad_bf16_shapes"] = wgrad_rows[bf16]
     kernels += bf16_kernel_rows(bf16_train, per_frame)
     kernels += zoo_kernel_rows(zoo, per_frame)
+    # the bf16 forward's shared-memory kernel at a 42-keypoint level 1,
+    # (2058, 8), as phase 17's 42-keypoint bf16 run launches it
+    level1 = report["bf16_depth"]["attention_bf16_level1_shapes"]
+    next(e for e in kernels if e["name"] == "biased_attention_bf16")["depth_level1"] = {
+        "shape": [level1[0]["n"], level1[0]["d"]], "launches_per_42kp_frame": n_layers,
+        **{key: per_frame(level1, key) for key in ("ms", "warm_ms", "clean_ms", "plain_ms", "bound_ms", "library_ms")},
+        "max_abs_err": max(r["max_abs_err"] for r in level1), "bound_by": level1[0]["bound_by"],
+        "kernel_a_ms": per_frame(level1, "tiled_ms"), "kernel_a_max_abs_err": max(r["tiled_max_abs_err"] for r in level1),
+        "kernel_a_note": "kernel A (biased_attention_tiled_bf16) on the same inputs, the route not taken",
+        "shapes_note": "level 1 of a 42-keypoint bf16 model, per frame (3 tied layers)"}
+    kernels += bf16_depth_kernel_rows(report["bf16_depth"], per_frame)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
+    ends = list(phase_starts.values())[1:] + [report["seconds"]]
+    report["phase_seconds"] = {p: e - s for (p, s), e in zip(phase_starts.items(), ends)}
+    print("phase seconds " + json.dumps(report["phase_seconds"]))
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2553,6 +2629,329 @@ def dream_phase(torch, dev, cfg, cold_ms, no_launches, work, ref64):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"DREAM phase: {out['seconds']:.1f} s")
     return out
+
+
+# phase 17, --bf16 --depth: a 42-keypoint model's attention in bf16 (kernel
+# A, the bf16 key-tiled forward, at level 0; the bf16 shared-memory kernel at
+# levels 1 and 2; kernel B, the bf16 row-split backward, at level 2), its
+# bf16 serving over BF16_DEPTH_FRAMES frames and `cli/train --bf16 --depth`;
+# then multi-GPU serving as one rank
+BF16_DEPTH_FRAMES = 4
+
+
+def bf16_depth_phase(torch, dev, gen, cfg, cold_ms, warm_ms, no_launches, work, serving):
+    """Phase 17 (module docstring). `serving`: phase 9's bf16 flagship model,
+    camera, raw frame size, 8-video batch and the batched runner's result on
+    it, for (f)."""
+    import torch.nn.functional as F
+
+    from sgtapose_tpu_torch.cli import train as train_cli
+    from sgtapose_tpu_torch.core import geometry
+    from sgtapose_tpu_torch.data import synthetic
+    from sgtapose_tpu_torch.infer import detector as det_lib
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.ops import attention_kernel, build
+    from sgtapose_tpu_torch.train import trainer
+    from sgtapose_tpu_torch.utils.precision import bf16_inference_model
+
+    bf = torch.bfloat16
+    out = {}
+    h = cfg.model.n_heads
+    n_layers = cfg.model.num_decoder_layers
+    t_phase = time.perf_counter()
+    levels = []
+    for i in range(3):
+        kernel = cfg.model.kernel_list[i]
+        levels.append((DEPTH_CLASSES * cfg.model.k_list[i] * (1 + 2 * (kernel // 2)) ** 2, 4 * 2 ** i))
+    (n0, d0), (n1, d1), (n2, d2) = levels
+    if (attention_kernel.fits_smem(n0, d0, 2) or not attention_kernel.fits_smem(n1, d1, 2)
+            or attention_kernel.bwd_path(n2, d2) != "rows"):
+        raise AssertionError(f"42-keypoint levels {levels}: expected level 0 beyond the bf16 shared-memory kernel, "
+                             "level 1 within it, level 2's backward on the row-split path")
+
+    # ---- (a), (b) the bf16 forwards at level 0 (kernel A) and level 1 -------
+    # batch 1 (serving: per frame, q bf16 on the first tied layer, float32
+    # after the float32 LayerNorm on the others) and the --depth batch of 2
+    # (per --bf16 --depth step)
+    fwd_rows = {"tiled": [], "smem": []}
+    for (n, d), which, wrapper in (((n0, d0), "tiled", attention_kernel.biased_attention_tiled_cuda),
+                                   ((n1, d1), "smem", attention_kernel.biased_attention_bf16_cuda)):
+        for B in (1, TRAIN_CLI_DEPTH_BATCH):
+            for q_dtype in (bf, torch.float32):
+                q = torch.randn(B, h, n, d, generator=gen, device=dev).to(q_dtype)
+                k, v = (torch.randn(B, h, n, d, generator=gen, device=dev).to(bf) for _ in range(2))
+                bias = (0.1 * torch.randn(h, n, n, generator=gen, device=dev)).to(bf)
+                o = wrapper(q, k, v, bias)
+                torch.cuda.synchronize()
+                ref = attention_kernel.plain_biased_attention_bf16(q, k, v, bias)
+                err = (o - ref).abs().max().item()
+                if o.dtype != torch.float32 or not math.isfinite(err) or err > ATTN_BF16_TOL:
+                    raise AssertionError(f"bf16 attention ({which}) B={B} n={n} d={d} q {q_dtype}: max abs err "
+                                         f"{err} > {ATTN_BF16_TOL} (or out {o.dtype})")
+                layers = 1 if q_dtype == bf else n_layers - 1
+                b_ms, b_by = bound_ms(B * (q.element_size() + 2 * 2 + 4) * h * n * d + 2 * h * n * n,
+                                      B * h * n * n * (4 * d + 4))
+                q16 = q.to(bf)
+
+                def run():
+                    return wrapper(q, k, v, bias)
+
+                row = dict(B=B, n=n, d=d, q_dtype=str(q_dtype).replace("torch.", ""),
+                           per_frame=layers if B == 1 else 0, per_step=layers if B == TRAIN_CLI_DEPTH_BATCH else 0,
+                           max_abs_err=err, ms=cold_ms(run), warm_ms=warm_ms(run), clean_ms=cold_ms(run, clean=True),
+                           plain_ms=cold_ms(lambda: attention_kernel.plain_biased_attention_bf16(q, k, v, bias),
+                                            iters=5),
+                           library_ms=cold_ms(lambda: F.scaled_dot_product_attention(q16, k, v, attn_mask=bias),
+                                              iters=5),
+                           bound_ms=b_ms, bound_by=b_by)
+                if which == "smem":
+                    # kernel A on the same inputs, the route's alternative
+                    # at a shape that fits the shared-memory kernel
+                    o_a = attention_kernel.biased_attention_tiled_cuda(q, k, v, bias)
+                    torch.cuda.synchronize()
+                    err_a = (o_a - ref).abs().max().item()
+                    if o_a.dtype != torch.float32 or not math.isfinite(err_a) or err_a > ATTN_BF16_TOL:
+                        raise AssertionError(f"bf16 key-tiled attention B={B} n={n} d={d} q {q_dtype}: max abs err "
+                                             f"{err_a} > {ATTN_BF16_TOL} (or out {o_a.dtype})")
+                    row.update(tiled_max_abs_err=err_a, tiled_ms=cold_ms(
+                        lambda: attention_kernel.biased_attention_tiled_cuda(q, k, v, bias)))
+                    del o_a
+                fwd_rows[which].append(row)
+                print(f"attention_bf16 42-keypoint {which} " + json.dumps(row))
+                del q, k, v, bias, o, ref, q16
+    out["attention_tiled_bf16_shapes"], out["attention_bf16_level1_shapes"] = fwd_rows["tiled"], fwd_rows["smem"]
+
+    # ---- (c) kernel B against its plain version -----------------------------
+    # level 2 at B = 1, the --depth batch of 2 (per step) and 8, and a
+    # ragged (200, 8); every output the same bit for bit in two runs
+    bwd_rows = []
+    for n, d, B in ((n2, d2, 1), (n2, d2, TRAIN_CLI_DEPTH_BATCH), (n2, d2, TRAIN_BATCH), (200, 8, 3)):
+        if attention_kernel.bwd_path(n, d) != "rows":
+            raise AssertionError(f"({n}, {d}) should take the row-split backward")
+        for q_dtype in (bf, torch.float32):
+            q = torch.randn(B, h, n, d, generator=gen, device=dev).to(q_dtype)
+            k, v = (torch.randn(B, h, n, d, generator=gen, device=dev).to(bf) for _ in range(2))
+            bias = (0.3 * torch.randn(h, n, n, generator=gen, device=dev)).to(bf)
+            dout = torch.randn(B, h, n, d, generator=gen, device=dev)
+            o = attention_kernel.biased_attention_bf16_cuda(q, k, v, bias)
+            got = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, o, dout)
+            torch.cuda.synchronize()
+            ref = attention_kernel.rows_biased_attention_backward_bf16(q, k, v, bias, o, dout)
+            names = ("dq", "dk", "dv", "dbias")
+            errs = {name: rel_err_of_max(a.float(), r.float()) for name, a, r in zip(names, got, ref)}
+            if any(a.dtype != r.dtype for a, r in zip(got, ref)) or not all(
+                    math.isfinite(e) and e <= ROWS_BWD_BF16_REL_TOL for e in errs.values()):
+                raise AssertionError(f"bf16 row-split backward n={n} d={d} B={B} q {q_dtype}: errors {errs} > "
+                                     f"{ROWS_BWD_BF16_REL_TOL} of max|ref| (or dtypes {[a.dtype for a in got]})")
+            again = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, o, dout)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"bf16 row-split backward n={n} d={d} B={B}: two runs differ (no atomics)")
+            qs, ks, vs, bs = (t.detach().clone().requires_grad_() for t in (q.to(bf), k, v, bias))
+            y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bs)
+            dy16 = dout.to(bf)
+            qb = q.element_size()
+            # as phase 14 (a): the bias, q, k, v, O and dO read once, dbias, dq,
+            # dk and dv written once; ~10d + 5 float32 FLOPs per (b, head, i, j)
+            b_ms, b_by = bound_ms(2 * 2 * h * n * n + B * h * n * d * (2 * qb + 2 * 4 + 4 * 2),
+                                  B * h * n * n * (10 * d + 5))
+            layers = 1 if q_dtype == bf else n_layers - 1
+            row = dict(n=n, d=d, B=B, q_dtype=str(q_dtype).replace("torch.", ""),
+                       per_step=layers if (n, d, B) == (n2, d2, TRAIN_CLI_DEPTH_BATCH) else 0, rel_err_of_max=errs,
+                       bitwise_equal_rerun=True,
+                       max_abs_err=max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)),
+                       ms=cold_ms(lambda: attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, o, dout)),
+                       plain_ms=cold_ms(lambda: attention_kernel.rows_biased_attention_backward_bf16(
+                           q, k, v, bias, o, dout), iters=5),
+                       library_ms=cold_ms(lambda: y.backward(dy16, retain_graph=True), iters=5),
+                       bound_ms=b_ms, bound_by=b_by)
+            bwd_rows.append(row)
+            print("attention_bwd_rows_bf16 " + json.dumps(row))
+            del q, k, v, bias, dout, o, got, again, ref, qs, ks, vs, bs, y
+    out["attention_bwd_rows_bf16_shapes"] = bwd_rows
+    out["kernel_checks_seconds"] = time.perf_counter() - t_phase
+
+    # ---- (d) bf16 serving of a 42-keypoint model ----------------------------
+    cfg42 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, num_classes=DEPTH_CLASSES))
+    model_cpu = create_model(cfg42.model, device="cpu", seed=0)
+    perturb_zero_init(model_cpu, torch.Generator().manual_seed(1))
+    model16 = bf16_inference_model(copy.deepcopy(model_cpu).to(dev))
+    model16_cpu = bf16_inference_model(model_cpu)
+    del model_cpu
+    H, W = cfg.model.input_res
+    Ho, Wo = cfg.model.output_res
+    g = torch.Generator().manual_seed(12)
+    centers = torch.rand(DEPTH_CLASSES, 2, generator=g) * torch.tensor([Wo - 10.0, Ho - 10.0]) + 5.0
+    cls = geometry.render_gaussian_heatmap(centers, torch.ones(DEPTH_CLASSES), Ho, Wo, per_class=True)
+    inputs = [torch.randn(1, H, W, 3, generator=g), torch.randn(1, H, W, 3, generator=g),
+              torch.rand(1, H, W, 1, generator=g), torch.rand(1, H, W, 1, generator=g),
+              cls.permute(1, 2, 0)[None].contiguous(), cls.roll(3, dims=2).permute(1, 2, 0)[None].contiguous()]
+    frame_launches = dict(no_launches, biased_attention_tiled_bf16=n_layers, biased_attention_bf16=2 * n_layers,
+                          deform_conv_bf16=16)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        heads_cpu = {k: v.float() for k, v in model16_cpu(*[x.to(bf) for x in inputs]).items()}
+        cpu_s = time.perf_counter() - t0
+        build.reset_launch_counts()
+        heads = {k: v.float() for k, v in model16(*[x.to(dev, bf) for x in inputs]).items()}
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+    del model16_cpu
+    if counts != frame_launches:
+        raise AssertionError(f"42-keypoint bf16 forward launches {counts}, expected {frame_launches}")
+    fwd = {"cpu_seconds": cpu_s, "launches": counts}
+    for key in ("hm", "reg", "tracking"):
+        a, b = heads[key].cpu(), heads_cpu[key]
+        if a.shape != (1, Ho, Wo, b.shape[-1]) or not torch.isfinite(a).all():
+            raise AssertionError(f"42-keypoint bf16 forward {key}: shape {tuple(a.shape)} or non-finite values")
+        ulp = 2.0 ** (math.floor(math.log2(max(b.abs().max().item(), 1e-30))) - 7)
+        vs_cpu = (a - b).abs().max().item()
+        fwd[key] = {"card_vs_cpu_max_abs_err": vs_cpu, "bf16_ulp_at_cpu_max": ulp, "card_vs_cpu_ulps": vs_cpu / ulp}
+        if vs_cpu > BF16_CARD_VS_CPU_ULPS * ulp:
+            raise AssertionError(f"42-keypoint bf16 forward {key}: card vs CPU bf16 {vs_cpu} "
+                                 f"(bar {BF16_CARD_VS_CPU_ULPS} x {ulp})")
+    if heads["hm"].shape[-1] != DEPTH_CLASSES:
+        raise AssertionError(f"42-keypoint heads {heads['hm'].shape}")
+    print("forward 480x480 42-keypoint bf16 card vs cpu: " + json.dumps(fwd))
+    out["forward_bf16"] = fwd
+    del heads, heads_cpu
+
+    T = BF16_DEPTH_FRAMES
+    raw_hw = (synthetic.RAW_H, synthetic.RAW_W)
+    projs, raw = synthetic.make_sequence(torch.Generator().manual_seed(30), T, n_kp=DEPTH_CLASSES, device=dev)
+    images, _, _ = det_lib.preprocess_frames(raw, cfg42)
+    x3d = synthetic.robot_skeleton(DEPTH_CLASSES, dev)[None].expand(T, -1, -1).contiguous()
+    video = det_lib.VideoFrames(images=images, x3d=x3d, init_kps=projs[0])
+    timer = StageTimer()
+    exact = det_lib.make_video_detector(model16, cfg42, synthetic.camera_K(dev), raw_hw, device=dev,
+                                        stage_timer=timer)
+    exact(slice_frames(video, 2))
+    torch.cuda.synchronize()
+    timer.reset()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = exact(video)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    expect = {kn: n * T for kn, n in frame_launches.items()}
+    if counts != expect:
+        raise AssertionError(f"42-keypoint bf16 exact runner launches {counts}, expected {expect}")
+    check_result(res, {"detected_kps": (T, DEPTH_CLASSES, 2), "scores": (T, DEPTH_CLASSES),
+                       "tracking": (T, DEPTH_CLASSES, 2)})
+    out["serving"] = {"frames": T, "wall_s": wall, "fps": T / wall, "stage_ms_per_frame": timer.per_frame_ms(T),
+                      "launches": counts,
+                      "valid_detections": int((res.detected_kps > det_lib.KP_SENTINEL).all(-1).sum())}
+    print("detector 42-keypoint bf16 exact: " + json.dumps(out["serving"]))
+    del model16, exact, res, video, images, raw
+
+    # ---- (e) cli/train.main --depth --bf16 on phase 13 (B)'s set ------------
+    calls = []
+    real = _counting_calls(trainer, ("train_step", "predict_step"), calls)
+    timer = StageTimer()
+    exp = os.path.join(work, "train_depth_bf16_exp")
+    try:
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_cli.main(["--dataset", os.path.join(work, "train_depth", "panda-depth"), "--depth", "--bf16",
+                              "--output_dir", exp, "--num_epochs", "1", "--batch_size", str(TRAIN_CLI_DEPTH_BATCH),
+                              "--log_every", "1", "--image_log_every", "1", "--device", "cuda"], stage_timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(trainer, name, fn)
+    # the train step in bf16; the mosaics' forward on the float32 parameters
+    step_expect = dict(no_launches, biased_attention_tiled_bf16=n_layers, biased_attention_bf16=2 * n_layers,
+                       biased_attention_bwd_rows_bf16=n_layers, deform_conv_bf16=16, deform_conv_dgrad_bf16=16,
+                       deform_conv_wgrad_bf16=16)
+    fwd32 = dict(no_launches, biased_attention=n_layers, biased_attention_tiled=2 * n_layers, deform_conv=16)
+    expect = {"train_step": step_expect, "predict_step": fwd32}
+    by_kind = {}
+    for kind, launched in calls:
+        if launched != expect[kind]:
+            raise AssertionError(f"train cli --bf16 --depth: a {kind} call launched {launched}, expected "
+                                 f"{expect[kind]}")
+        by_kind[kind] = by_kind.get(kind, 0) + 1
+    counts = build.launch_counts()
+    total = {kn: sum(launched[kn] for _, launched in calls) for kn in counts}
+    if counts != total or by_kind != {"train_step": 2, "predict_step": 2} or res["state"].step != 2:
+        raise AssertionError(f"train cli --bf16 --depth: calls {by_kind}, launches {counts} (in the calls: {total})")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if (res["state"].model.cfg.num_classes != DEPTH_CLASSES or not os.path.exists(os.path.join(exp, "ckpt", "epoch_1.pt"))
+            or not all(math.isfinite(r[k]) for r in recs for k in ("tot", "hm", "reg", "tracking"))):
+        raise AssertionError(f"train cli --bf16 --depth: records {recs}")
+    stage_ms = timer.per_frame_ms(2)
+    step_ms = sum(stage_ms.get(st, 0.0) for st in CLI_STAGES)
+    out["train_cli"] = {"steps": 2, "batch": TRAIN_CLI_DEPTH_BATCH, "calls": by_kind, "wall_s_with_setup": wall,
+                        "launches": counts, "stage_ms_per_step": {st: stage_ms.get(st, 0.0) for st in CLI_STAGES},
+                        "stage_ms_by_call": {st: [s_.elapsed_time(e_) for n_, s_, e_ in timer.events if n_ == st]
+                                             for st in CLI_STAGES},
+                        "step_ms": step_ms, "steps_per_s": 1e3 / step_ms, "records": recs,
+                        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("train cli --bf16 --depth: " + json.dumps(out["train_cli"]))
+    del res
+
+    # ---- (f) make_sharded_video_detector as one rank ------------------------
+    sharded = det_lib.make_sharded_video_detector(serving["model"], cfg, serving["K"], serving["raw_hw"], device=dev)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sharded(serving["videos"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    expect = {kn: n * T_FRAMES for kn, n in serving["per_frame_launches"].items()}
+    if counts != expect:
+        raise AssertionError(f"sharded runner, one rank: launches {counts}, expected {expect}")
+    ref = serving["batched_result"]
+    diffs = {f: (getattr(res, f) - getattr(ref, f)).abs().max().item() for f in ("detected_kps", "scores", "tracking")}
+    equal = all(torch.equal(getattr(res, f), getattr(ref, f)) for f in diffs)
+    if not all(math.isfinite(x) and x <= 1e-4 for x in diffs.values()):
+        raise AssertionError(f"sharded runner, one rank, vs the batched runner: max abs differences {diffs}")
+    out["sharded_one_rank"] = {"videos": N_VIDEOS, "frames": T_FRAMES, "wall_s": wall,
+                               "fps": N_VIDEOS * T_FRAMES / wall, "launches": counts,
+                               "max_abs_diff_vs_batched": diffs, "bitwise_equal_to_batched": equal}
+    print("sharded runner, one rank, 8 videos: " + json.dumps(out["sharded_one_rank"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"bf16 --depth phase: {out['seconds']:.1f} s")
+    return out
+
+
+def bf16_depth_kernel_rows(depth, per_sum):
+    """The kernels-line entries of phase 17's kernels A and B: A per frame of
+    the 42-keypoint bf16 exact run (its launches), B per --bf16 --depth step
+    of the CLI run (its launches)."""
+    tiled = depth["attention_tiled_bf16_shapes"]
+    rows = depth["attention_bwd_rows_bf16_shapes"]
+    note_fwd = "F.scaled_dot_product_attention in bf16 with a float mask"
+    a_launches = depth["serving"]["launches"]["biased_attention_tiled_bf16"]
+    b_launches = depth["train_cli"]["launches"]["biased_attention_bwd_rows_bf16"]
+    return [
+        {"name": "biased_attention_tiled_bf16", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/biased_attention.cu",
+         "replaces": "sgtapose_tpu/ops/attention_kernel.py:108", "launches": a_launches,
+         "launches_per_frame": a_launches / depth["serving"]["frames"],
+         "max_abs_err": max(r["max_abs_err"] for r in tiled),
+         "ms": per_sum(tiled, "ms"), "warm_ms": per_sum(tiled, "warm_ms"), "clean_ms": per_sum(tiled, "clean_ms"),
+         "plain_ms": per_sum(tiled, "plain_ms"), "bound_ms": per_sum(tiled, "bound_ms"),
+         "bound_by": tiled[0]["bound_by"], "bound_rate": "3.35 TB/s HBM" if tiled[0]["bound_by"] == "bytes"
+         else "67 TFLOP/s float32 FMA", "library_ms": per_sum(tiled, "library_ms"), "library_ms_note": note_fwd,
+         "ms_per_depth_step": per_sum(tiled, "ms", "per_step"),
+         "train_cli_launches_per_step": depth["train_cli"]["launches"]["biased_attention_tiled_bf16"] / 2,
+         "shapes_note": "level 0 of a 42-keypoint model, (7098, 4), bf16, per frame (3 tied layers)"},
+        {"name": "biased_attention_bwd_rows_bf16", "route": "cuda",
+         "source": "sgtapose_tpu_torch/csrc/biased_attention_bwd.cu",
+         "replaces": "sgtapose_tpu/ops/attention_kernel.py:145", "launches": b_launches,
+         "launches_per_depth_step": b_launches / depth["train_cli"]["steps"],
+         "max_abs_err": max(r["max_abs_err"] for r in rows),
+         "ms": per_sum(rows, "ms", "per_step"), "plain_ms": per_sum(rows, "plain_ms", "per_step"),
+         "bound_ms": per_sum(rows, "bound_ms", "per_step"), "bound_by": rows[2]["bound_by"],
+         "bound_rate": "3.35 TB/s HBM" if rows[2]["bound_by"] == "bytes" else "67 TFLOP/s float32 FMA",
+         "library_ms": per_sum(rows, "library_ms", "per_step"),
+         "library_ms_note": "backward of F.scaled_dot_product_attention in bf16 with a float mask",
+         "ms_per_launch": {f"{r['n']},{r['d']},B={r['B']},q={r['q_dtype']}": r["ms"] for r in rows},
+         "shapes_note": "level 2 of a 42-keypoint model, (378, 16), at --bf16 --depth's batch of 2, per step"},
+    ]
 
 
 def conv_macs(torch, model, x) -> int:

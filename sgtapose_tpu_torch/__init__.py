@@ -9,19 +9,22 @@ JAX package:
   core/       geometry, masked EPnP + LM PnP solver (batched over videos or
               frames), the eval harness's weighted refinement
   models/     DLA-34 trunk, DCNv2 decoder, windowed cross-attention, SGTAPose
-  ops/        hand-written CUDA kernels (csrc/*.cu: forward in float32 and
-              bf16, backward in float32): the nvcc build, the ctypes
-              bindings and the launch counters
+  ops/        hand-written CUDA kernels (csrc/*.cu: forward and backward in
+              float32 and bf16): the nvcc build, the ctypes bindings and the
+              launch counters
   decode/     peak finding + sub-pixel decode (batched over videos)
-  infer/      streaming video detectors: exact, feature-cache, batched; the
-              tracker's association pass
+  infer/      streaming video detectors: exact, feature-cache, batched,
+              sharded over the ranks of a process group; the tracker's
+              association pass
   eval/       metrics, set-level analysis, the synthetic-video harness
   data/       synthetic sequences and the on-disk fixture writers, the
               dataset loaders and discovery, the threaded batch loader, the
               training-batch pipeline
-  train/      loss, schedules, phases, the float32 trainer and validation
+  train/      loss, schedules, phases, the trainer (float32, bf16) and validation
   parallel/   data-parallel ranks (torch.distributed): global-batch
-              BatchNorm and dropout, the gradient mean
+              BatchNorm and dropout, the gradient mean; the two-process
+              dry run
+  native/     the float64 C++ LM pose refiner (built by g++ at first use)
   cli/        train_demo, train and infer (datasets on disk)
   utils/      flax-variable and train-state loader, bf16 serving (precision.py),
               the debug images (debugger.py, visualize.py), StageTimer,

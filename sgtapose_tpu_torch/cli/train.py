@@ -48,12 +48,14 @@ fails on the shapes. --init_backbone X.pth loads a bare ImageNet DLA-34
 state dict into the trunk (`utils/torch_convert.convert_imagenet_dla34`;
 with --init_backbone_stem also into the image stem) before --resume.
 
+--bf16 --depth trains a 42-keypoint model in bf16: on the card its level 0
+attention runs the bf16 key-tiled forward, levels 1 and 2 the bf16
+shared-memory one, and level 2's backward the bf16 row-split path.
+
 Not ported yet, and raising NotImplementedError with the ROADMAP.md Queue 1
-item that brings each: --dcn_chunks > 1 and --dcn_remat (9), --bf16 with
---depth (10: a 42-keypoint model's levels 0 and 1 need a bf16 key-tiled
-forward, its level 2 the two-pass bf16 backward). An orbax checkpoint
-directory as --resume raises with the two commands that convert it
-(`cli/convert.py`).
+item that brings each: --dcn_chunks > 1 and --dcn_remat (9). An orbax
+checkpoint directory as --resume raises with the two commands that convert
+it (`cli/convert.py`).
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ import torch
 from sgtapose_tpu_torch import resolve_device
 from sgtapose_tpu_torch.cli.infer import FLAGSHIP_ARCH, orbax_route
 from sgtapose_tpu_torch.config import (IMAGE_MEAN, IMAGE_STD, KEYPOINT_NAMES, SYNTHETIC_CAMERA_K, Config,
-                                       ModelConfig, TrainConfig)
+                                       MeshConfig, ModelConfig, TrainConfig)
 from sgtapose_tpu_torch.data.discovery import (find_depth_seq_data_in_dir, find_ndds_seq_data_in_dir,
                                                find_ndds_seq_triples_in_dir)
 from sgtapose_tpu_torch.data.loader import SeqBatchLoader, TripleBatchLoader
@@ -124,7 +126,7 @@ def parse_args(argv=None):
                    help="42-joint depth-variant training (flat png+json dir)")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mixed-precision training (float32 masters, loss and gradients; "
-                        "validation in float32); not with --depth yet")
+                        "validation in float32)")
     p.add_argument("--phase", default="PlanA_win",
                    help="training phase (train/phases.py): PlanA_win | PlanA_three | PlanA | PlanACAT | "
                         "ablation_* | CenterTrack | CenterNet | Dream")
@@ -146,7 +148,6 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     unported = [
-        ("--bf16 --depth", args.bf16 and args.depth, 10),
         ("--dcn_chunks > 1", args.dcn_chunks > 1, 9),
         ("--dcn_remat", args.dcn_remat, 9),
     ]
@@ -164,6 +165,7 @@ def build_config(args) -> Config:
         train=TrainConfig(lr=args.lr, seed=args.seed, hm_disturb=args.hm_disturb,
                           lost_disturb=args.lost_disturb, fp_disturb=args.fp_disturb,
                           fp_disturb_active=args.fp_disturb_active),
+        mesh=MeshConfig(num_devices=args.num_devices),
         robot=args.robot,
     )
 
@@ -207,15 +209,16 @@ def main(argv=None, stage_timer=None):
         mesh.initialize_multihost(args.coordinator, args.num_processes, args.process_id, dev)
         dev = mesh.local_device(dev)
     world, rank = mesh.world_size(), mesh.rank()
-    if args.num_devices is not None and args.num_devices != world:
-        raise SystemExit(f"--num_devices {args.num_devices}: the port runs one rank per card, and this "
-                         f"run has {world} rank(s)")
+    cfg = build_config(args)
+    try:
+        mesh.check_num_devices(cfg.mesh.num_devices)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     # float32 training (and bf16 training's float32 parts) means float32:
     # cuDNN convolutions default to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timed = stage_timer or (lambda name: contextlib.nullcontext())
-    cfg = build_config(args)
     rank0 = rank == 0
     logger = MetricsLogger(args.output_dir if rank0 else None, resume=bool(args.resume))
     print(f"ranks={world} batch per rank={args.batch_size} global batch={args.batch_size * world} on {dev}")

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 KEYPOINT_NAMES = {
     "panda": [
@@ -125,12 +125,28 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data-parallel layout (`parallel/mesh.py`): the number of ranks,
+    one card each, that a run expects (None: every process of the run);
+    `parallel/mesh.check_num_devices` holds the process group to it. JAX's
+    MeshConfig also names its mesh axis ("data"); a process group has no
+    axis names, so the port has no such field."""
+
+    num_devices: Optional[int] = None
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     infer: InferConfig = field(default_factory=InferConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     robot: str = "panda_synthetic"
 
     @property
     def keypoint_names(self) -> Sequence[str]:
         return KEYPOINT_NAMES[self.robot]
+
+
+def default_config() -> Config:
+    return Config()

@@ -605,3 +605,16 @@ def register_gn(x2d, x3d, quat_init, trans_init, weights, K,
         lam = torch.where(active, new_lam, lam)
         delta_sum = torch.where(active, new_sum, delta_sum)
     return params[:4], params[4:]
+
+
+def reprojection_weights(x2d, x3d, quat, trans, K, valid=None) -> torch.Tensor:
+    """Confidence weights w = exp(-5 d) per coordinate, d the squared
+    deviation of a detection from its reprojection under the pose (quat,
+    trans), the JAX `reprojection_weights` (the reference's get_weights on
+    squared distances). x2d (N, 2), x3d (N, 3) -> (N, 2); rows not `valid`
+    get weight 0."""
+    proj = geometry.project_points(x3d, geometry.quat_to_matrix(quat), trans, K)
+    w = torch.exp(-5.0 * (proj - x2d) ** 2)
+    if valid is not None:
+        w = w * valid[:, None].to(w.dtype)
+    return w

@@ -4,7 +4,10 @@
 // (biased_attention_nobias_fwd, biased_attention_nobias_bf16_fwd: the
 // plain MHA of the global-attention variant SGTAPoseGlobal,
 // sgtapose_tpu/models/variants.py:222-274, at (n, d) = (28, 4 ... 128)),
-// a compile-time flag that reads no bias and stages no bias span.
+// a compile-time flag that reads no bias and stages no bias span. Beyond
+// the n this design holds in shared memory, a key-tiled design (below), in
+// the same two precisions (biased_attention_tiled_fwd,
+// biased_attention_tiled_bf16_fwd).
 //
 // Replaces the Pallas TPU kernel sgtapose_tpu/ops/attention_kernel.py:55-116
 // (_fwd_kernel, called from _fwd at :108, reached by fused_biased_attention
@@ -459,41 +462,51 @@ int fwd(const void* q, const void* k, const void* v, const void* bias, void* out
   return (int)cudaErrorInvalidValue;
 }
 
-// ---- key-tiled float32 forward: any n ----------------------------------
+// ---- key-tiled forward: any n, float32 and bf16 --------------------------
 // The design above holds a head's whole K and V and a tile's whole bias rows
-// in shared memory, which caps n (about 2400 at d = 4, 1800 at d = 8). A
-// 42-keypoint model at the flagship windows has n = 42 x 13^2 = 7098 at
-// level 0 (d = 4) and 42 x 7^2 = 2058 at level 1 (d = 8): its bias alone is
-// 1.6 GB. There the work is still reading the bias once, so this kernel
-// streams it straight from device memory, one coalesced 128-byte read per
-// warp and 32 keys, and stages only K and V, in chunks of kTileKeys keys
-// shared by the block's 8 rows. One block per (batch, head, 8 query rows),
-// one warp per row, lane t taking keys t, t+32, ... as above. Each lane runs
-// an online softmax over the chunks: per chunk it takes its own max of the
-// chunk's logits (held in registers), rescales its running sums once when
-// the max grows, and adds p = 2^(s log2 e - max log2 e) and p v; the lanes'
-// sums are merged at the end relative to the row max. One exponential per
-// element, plus one per lane and chunk.
+// in shared memory, which caps n (about 2400 at d = 4, 1800 at d = 8 in
+// float32; twice that in bf16). A 42-keypoint model at the flagship windows
+// has n = 42 x 13^2 = 7098 at level 0 (d = 4) and 42 x 7^2 = 2058 at level 1
+// (d = 8): its bias alone is 1.6 GB in float32. There the work is still
+// reading the bias once, so this kernel streams it straight from device
+// memory, one coalesced read per warp and 32 keys (128 bytes in float32, 64
+// in bf16), and stages only K and V, widened to float32, in chunks of
+// kTileKeys keys shared by the block's 8 rows. One block per (batch, head,
+// 8 query rows), one warp per row, lane t taking keys t, t+32, ... as
+// above. Each lane runs an online softmax over the chunks: per chunk it
+// takes its own max of the chunk's logits (held in registers), rescales its
+// running sums once when the max grows, and adds p = 2^(s log2 e - max
+// log2 e) and p v; the lanes' sums are merged at the end relative to the row
+// max. One exponential per element, plus one per lane and chunk.
+// Two instantiations: float32 (biased_attention_tiled_fwd, levels 0 and 1 of
+// a float32 42-keypoint model) and bf16 serving and training
+// (biased_attention_tiled_bf16_fwd, level 0 of a bf16 42-keypoint model,
+// whose level 1 fits the bf16 shared-memory kernel): bf16 k, v and bias, q
+// bf16 or float32, with the rounding points of the bf16 kernel above (the
+// q.k logit rounded to bf16 when q is bf16; the scale, the bias add, the
+// softmax and p.v in float32; a float32 output). In bf16 the bias stream,
+// the whole of the work, is half as many bytes.
 constexpr int kTileKeys = 256;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    biased_attention_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                  const float* __restrict__ v, const float* __restrict__ bias,
-                                  float* __restrict__ out, int heads, int n, int tiles,
-                                  float scale) {
+// T: element of k, v and bias (float, or bf16 as uint16_t); TQ: of q
+template <int D, typename T, typename TQ>
+__device__ __forceinline__ void tiled_body(const TQ* __restrict__ q, const T* __restrict__ k,
+                                           const T* __restrict__ v, const T* __restrict__ bias,
+                                           float* __restrict__ out, int heads, int n, int tiles,
+                                           float scale) {
+  constexpr bool kRound = sizeof(T) == 2 && sizeof(TQ) == 2;
   extern __shared__ __align__(16) float tile_smem[];
-  float* ks = tile_smem;  // [kTileKeys][D]
+  float* ks = tile_smem;  // [kTileKeys][D], float32
   float* vs = tile_smem + kTileKeys * D;
   const int bh = blockIdx.x / tiles;
   const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
   const int i = (blockIdx.x % tiles) * RS + warp;
   const int row = min(i, n - 1);  // a warp past n computes a copy and stores nothing
   float qr[D];
-  load_row<D, float, true>(reinterpret_cast<const unsigned char*>(q + ((size_t)bh * n + row) * D), qr);
-  const float* brow = bias + ((size_t)(bh % heads) * n + row) * n;
-  const float4* kg = reinterpret_cast<const float4*>(k + (size_t)bh * n * D);
-  const float4* vg = reinterpret_cast<const float4*>(v + (size_t)bh * n * D);
+  load_row<D, TQ, true>(reinterpret_cast<const unsigned char*>(q + ((size_t)bh * n + row) * D), qr);
+  const T* brow = bias + ((size_t)(bh % heads) * n + row) * n;
+  const T* kg = k + (size_t)bh * n * D;
+  const T* vg = v + (size_t)bh * n * D;
 
   float m = -INFINITY, l = 0.f, acc[D];
 #pragma unroll
@@ -501,9 +514,17 @@ __global__ void __launch_bounds__(kThreads)
   for (int j0 = 0; j0 < n; j0 += kTileKeys) {
     const int cnt = min(kTileKeys, n - j0);
     __syncthreads();  // the previous chunk's K and V are read
+    // groups of 4 elements: 16-byte lines in float32, 8-byte ones in bf16
     for (int e = threadIdx.x; e < cnt * D / 4; e += kThreads) {
-      reinterpret_cast<float4*>(ks)[e] = kg[j0 * D / 4 + e];
-      reinterpret_cast<float4*>(vs)[e] = vg[j0 * D / 4 + e];
+      if constexpr (sizeof(T) == 4) {
+        reinterpret_cast<float4*>(ks)[e] = reinterpret_cast<const float4*>(kg)[j0 * D / 4 + e];
+        reinterpret_cast<float4*>(vs)[e] = reinterpret_cast<const float4*>(vg)[j0 * D / 4 + e];
+      } else {
+        const uint2 wk = __ldg(reinterpret_cast<const uint2*>(kg) + j0 * D / 4 + e);
+        const uint2 wv = __ldg(reinterpret_cast<const uint2*>(vg) + j0 * D / 4 + e);
+        reinterpret_cast<float4*>(ks)[e] = make_float4(bf_lo(wk.x), bf_hi(wk.x), bf_lo(wk.y), bf_hi(wk.y));
+        reinterpret_cast<float4*>(vs)[e] = make_float4(bf_lo(wv.x), bf_hi(wv.x), bf_lo(wv.y), bf_hi(wv.y));
+      }
     }
     __syncthreads();
     float s[kTileKeys / 32];
@@ -513,8 +534,8 @@ __global__ void __launch_bounds__(kThreads)
       const int j = 32 * u + lt;
       s[u] = -INFINITY;
       if (j < cnt) {
-        s[u] = logit<D, float, false>(qr, reinterpret_cast<const unsigned char*>(ks + j * D), scale,
-                                      __ldg(brow + j0 + j));
+        s[u] = logit<D, float, kRound>(qr, reinterpret_cast<const unsigned char*>(ks + j * D), scale,
+                                       to_float(__ldg(brow + j0 + j)));
         cm = fmaxf(cm, s[u]);
       }
     }
@@ -561,21 +582,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// one kernel name per precision, as profilers list them
 template <int D>
-int launch_tiled(const float* q, const float* k, const float* v, const float* bias, float* out, int B,
-                 int heads, int n, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    biased_attention_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ bias,
+                                  float* __restrict__ out, int heads, int n, int tiles,
+                                  float scale) {
+  tiled_body<D, float, float>(q, k, v, bias, out, heads, n, tiles, scale);
+}
+
+template <int D, typename TQ>
+__global__ void __launch_bounds__(kThreads)
+    biased_attention_tiled_bf16_kernel(const TQ* __restrict__ q, const uint16_t* __restrict__ k,
+                                       const uint16_t* __restrict__ v,
+                                       const uint16_t* __restrict__ bias, float* __restrict__ out,
+                                       int heads, int n, int tiles, float scale) {
+  tiled_body<D, uint16_t, TQ>(q, k, v, bias, out, heads, n, tiles, scale);
+}
+
+template <int D, typename T, typename TQ>
+int launch_tiled(const TQ* q, const T* k, const T* v, const T* bias, float* out, int B, int heads,
+                 int n, cudaStream_t stream) {
   const int tiles = (n + RS - 1) / RS;
   const long long items = (long long)B * heads * tiles;
   if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  auto kern = [] {
+    if constexpr (sizeof(T) == 4) return biased_attention_tiled_kernel<D>;
+    else return biased_attention_tiled_bf16_kernel<D, TQ>;
+  }();
   const int smem = 2 * kTileKeys * D * (int)sizeof(float);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(biased_attention_tiled_kernel<D>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  biased_attention_tiled_kernel<D><<<(int)items, kThreads, smem, stream>>>(
-      q, k, v, bias, out, heads, n, tiles, 1.f / sqrtf((float)D));
+  kern<<<(int)items, kThreads, smem, stream>>>(q, k, v, bias, out, heads, n, tiles,
+                                               1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename TQ>
+int fwd_tiled(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
+              int heads, int n, int d, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  // q rows are read as 8- or 16-byte vectors, K and V in groups of 4
+  // elements; the bias in elements
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(bias) & (sizeof(T) - 1)) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const TQ* qt = static_cast<const TQ*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* bt = static_cast<const T*>(bias);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 4: return launch_tiled<4, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 8: return launch_tiled<8, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 16: return launch_tiled<16, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    case 32: return launch_tiled<32, T, TQ>(qt, kt, vt, bt, of, B, heads, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -612,22 +680,14 @@ extern "C" int biased_attention_nobias_bf16_fwd(const void* q, const void* k, co
 extern "C" int biased_attention_tiled_fwd(const void* q, const void* k, const void* v,
                                           const void* bias, void* out, int B, int heads, int n,
                                           int d, void* stream) {
-  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v)) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(bias) & 3) != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* bf = static_cast<const float*>(bias);
-  float* of = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 4: return launch_tiled<4>(qf, kf, vf, bf, of, B, heads, n, s);
-    case 8: return launch_tiled<8>(qf, kf, vf, bf, of, B, heads, n, s);
-    case 16: return launch_tiled<16>(qf, kf, vf, bf, of, B, heads, n, s);
-    case 32: return launch_tiled<32>(qf, kf, vf, bf, of, B, heads, n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fwd_tiled<float, float>(q, k, v, bias, out, B, heads, n, d, stream);
+}
+
+// bf16 k, v, bias, any n: the key-tiled kernel's bf16 instantiation; q_bf16
+// as in biased_attention_bf16_fwd; float32 out
+extern "C" int biased_attention_tiled_bf16_fwd(const void* q, const void* k, const void* v,
+                                               const void* bias, void* out, int B, int heads,
+                                               int n, int d, int q_bf16, void* stream) {
+  if (q_bf16) return fwd_tiled<uint16_t, uint16_t>(q, k, v, bias, out, B, heads, n, d, stream);
+  return fwd_tiled<uint16_t, float>(q, k, v, bias, out, B, heads, n, d, stream);
 }

@@ -4,8 +4,9 @@
 //   O = softmax(S) v,   S = q k^T / sqrt(d) + bias
 // with respect to q, k, v (B, heads, n, d) and the (heads, n, n) bias shared
 // across the batch, given dO (B, heads, n, d) and the forward's output O.
-// float32 (biased_attention_bwd), and bf16 training's instantiation of the
-// cluster path (biased_attention_bwd_bf16): bf16 k, v and bias, q bf16 or
+// float32 (biased_attention_bwd), and bf16 training's instantiations of the
+// cluster path (biased_attention_bwd_bf16) and of the row-split path
+// (biased_attention_bwd_rows_bf16): bf16 k, v and bias, q bf16 or
 // float32, O and dO float32, float32 arithmetic inside, each output rounded
 // once (with a bf16 q the q.k logit and its cotangent dS / sqrt(d) are
 // rounded as the JAX default attention's autodiff rounds them under bf16:
@@ -702,8 +703,12 @@ struct Folded<N, 0> {
 // tile, and after a cluster barrier each rank adds the ranks' partials in
 // rank order through distributed shared memory for a band of keys and
 // writes those rows of dk and dv once. The dbias rows are written once at
-// the end. lse and D never leave the block. TQ / TKV as in cluster_body
-// (float32 training instantiates <float, float> only).
+// the end. lse and D never leave the block. TQ / TKV as in cluster_body:
+// float32 training runs <float, float> (biased_attention_bwd_rows), bf16
+// training <bf16, bf16> and <float, bf16> (biased_attention_bwd_rows_bf16,
+// a 42-keypoint model's level 2 under --bf16 --depth). K, V and the rank's
+// rows are staged as float32 either way, so both share one shared-memory
+// layout; dbias is rounded once after its b-ordered float32 sum.
 template <int D, typename TQ, typename TKV>
 __device__ __forceinline__ void rows_body(const TQ* __restrict__ q, const TKV* __restrict__ k,
                                           const TKV* __restrict__ v, const TKV* __restrict__ bias,
@@ -961,14 +966,31 @@ __global__ void __launch_bounds__(kRThreads)
   rows_body<D, float, float>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
 }
 
-template <int D>
-int launch_rows(const float* q, const float* k, const float* v, const float* bias, const float* out,
-                const float* dout, float* dq, float* dk, float* dv, float* dbias, int B, int heads, int n,
+template <int D, typename TQ>
+__global__ void __launch_bounds__(kRThreads)
+    biased_attention_rows_bf16_bwd_kernel(const TQ* __restrict__ q, const uint16_t* __restrict__ k,
+                                          const uint16_t* __restrict__ v,
+                                          const uint16_t* __restrict__ bias,
+                                          const float* __restrict__ out, const float* __restrict__ dout,
+                                          TQ* __restrict__ dq, uint16_t* __restrict__ dk,
+                                          uint16_t* __restrict__ dv, uint16_t* __restrict__ dbias, int B,
+                                          int heads, int n, float scale) {
+  rows_body<D, TQ, uint16_t>(q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, scale);
+}
+
+template <int D, typename TQ, typename TKV>
+int launch_rows(const TQ* q, const TKV* k, const TKV* v, const TKV* bias, const float* out,
+                const float* dout, TQ* dq, TKV* dk, TKV* dv, TKV* dbias, int B, int heads, int n,
                 cudaStream_t stream) {
   const size_t smem = sizeof(float) * rows_floats(n, D);
   if (smem > 227 * 1024 || heads > 65535 || (n + kMaxCluster - 1) / kMaxCluster > kRowsMax)
     return (int)cudaErrorInvalidValue;
-  auto kern = biased_attention_rows_bwd_kernel<D>;
+  void (*kern)(const TQ*, const TKV*, const TKV*, const TKV*, const float*, const float*, TQ*, TKV*,
+               TKV*, TKV*, int, int, int, float);
+  if constexpr (sizeof(TKV) == 4)
+    kern = biased_attention_rows_bwd_kernel<D>;
+  else
+    kern = biased_attention_rows_bf16_bwd_kernel<D, TQ>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -1110,7 +1132,8 @@ extern "C" int biased_attention_bwd_rows(const void* q, const void* k, const voi
   switch (d) {
 #define CASE(DD)                                                                                   \
   case DD:                                                                                         \
-    return launch_rows<DD>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2], o[3], B, heads, n, s);
+    return launch_rows<DD, float, float>(a[0], a[1], a[2], a[3], a[4], a[5], o[0], o[1], o[2], o[3], B,  \
+                                         heads, n, s);
     CASE(4)
     CASE(8)
     CASE(16)
@@ -1157,6 +1180,46 @@ extern "C" int biased_attention_bwd_bf16(const void* q, const void* k, const voi
     CASE(8)
     CASE(16)
     CASE(32)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 training's backward on the row-split path (as biased_attention_bwd_rows:
+// d <= 16, rows_floats(n, d) * 4 bytes within a block's shared memory and
+// ceil(n / 8) <= 48, as at a 42-keypoint model's level 2, (378, 16)): the
+// arguments, types and outputs of biased_attention_bwd_bf16
+extern "C" int biased_attention_bwd_rows_bf16(const void* q, const void* k, const void* v,
+                                              const void* bias, const void* out, const void* dout,
+                                              void* dq, void* dk, void* dv, void* dbias, int B,
+                                              int heads, int n, int d, int q_bf16, void* stream) {
+  if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 7) != 0 ||
+      (reinterpret_cast<uintptr_t>(q) & (q_bf16 ? 7 : 15)) != 0 ||
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(dout)) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(bias) & 1) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  using bf = uint16_t;
+  const bf* kb = static_cast<const bf*>(k);
+  const bf* vb = static_cast<const bf*>(v);
+  const bf* bb = static_cast<const bf*>(bias);
+  const float* o = static_cast<const float*>(out);
+  const float* g = static_cast<const float*>(dout);
+  bf* dkb = static_cast<bf*>(dk);
+  bf* dvb = static_cast<bf*>(dv);
+  bf* dbb = static_cast<bf*>(dbias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define CASE(DD)                                                                                   \
+  case DD:                                                                                         \
+    return q_bf16 ? launch_rows<DD, bf, bf>(static_cast<const bf*>(q), kb, vb, bb, o, g,          \
+                                            static_cast<bf*>(dq), dkb, dvb, dbb, B, heads, n, s)   \
+                  : launch_rows<DD, float, bf>(static_cast<const float*>(q), kb, vb, bb, o, g,     \
+                                               static_cast<float*>(dq), dkb, dvb, dbb, B, heads, n, \
+                                               s);
+    CASE(4)
+    CASE(8)
+    CASE(16)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,11 @@
-"""Streaming video detectors: exact, feature-cache and batched.
+"""Streaming video detectors: exact, feature-cache, batched and sharded.
 
 Counterpart of `sgtapose_tpu/infer/detector.py`: `make_video_detector` (the
 `lax.scan` runner of `_build_video_runner`), `make_batched_video_detector`
-(its `vmap` over videos) and `make_cached_video_detector` (the feature-cache
-fast path of `_build_cached_video_runner`), as Python loops over frames with
+(its `vmap` over videos), `make_sharded_video_detector` (that batch of
+videos split over the ranks of a process group, one card each) and
+`make_cached_video_detector` (the feature-cache fast path of
+`_build_cached_video_runner`), as Python loops over frames with
 the same carry (`DetectorCarry`). Every runner steps a batch of V videos
 together (V = 1 for the single-video runners), each video with its own
 carry; each frame runs five stages over the whole batch:
@@ -48,6 +50,7 @@ from sgtapose_tpu_torch.config import IMAGE_MEAN, IMAGE_STD, Config
 from sgtapose_tpu_torch.core import geometry, pnp
 from sgtapose_tpu_torch.decode import peaks as decode_lib
 from sgtapose_tpu_torch.models.sgta import CHANNELS
+from sgtapose_tpu_torch.parallel import mesh
 from sgtapose_tpu_torch.utils.precision import param_dtype
 
 KP_SENTINEL = -999.999 * 4  # missing-detection marker
@@ -356,6 +359,34 @@ def make_batched_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int,
     over V and one batched PnP solve per frame step."""
     return BatchedVideoDetector(model, cfg, camera_K, raw_hw, device, debug_outputs=debug_outputs,
                                 stage_timer=stage_timer, phase=phase)
+
+
+def make_sharded_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int], device="cuda",
+                                phase: str = "PlanA_win", stage_timer=None):
+    """Multi-GPU serving: a batch of videos split over the ranks of the
+    process group (`parallel/mesh.py`; no group: one rank), the counterpart
+    of JAX's `make_sharded_video_detector`, which shards the batch over a
+    device mesh. fn(VideoFrames with a leading video dim V, the same batch
+    on every rank) -> FrameResult fields (V, T, ...) in video order on every
+    rank. Rank r runs the batched runner on its card (`model` is on it)
+    over its contiguous shard, videos [r V / R, (r + 1) V / R); the frame
+    loop has no collective; one all-gather per field at the end. Raises
+    ValueError when V is not divisible by the number of ranks R, and when
+    `cfg.mesh.num_devices` is set to another number than R."""
+    mesh.check_num_devices(cfg.mesh.num_devices)
+    runner = BatchedVideoDetector(model, cfg, camera_K, raw_hw, mesh.local_device(device),
+                                  stage_timer=stage_timer, phase=phase)
+
+    def run(videos: VideoFrames) -> FrameResult:
+        n, world = videos.images.shape[0], mesh.world_size()
+        if n % world:
+            raise ValueError(f"video batch {n} not divisible by the {world} ranks")
+        per = n // world
+        shard = slice(mesh.rank() * per, (mesh.rank() + 1) * per)
+        res = runner(VideoFrames(*(None if x is None else x[shard] for x in videos)))
+        return FrameResult(*(None if x is None else mesh.all_gather_cat(x) for x in res))
+
+    return run
 
 
 def make_cached_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int],

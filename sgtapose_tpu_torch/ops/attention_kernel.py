@@ -1,13 +1,15 @@
 """Biased attention softmax(q k^T / sqrt(d) + bias) v: the CUDA kernels
 (`csrc/biased_attention.cu`: one forward design instantiated for float32 and
 for bf16, which holds a head's K, V and a tile's bias rows in shared
-memory, and a key-tiled float32 forward for the n beyond that, as a
-42-keypoint model's levels 0 and 1 have; `csrc/biased_attention_bwd.cu`: the
-backward, one cluster launch where a (batch, head) problem fits in a
-block's shared memory, as at training's level 2, in float32 and in bf16;
-else, where a head's query rows split over a cluster's 8 ranks, one
-row-split cluster launch, as at a 42-keypoint model's level 2, float32
-only; else two passes, float32 only) and their plain PyTorch versions.
+memory, and a key-tiled forward, also float32 and bf16, for the n beyond
+that (`fits_smem`): a 42-keypoint model's levels 0 and 1 in float32, its
+level 0 in bf16, whose level 1 fits the bf16 shared-memory kernel;
+`csrc/biased_attention_bwd.cu`: the backward, one cluster launch where a
+(batch, head) problem fits in a block's shared memory, as at training's
+level 2, in float32 and in bf16; else, where a head's query rows split over
+a cluster's 8 ranks, one row-split cluster launch, as at a 42-keypoint
+model's level 2, in float32 and in bf16; else two passes, float32 only) and
+their plain PyTorch versions.
 
 Counterpart of `sgtapose_tpu/ops/attention_kernel.py:fused_biased_attention`
 (a Pallas TPU kernel) and of its custom VJP `_bwd_rule` (a recompute through
@@ -16,9 +18,9 @@ on the card its forward and backward always run kernels; the plain versions
 are what a CPU tensor gets, and what the kernels are held against. The
 backward saves the forward's output beside q, k, v and the bias, and
 recomputes the probabilities. Its dtype follows the forward's: float32, or
-bf16 training's (below) on the cluster path; a bf16 backward at an (n, d)
-beyond the cluster path raises on the card (ROADMAP.md Queue 1 item 10,
-`--bf16 --depth`).
+bf16 training's (below) on the cluster and row-split paths; a bf16 backward
+beyond both raises on the card (levels 0 and 1 of a 42-keypoint model, which
+feed no head, so autograd never differentiates them).
 
 bf16: the port follows the JAX package's DEFAULT attention form
 (`fused_attention=False`, `sgtapose_tpu/models/attention.py:175-180`), which
@@ -56,9 +58,11 @@ from sgtapose_tpu_torch.ops import build
 KERNEL = "biased_attention"
 KERNEL_BF16 = "biased_attention_bf16"
 KERNEL_TILED = "biased_attention_tiled"
+KERNEL_TILED_BF16 = "biased_attention_tiled_bf16"
 BWD_KERNEL = "biased_attention_bwd"
 BWD_KERNEL_BF16 = "biased_attention_bwd_bf16"
 BWD_KERNEL_ROWS = "biased_attention_bwd_rows"
+BWD_KERNEL_ROWS_BF16 = "biased_attention_bwd_rows_bf16"
 KERNEL_NOBIAS = "biased_attention_nobias"
 KERNEL_NOBIAS_BF16 = "biased_attention_nobias_bf16"
 BWD_KERNEL_NOBIAS = "biased_attention_bwd_nobias"
@@ -86,8 +90,9 @@ def kernel_smem_bytes(n: int, d: int, elem_bytes: int = 4, bias: bool = True) ->
 
 
 def fits_smem(n: int, d: int, elem_bytes: int = 4) -> bool:
-    """Whether the shared-memory kernel takes (n, d); beyond it float32 runs
-    the key-tiled kernel."""
+    """Whether the shared-memory kernel takes (n, d) in float32 (elem_bytes
+    4) or bf16 (2); beyond it the key-tiled kernel of the same precision
+    runs."""
     return kernel_smem_bytes(n, d, elem_bytes) <= _SMEM_LIMIT
 
 
@@ -189,14 +194,33 @@ def key_tiled_attention(q, k, v, bias, tile_keys: int = TILE_KEYS):
     by 2^((old max - new max) log2 e) and adds the chunk's terms relative to
     the new max; the lanes' sums are merged relative to the row max. Same
     function as `plain_biased_attention`."""
-    d, n = q.shape[-1], q.shape[-2]
+    s = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(q.shape[-1]) + bias
+    return _key_tiled_softmax_pv(s, v, tile_keys)
+
+
+def key_tiled_attention_bf16(q, k, v, bias, tile_keys: int = TILE_KEYS):
+    """The key-tiled kernel's bf16 instantiation in plain PyTorch: the
+    logits of `plain_biased_attention_bf16` (k, v, bias bf16; with a bf16 q
+    the q.k logit rounded to bf16), then `key_tiled_attention`'s chunked
+    float32 softmax and p v -> float32. Same function as
+    `plain_biased_attention_bf16`."""
+    f32 = torch.float32
+    energy = torch.einsum("bhid,bhjd->bhij", q.to(f32), k.to(f32))
+    if q.dtype == torch.bfloat16:
+        energy = energy.to(torch.bfloat16).to(f32)
+    s = energy / math.sqrt(q.shape[-1]) + bias.to(f32)
+    return _key_tiled_softmax_pv(s, v.to(f32), tile_keys)
+
+
+def _key_tiled_softmax_pv(s, v, tile_keys):
+    """softmax(s) v over keys in chunks (`key_tiled_attention`'s order)."""
+    d, n = v.shape[-1], v.shape[-2]
     lanes = ROW_LANES
     log2e = 1.0 / math.log(2.0)
-    s = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(d) + bias
     lead = s.shape[:-1]
-    m = torch.full(lead + (lanes,), -math.inf, dtype=q.dtype, device=q.device)
-    l = torch.zeros(lead + (lanes,), dtype=q.dtype, device=q.device)
-    acc = torch.zeros(lead + (lanes, d), dtype=q.dtype, device=q.device)
+    m = torch.full(lead + (lanes,), -math.inf, dtype=s.dtype, device=s.device)
+    l = torch.zeros(lead + (lanes,), dtype=s.dtype, device=s.device)
+    acc = torch.zeros(lead + (lanes, d), dtype=s.dtype, device=s.device)
     for j0 in range(0, n, tile_keys):
         cnt = min(tile_keys, n - j0)
         pad = -cnt % lanes
@@ -265,32 +289,38 @@ def biased_attention_cuda(q, k, v, bias):
 
 
 def biased_attention_tiled_cuda(q, k, v, bias):
-    """Launch the float32 key-tiled kernel on the current stream (CUDA
-    tensors only): any n, K and V staged in chunks, the bias read straight
-    from device memory."""
-    _check(q, k, v, bias, smem=False)
+    """Launch the key-tiled kernel on the current stream (CUDA tensors
+    only): any n, K and V staged in chunks, the bias read straight from
+    device memory. float32 q, k, v, bias (`biased_attention_tiled`), or bf16
+    k, v, bias with a bf16 or float32 q (`biased_attention_tiled_bf16`, the
+    arithmetic of `plain_biased_attention_bf16`); float32 out."""
+    bf16 = k.dtype == torch.bfloat16
+    _check(q, k, v, bias, bf16=bf16, smem=False)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_tiled_cuda needs CUDA tensors")
     if bias is None or q.shape[-1] > 32:
         raise ValueError(f"the key-tiled kernel takes a bias and d <= 32, got d={q.shape[-1]}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as float4)")
+        raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as vectors)")
     B, h, n, d = q.shape
-    out = torch.empty_like(q)
-    fn = build.kernel_fn(KERNEL_TILED)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    name = KERNEL_TILED_BF16 if bf16 else KERNEL_TILED
+    fn = build.kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 B, h, n, d, stream)
-    build.check(KERNEL_TILED, err)
-    build.count_launch(KERNEL_TILED)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, h, n, d]
+        if bf16:
+            args.append(int(q.dtype == torch.bfloat16))
+        err = fn(*args, stream)
+    build.check(name, err)
+    build.count_launch(name)
     return out
 
 
 def biased_attention_bf16_cuda(q, k, v, bias):
-    """Launch the bf16 CUDA kernel on the current stream (CUDA tensors only):
-    bf16 k, v, bias (or None: the no-bias instantiation); bf16 or float32 q;
-    float32 out."""
+    """Launch the bf16 shared-memory kernel on the current stream (CUDA
+    tensors only; `fits_smem(n, d, 2)`): bf16 k, v, bias (or None: the
+    no-bias instantiation); bf16 or float32 q; float32 out."""
     _check(q, k, v, bias, bf16=True)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_bf16_cuda needs CUDA tensors")
@@ -379,24 +409,61 @@ def rows_biased_attention_backward(q, k, v, bias, out, dout, ranks: int = BWD_CL
     that of `plain_biased_attention_backward`, and every output equals its
     up to the order of the float32 additions."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    n = q.shape[-2]
     p = torch.softmax(torch.einsum("bhid,bhjd->bhij", q, k) * scale + bias, dim=-1)
     delta = (dout * out).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhid,bhjd->bhij", dout, v) - delta)
     dq = torch.einsum("bhij,bhjd->bhid", ds, k) * scale
+    dk, dv, dbias = _rank_ordered_sums(ds, ds, p, q, dout, ranks)
+    return dq, dk * scale, dv, dbias
+
+
+def rows_biased_attention_backward_bf16(q, k, v, bias, out, dout, ranks: int = BWD_CLUSTER):
+    """The row-split path's bf16 instantiation in plain PyTorch: the order
+    of summation of `rows_biased_attention_backward` with the rounding points
+    of `plain_biased_attention_backward_bf16` (k, v, bias bf16, q bf16 or
+    float32, out and dout float32): with a bf16 q, dS / sqrt(d) rounded to
+    bf16 before the dq and dk products; the float32 dS summed into dbias over
+    b = 0, 1, ... in order; each output rounded once to its input's dtype (dq
+    to q's, dk, dv and dbias to bf16)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    energy = torch.einsum("bhid,bhjd->bhij", qf, kf)
+    if q.dtype == bf16:
+        energy = energy.to(bf16).to(f32)
+    p = torch.softmax(energy * scale + bias.to(f32), dim=-1)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhid,bhjd->bhij", dout, vf) - delta)
+    if q.dtype == bf16:  # the bf16 logit's cotangent
+        de = (ds * scale).to(bf16).to(f32)
+        dq = torch.einsum("bhij,bhjd->bhid", de, kf)
+        dk, dv, dbias = _rank_ordered_sums(de, ds, p, qf, dout, ranks)
+    else:
+        dq = torch.einsum("bhij,bhjd->bhid", ds, kf) * scale
+        dk, dv, dbias = _rank_ordered_sums(ds, ds, p, qf, dout, ranks)
+        dk = dk * scale
+    return dq.to(q.dtype), dk.to(bf16), dv.to(bf16), dbias.to(bf16)
+
+
+def _rank_ordered_sums(ds_k, ds, p, q, dout, ranks):
+    """The row-split path's sums: rank r owns the query rows [r R, r R + R),
+    R = ceil(n / ranks); dk = the ranks' partials ds_k^T q over their rows
+    and dv those of P^T dO, added in rank order; dbias rows = dS summed over
+    b = 0, 1, ... in order."""
+    n = q.shape[-2]
     R = -(-n // ranks)
     dk = dv = None
-    dbias = torch.zeros_like(bias)
+    dbias = torch.zeros(ds.shape[1:], dtype=ds.dtype, device=ds.device)
     for r in range(ranks):
         rows = slice(r * R, min(n, (r + 1) * R))
-        pk = torch.einsum("bhij,bhid->bhjd", ds[:, :, rows], q[:, :, rows])
+        pk = torch.einsum("bhij,bhid->bhjd", ds_k[:, :, rows], q[:, :, rows])
         pv = torch.einsum("bhij,bhid->bhjd", p[:, :, rows], dout[:, :, rows])
         dk, dv = (pk, pv) if dk is None else (dk + pk, dv + pv)
-        acc = torch.zeros_like(bias[:, rows])
+        acc = torch.zeros_like(dbias[:, rows])
         for b in range(q.shape[0]):
             acc = acc + ds[b, :, rows]
         dbias[:, rows] = acc
-    return dq, dk * scale, dv, dbias
+    return dk, dv, dbias
 
 
 def cluster_biased_attention_backward(q, k, v, bias, out, dout, cluster: int = BWD_CLUSTER):
@@ -477,11 +544,13 @@ def biased_attention_bwd_cuda(q, k, v, bias, out, dout, path: str | None = None)
 def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
     """Launch bf16 training's backward on the current stream (CUDA tensors
     only): (dq, dk, dv, dbias) of `plain_biased_attention_backward_bf16`, bf16
-    k, v, bias, a bf16 or float32 q, float32 out and dout; one cluster launch,
-    dbias summed over the batch in a fixed order (no atomics). An (n, d)
-    beyond the cluster path raises NotImplementedError: it needs the bf16
-    instantiation of the row-split path, whose body is templated for it
-    (ROADMAP.md Queue 1 item 10, `--bf16 --depth`)."""
+    k, v, bias, a bf16 or float32 q, float32 out and dout; one launch of the
+    cluster path (`biased_attention_bwd_bf16`) or, beyond it, of the
+    row-split path (`biased_attention_bwd_rows_bf16`, where `bwd_uses_rows`,
+    as at a 42-keypoint model's level 2 under `--bf16 --depth`), dbias
+    summed over the batch in a fixed order (no atomics). An (n, d) beyond
+    both raises NotImplementedError: no model differentiates one (levels 0
+    and 1 feed no head)."""
     _check(q, k, v, bias, bf16=True, smem=False)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_bwd_bf16_cuda needs CUDA tensors")
@@ -493,22 +562,25 @@ def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
     B, h, n, d = q.shape
     if bias is None or d not in BWD_HEAD_DIMS:
         raise ValueError(f"the biased backward takes a bias and head dims {BWD_HEAD_DIMS}, got d={d}")
-    if not bwd_uses_cluster(n, d):
+    if bwd_uses_cluster(n, d):
+        name = BWD_KERNEL_BF16
+    elif bwd_uses_rows(n, d):
+        name = BWD_KERNEL_ROWS_BF16
+    else:
         raise NotImplementedError(
-            f"biased attention backward in bf16 at (n, d) = {(n, d)}: beyond the one-pass cluster path "
-            "(a 42-keypoint model's --bf16 --depth training needs the bf16 row-split backward, "
-            "ROADMAP.md Queue 1 item 10)")
+            f"biased attention backward in bf16 at (n, d) = {(n, d)}: beyond the cluster and row-split "
+            "paths (the two-pass path is float32 only; no model differentiates such a level)")
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((h, n, n), dtype=torch.bfloat16, device=q.device)
-    fn = build.kernel_fn(BWD_KERNEL_BF16)
+    fn = build.kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
                  B, h, n, d, int(q.dtype == torch.bfloat16), stream)
-    build.check(BWD_KERNEL_BF16, err)
-    build.count_launch(BWD_KERNEL_BF16)
+    build.check(name, err)
+    build.count_launch(name)
     return dq, dk, dv, dbias
 
 
@@ -548,6 +620,17 @@ def attention_bwd_nobias_cuda(q, k, v, out, dout):
     return dq, dk, dv
 
 
+def forward_kernel(q, k, bias):
+    """The wrapper whose kernel runs the forward on the card: beyond the
+    shared-memory kernel's n in the inputs' precision (`fits_smem`), the
+    key-tiled kernel; else the shared-memory kernel, float32 or bf16 (k, v
+    and bias bf16)."""
+    bf16 = k.dtype == torch.bfloat16
+    if bias is not None and not fits_smem(q.shape[-2], q.shape[-1], 2 if bf16 else 4):
+        return biased_attention_tiled_cuda
+    return biased_attention_bf16_cuda if bf16 else biased_attention_cuda
+
+
 class _BiasedAttention(torch.autograd.Function):
     """Forward through the kernel of the inputs' dtype and size (plain on
     the CPU); backward through `biased_attention_bwd_cuda` or, for bf16
@@ -555,15 +638,11 @@ class _BiasedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
-        bf16 = k.dtype == torch.bfloat16
         if q.device.type == "cpu":
+            bf16 = k.dtype == torch.bfloat16
             out = plain_biased_attention_bf16(q, k, v, bias) if bf16 else plain_biased_attention(q, k, v, bias)
-        elif bf16:
-            out = biased_attention_bf16_cuda(q, k, v, bias)
-        elif bias is None or fits_smem(q.shape[-2], q.shape[-1]):
-            out = biased_attention_cuda(q, k, v, bias)
         else:
-            out = biased_attention_tiled_cuda(q, k, v, bias)
+            out = forward_kernel(q, k, bias)(q, k, v, bias)
         ctx.save_for_backward(q, k, v, bias, out)
         return out
 
@@ -586,9 +665,10 @@ def fused_biased_attention(q, k, v, bias):
     """softmax(q k^T / sqrt(d) + bias) v with q, k, v (B, heads, n, d) and a
     (heads, n, n) bias shared across the batch, or bias None (no bias);
     float32, or bf16 k, v, bias (module docstring), always returning
-    float32. Differentiable in both (bf16 on the card at the cluster path's
-    (n, d); without a bias at the cluster path's (n, d) only). CUDA tensors
-    go through the hand-written kernels of their dtype (float32 beyond the
-    shared-memory kernel's n: the key-tiled kernel; bf16 there, and no bias
-    there, raise); CPU tensors take the plain versions."""
+    float32. Differentiable in both (on the card: with a bias, float32 at
+    any (n, d), bf16 on the cluster and row-split paths' (n, d); without a
+    bias at the cluster path's (n, d) only). CUDA tensors go through the
+    hand-written kernels of their dtype (beyond the shared-memory kernel's n
+    the key-tiled kernel of that dtype; no bias there raises); CPU tensors
+    take the plain versions."""
     return _BiasedAttention.apply(q, k, v, bias)

@@ -56,6 +56,8 @@ KERNEL_SOURCES = {
     "biased_attention_nobias_bf16": "biased_attention.cu",
     "biased_attention_bwd_nobias": "biased_attention_bwd.cu",
     "biased_attention_bwd_nobias_bf16": "biased_attention_bwd.cu",
+    "biased_attention_tiled_bf16": "biased_attention.cu",
+    "biased_attention_bwd_rows_bf16": "biased_attention_bwd.cu",
 }
 
 NVCC_FLAGS = (
@@ -106,6 +108,10 @@ _SIGNATURES = {
     "biased_attention_bwd_nobias": ("biased_attention_bwd_nobias", [_P] * 8 + [_I] * 4 + [_P]),
     # the same with bf16 k, v, dk, dv and q_bf16 before the stream
     "biased_attention_bwd_nobias_bf16": ("biased_attention_bwd_nobias_bf16", [_P] * 8 + [_I] * 5 + [_P]),
+    # q, k, v, bias, out, B, heads, n, d, q_bf16, stream (bf16 k, v, bias; any n)
+    "biased_attention_tiled_bf16": ("biased_attention_tiled_bf16_fwd", [_P] * 5 + [_I] * 5 + [_P]),
+    # the arguments of biased_attention_bwd_bf16, on the row-split path
+    "biased_attention_bwd_rows_bf16": ("biased_attention_bwd_rows_bf16", [_P] * 10 + [_I] * 5 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -57,6 +57,14 @@ def rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
+def check_num_devices(num_devices: Optional[int]) -> None:
+    """Raise ValueError unless `num_devices` (a config's
+    `mesh.num_devices`) is None or the number of ranks of this run."""
+    if num_devices is not None and num_devices != world_size():
+        raise ValueError(f"mesh.num_devices {num_devices}: the port runs one rank per card, and this run "
+                         f"has {world_size()} rank(s)")
+
+
 def local_device(device) -> torch.device:
     """The card of this rank (LOCAL_RANK from a launcher, else rank modulo
     the cards of this host); the CPU as it is."""
@@ -95,6 +103,17 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
         n = t.numel()
         t.copy_(flat[offset:offset + n].view_as(t))
         offset += n
+
+
+def all_gather_cat(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' tensors of one shape concatenated along dim 0 in rank
+    order (x itself with one rank)."""
+    world = world_size()
+    if world == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts)
 
 
 def global_moments(x: torch.Tensor, dims: Sequence[int]):

@@ -18,7 +18,11 @@ at their own points:
     JAX bf16 vs float32 (measured 1.2-1.3x), and port bf16 vs JAX float32 <=
     1.5x JAX bf16 vs float32 (measured 0.95-1.05x);
   * the full tiny forward (64x64, full widths) against `make_bf16_apply`:
-    <= 1.5x JAX bf16 vs float32 per head (measured 0.95-1.2x).
+    <= 1.5x JAX bf16 vs float32 per head (measured 0.95-1.2x);
+  * the bf16 key-tiled kernel's arithmetic (`key_tiled_attention_bf16`:
+    chunked online softmax over the bf16 logits) against JAX's default
+    einsum form on bf16 arrays and against `plain_biased_attention_bf16`:
+    <= 1e-3 abs, the attention bar above.
 """
 
 import jax
@@ -35,6 +39,7 @@ from sgtapose_tpu_torch.eval.synthetic_eval import make_bf16_apply
 from sgtapose_tpu_torch.models import attention as tattn
 from sgtapose_tpu_torch.models.deform_conv import DeformConv2d
 from sgtapose_tpu_torch.models.sgta import SGTAPose
+from sgtapose_tpu_torch.ops import attention_kernel as tak
 from sgtapose_tpu_torch.utils import precision
 from sgtapose_tpu_torch.utils.weights import load_flax_variables
 
@@ -94,6 +99,53 @@ def test_bf16_attention_matches_jax(level, n, d, q_dtype):
     assert out.dtype == torch.float32 and ref.dtype == np.float32
     assert np.abs(out.numpy() - ref).max() <= 1e-3
     assert np.abs(ref - ref32).max() > 1e-3  # bf16 did round
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,d,tile_keys", [(600, 4, 32), (600, 4, 256), (70, 8, 32), (70, 8, 256)])
+def test_bf16_key_tiled_arithmetic_matches_jax(n, d, tile_keys, q_dtype):
+    """The bf16 key-tiled kernel's arithmetic at ragged chunks (n not a
+    multiple of 32 or of the chunk), against JAX's default form
+    (`sgtapose_tpu/models/attention.py:174-180`) on bf16 k, v and bias and a
+    bf16 or float32 q; a bias of scale 3 makes a lane's max grow from chunk
+    to chunk."""
+    rs = np.random.RandomState(300 + n + tile_keys)
+    q, k, v = (rs.randn(2, 8, n, d).astype(np.float32) for _ in range(3))
+    bias = (3.0 * rs.randn(8, n, n)).astype(np.float32)
+    qj = jnp.asarray(q).astype(q_dtype)
+    kj, vj, bj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (k, v, bias))
+    energy = jnp.einsum("bhid,bhjd->bhij", qj, kj) / jnp.sqrt(jnp.float32(d)) + bj
+    ref = np.asarray(jnp.einsum("bhij,bhjd->bhid", jax.nn.softmax(energy, axis=-1), vj))
+    ref32 = np.asarray(jnp.einsum("bhij,bhjd->bhid", jax.nn.softmax(
+        jnp.einsum("bhid,bhjd->bhij", q, k) / np.sqrt(np.float32(d)) + bias, axis=-1), v))
+    tq = torch.from_numpy(np.array(qj.astype(jnp.float32))).to(getattr(torch, q_dtype))
+    tk, tv, tb = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(BF16) for a in (kj, vj, bj))
+    out = tak.key_tiled_attention_bf16(tq, tk, tv, tb, tile_keys)
+    assert out.dtype == torch.float32 and ref.dtype == np.float32
+    assert np.abs(out.numpy() - ref).max() <= 1e-3
+    assert np.abs(out.numpy() - tak.plain_biased_attention_bf16(tq, tk, tv, tb).numpy()).max() <= 1e-3
+    assert np.abs(ref - ref32).max() > 1e-3  # bf16 did round
+
+
+def test_bf16_forward_routes_by_shared_memory():
+    """On the card a 42-keypoint model's level 0, (7098, 4), goes to the
+    key-tiled kernel in both precisions; its level 1, (2058, 8), to the
+    bf16 shared-memory kernel in bf16 (half the bytes fit) and the key-tiled
+    one in float32; the flagship's levels and the 42-keypoint level 2 to
+    the shared-memory kernels."""
+    def route(n, d, dtype, bias=True):
+        q = torch.empty(1, 8, n, d, device="meta")
+        k = torch.empty(1, 8, n, d, device="meta", dtype=dtype)
+        return tak.forward_kernel(q, k, torch.empty(8, n, n, device="meta", dtype=dtype) if bias else None)
+
+    assert tak.fits_smem(2058, 8, 2) and not tak.fits_smem(7098, 4, 2) and not tak.fits_smem(2058, 8)
+    assert route(7098, 4, BF16) is route(7098, 4, torch.float32) is tak.biased_attention_tiled_cuda
+    assert route(2058, 8, BF16) is tak.biased_attention_bf16_cuda
+    assert route(2058, 8, torch.float32) is tak.biased_attention_tiled_cuda
+    for n, d in ((1183, 4), (343, 8), (63, 16), (378, 16)):
+        assert route(n, d, BF16) is tak.biased_attention_bf16_cuda
+        assert route(n, d, torch.float32) is tak.biased_attention_cuda
+    assert route(7098, 4, BF16, bias=False) is tak.biased_attention_bf16_cuda  # no bias: no tiled kernel
 
 
 @pytest.mark.parametrize("H,C,O", [(15, 64, 32), (30, 32, 16)])

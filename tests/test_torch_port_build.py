@@ -58,6 +58,12 @@ KERNEL_MODULES = {
                                     "plain_biased_attention_backward", "attention_bwd_nobias_cuda"),
     "biased_attention_bwd_nobias_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
                                          "plain_biased_attention_backward_bf16", "attention_bwd_nobias_cuda"),
+    # the key-tiled wrapper launches the float32 or the bf16 kernel by dtype;
+    # bf16 training's row-split path is behind the bf16 backward's wrapper
+    "biased_attention_tiled_bf16": ("sgtapose_tpu_torch.ops.attention_kernel", "key_tiled_attention_bf16",
+                                    "biased_attention_tiled_cuda"),
+    "biased_attention_bwd_rows_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
+                                       "rows_biased_attention_backward_bf16", "biased_attention_bwd_bf16_cuda"),
 }
 
 
@@ -85,5 +91,5 @@ def test_every_kernel_has_its_plain_version(name):
              for a in ("KERNEL", "KERNEL_BF16", "KERNEL_TILED", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
                       "DGRAD_KERNEL", "BWD_KERNEL_BF16", "DGRAD_KERNEL_BF16", "BWD_KERNEL_ROWS", "WGRAD_KERNEL",
                       "WGRAD_KERNEL_BF16", "KERNEL_NOBIAS", "KERNEL_NOBIAS_BF16", "BWD_KERNEL_NOBIAS",
-                      "BWD_KERNEL_NOBIAS_BF16")}
+                      "BWD_KERNEL_NOBIAS_BF16", "KERNEL_TILED_BF16", "BWD_KERNEL_ROWS_BF16")}
     assert name in names

@@ -17,6 +17,13 @@ tests/test_torch_port_cuda.py and chip_smoke.py).
   of `_xla_attention` within 2e-4 of max(1, max|ref|) (the JAX package's
   Pallas-vs-XLA bar) and against `plain_biased_attention_backward` within
   1e-5 (float32 sums in another order).
+- `rows_biased_attention_backward_bf16`, the row-split path's bf16
+  instantiation, against `jax.vjp` of JAX's default einsum form under bf16
+  (bf16 k, v and bias, q bf16 or float32): <= 0.3x the gap between JAX
+  bf16 and JAX float32 per gradient, the dtypes equal (the bf16 cluster
+  path's bar, tests/test_torch_port_train_bf16.py); against
+  `plain_biased_attention_backward_bf16` within 2^-7 of max|ref| (a bf16
+  rounding that falls the other way after float32 sums in another order).
 - The attention backward's choice of path by shared-memory size.
 """
 
@@ -138,6 +145,44 @@ def test_row_split_order_matches_plain_and_jax(n, d, B):
         assert p.shape == r.shape
         _close(p.numpy(), r, 2e-4, name)
         _close(p.numpy(), pl.numpy(), 1e-5, name)
+
+
+def _jax_einsum_attention(q, k, v, bias):
+    """The JAX default attention (`sgtapose_tpu/models/attention.py:174-180`)."""
+    energy = jnp.einsum("bhid,bhjd->bhij", q, k) / jnp.sqrt(jnp.float32(q.shape[-1])) + bias
+    return jnp.einsum("bhij,bhjd->bhid", jax.nn.softmax(energy, axis=-1), v)
+
+
+def _gap(a, b):
+    """max|a - b| / max|b| (float64)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+
+@pytest.mark.parametrize("q_bf16", [True, False], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("n,d,B", [(378, 16, 1), (378, 16, 2), (378, 16, 3), (200, 8, 2)])
+def test_row_split_bf16_matches_jax_vjp(n, d, B, q_bf16):
+    """bf16 training's row-split path (a 42-keypoint model's level 2 under
+    --bf16 --depth at B = 1, 2, 3, and a ragged (200, 8))."""
+    rs = np.random.RandomState(n + d + 10 * B + 1)
+    q, k, v, g = (rs.randn(B, 8, n, d).astype(np.float32) for _ in range(4))
+    bias = (0.3 * rs.randn(8, n, n)).astype(np.float32)
+    qj = jnp.asarray(q).astype(jnp.bfloat16 if q_bf16 else jnp.float32)
+    kj, vj, bj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (k, v, bias))
+    ref = jax.vjp(_jax_einsum_attention, qj, kj, vj, bj)[1](jnp.asarray(g))
+    ref32 = jax.vjp(_jax_einsum_attention, *(jnp.asarray(a) for a in (q, k, v, bias)))[1](jnp.asarray(g))
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))  # noqa: E731
+    tq = _t(f32(qj)).to(torch.bfloat16 if q_bf16 else torch.float32)
+    tk, tv, tb = (_t(f32(a)).to(torch.bfloat16) for a in (kj, vj, bj))
+    out = tak.plain_biased_attention_bf16(tq, tk, tv, tb)
+    port = tak.rows_biased_attention_backward_bf16(tq, tk, tv, tb, out, _t(g))
+    plain = tak.plain_biased_attention_backward_bf16(tq, tk, tv, tb, out, _t(g))
+    for name, p, r, r32, pl in zip(("dq", "dk", "dv", "dbias"), port, ref, ref32, plain):
+        assert str(p.dtype).replace("torch.", "") == str(r.dtype) and p.dtype == pl.dtype, name
+        gap = _gap(f32(r), np.asarray(r32))
+        assert gap > 1e-3, name  # bf16 did round
+        assert _gap(p.float().numpy(), f32(r)) <= 0.3 * gap, (name, _gap(p.float().numpy(), f32(r)), gap)
+        assert _gap(p.float().numpy(), pl.float().numpy()) <= 2.0 ** -7, name
 
 
 @pytest.mark.parametrize("n,d,path", [(63, 16, "cluster"), (100, 8, "cluster"), (343, 8, "rows"),

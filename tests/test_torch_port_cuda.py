@@ -148,6 +148,34 @@ def test_biased_attention_bf16_kernel_matches_plain(dev, n, d, B, q_bf16):
     assert (out - ref).abs().max().item() <= ATTN_BF16_ATOL
 
 
+@pytest.mark.parametrize("q_bf16", [True, False], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("n,d,B", [(7098, 4, 1), (7098, 4, 2), (2058, 8, 1), (100, 8, 2), (1, 4, 1),
+                                   (33, 32, 2)])
+def test_biased_attention_tiled_bf16_kernel_matches_plain(dev, n, d, B, q_bf16):
+    """The bf16 key-tiled kernel at a 42-keypoint model's level 0 (which the
+    autograd Function routes to it) and at level 1 and ragged n (which fit
+    the bf16 shared-memory kernel); a bias of scale 3 makes a lane's max
+    grow from chunk to chunk."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(n + d + B + 1)
+    q = torch.randn(B, 8, n, d, generator=g, device=dev).to(bf if q_bf16 else torch.float32)
+    k, v = (torch.randn(B, 8, n, d, generator=g, device=dev).to(bf) for _ in range(2))
+    bias = (3.0 * torch.randn(8, n, n, generator=g, device=dev)).to(bf)
+    before = build.launch_counts()
+    out = attention_kernel.biased_attention_tiled_cuda(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    ref = attention_kernel.plain_biased_attention_bf16(q, k, v, bias)
+    assert (out - ref).abs().max().item() <= ATTN_BF16_ATOL
+    routed = attention_kernel.fused_biased_attention(q, k, v, bias)
+    tiled = not attention_kernel.fits_smem(n, d, 2)
+    after = build.launch_counts()
+    assert after["biased_attention_tiled_bf16"] == before["biased_attention_tiled_bf16"] + 1 + tiled
+    assert after["biased_attention_bf16"] == before["biased_attention_bf16"] + (not tiled)
+    assert after["biased_attention_tiled"] == before["biased_attention_tiled"]
+    assert (routed - ref).abs().max().item() <= ATTN_BF16_ATOL
+
+
 def test_biased_attention_bf16_kernel_unaligned_bias_base(dev):
     """A bf16 bias view whose first element is 2 bytes into a 16-byte line."""
     n, d = 343, 8
@@ -426,6 +454,15 @@ def test_infer_cli_on_the_card_matches_the_cpu(dev, tmp_path):
 # within two bf16 units in the last place at the top of the range,
 # 2^-6 of max(1, max|ref|) per output.
 BWD_BF16_REL = 2.0 ** -6
+# The bf16 row-split backward (kernel B) rounds each output once, like its
+# plain version in the rows order: one bf16 unit in the last place of an
+# output, at most 2^-7 of its magnitude, per output 2^-7 of max|ref| (no
+# floor of 1: these gradients lie well below 1).
+ROWS_BWD_BF16_REL = 2.0 ** -7
+
+
+def _rel_err_of_max(a, b):
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
 
 
 @pytest.mark.parametrize("q_bf16", [True, False], ids=["q_bf16", "q_f32"])
@@ -457,14 +494,46 @@ def test_biased_attention_bwd_bf16_kernel_matches_plain(dev, n, d, B, q_bf16):
     assert build.launch_counts()["biased_attention_bwd_bf16"] == before + 3
 
 
-def test_biased_attention_bwd_bf16_raises_beyond_the_cluster_path(dev):
-    """A 42-keypoint model's level 2 (378, 16) needs the two-pass bf16
-    backward, which is not ported: it raises, naming the ROADMAP item."""
+@pytest.mark.parametrize("q_bf16", [True, False], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("n,d,B", [(378, 16, 1), (378, 16, 2), (378, 16, 8), (200, 8, 3), (343, 8, 2)])
+def test_biased_attention_bwd_rows_bf16_kernel_matches_plain(dev, n, d, B, q_bf16):
+    """bf16 training's row-split path at a 42-keypoint model's level 2
+    (--bf16 --depth at batch 2, and 1 and 8) and ragged n, against its plain
+    version in the rows order; every output the same bit for bit in two
+    runs; autograd routes a bf16 backward at these (n, d) to it."""
     bf = torch.bfloat16
-    q, k, v = (torch.randn(2, 8, 378, 16, device=dev).to(bf) for _ in range(3))
-    bias = torch.zeros(8, 378, 378, device=dev, dtype=bf)
-    out = torch.zeros(2, 8, 378, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    g = torch.Generator(device=dev).manual_seed(n * d + B + 11)
+    q = torch.randn(B, 8, n, d, generator=g, device=dev).to(bf if q_bf16 else torch.float32)
+    k, v = (torch.randn(B, 8, n, d, generator=g, device=dev).to(bf) for _ in range(2))
+    bias = (0.3 * torch.randn(8, n, n, generator=g, device=dev)).to(bf)
+    dout = torch.randn(B, 8, n, d, generator=g, device=dev)
+    out = attention_kernel.plain_biased_attention_bf16(q, k, v, bias)
+    before = build.launch_counts()
+    got = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout)
+    torch.cuda.synchronize()
+    ref = attention_kernel.rows_biased_attention_backward_bf16(q, k, v, bias, out, dout)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = _rel_err_of_max(a.float(), b.float())
+        assert err <= ROWS_BWD_BF16_REL, (name, err)
+    again = attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qs = q.detach().clone().requires_grad_()
+    attention_kernel.fused_biased_attention(qs, k, v, bias).backward(dout)
+    after = build.launch_counts()
+    assert after["biased_attention_bwd_rows_bf16"] == before["biased_attention_bwd_rows_bf16"] + 3
+    assert after["biased_attention_bwd_bf16"] == before["biased_attention_bwd_bf16"]
+
+
+def test_biased_attention_bwd_bf16_raises_beyond_the_cluster_path(dev):
+    """Beyond the cluster and row-split paths (a 42-keypoint model's levels
+    0 and 1, which feed no head, and the flagship's level 0) the two-pass
+    path is float32 only: the bf16 backward raises there."""
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(1, 8, 1183, 4, device=dev).to(bf) for _ in range(3))
+    bias = torch.zeros(8, 1183, 1183, device=dev, dtype=bf)
+    out = torch.zeros(1, 8, 1183, 4, device=dev)
+    with pytest.raises(NotImplementedError, match="row-split"):
         attention_kernel.biased_attention_bwd_bf16_cuda(q, k, v, bias, out, out)
 
 

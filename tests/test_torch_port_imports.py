@@ -48,7 +48,9 @@ def test_port_imports_no_jax_and_builds_nothing():
                 "sgtapose_tpu_torch.parallel.mesh", "sgtapose_tpu_torch.cli.train",
                 "sgtapose_tpu_torch.models.variants", "sgtapose_tpu_torch.utils.torch_convert",
                 "sgtapose_tpu_torch.cli.convert", "sgtapose_tpu_torch.models.dream_baselines",
-                "sgtapose_tpu_torch.data.image_space", "sgtapose_tpu_torch.infer.dream_detector"}
+                "sgtapose_tpu_torch.data.image_space", "sgtapose_tpu_torch.infer.dream_detector",
+                "sgtapose_tpu_torch.native", "sgtapose_tpu_torch.parallel.multihost_dryrun",
+                "sgtapose_tpu_torch.utils.seeding"}
     assert expected <= set(res["modules"])
 
 

@@ -489,10 +489,12 @@ def test_cli_unported_flags_raise(sets, tmp_path, flags):
     baselines and the Dream phase are ported: a single-image wiring trains
     one epoch, but ResnetSimple under Dream, whose input/2 map the input/4
     targets do not fit, raises ValueError at its first loss, where the JAX
-    step fails on the shapes."""
+    step fails on the shapes. --bf16 --depth is ported: a 42-keypoint model
+    trains one epoch in bf16 on the depth set, its masters float32."""
+    depth = ["--dataset", os.path.join(sets["tdepth"], "panda-depth"), "--batch_size", "2"]
     argv = ["--dataset", sets["tsyn"], "--output_dir", str(tmp_path), "--num_epochs", "1",
-            "--image_log_every", "0"] + TINY + flags
-    if "--dcn_chunks" in flags or "--dcn_remat" in flags or "--depth" in flags:
+            "--image_log_every", "0"] + TINY + flags + (depth if "--depth" in flags else [])
+    if "--dcn_chunks" in flags or "--dcn_remat" in flags:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             tcli.main(argv)
     elif "resnetsimple_34" in flags:
@@ -502,6 +504,9 @@ def test_cli_unported_flags_raise(sets, tmp_path, flags):
         res = tcli.main(argv)
         assert res["state"].step == res["iters_per_epoch"] > 0
         assert os.path.exists(os.path.join(str(tmp_path), "ckpt", "epoch_1.pt"))
+        if "--depth" in flags:
+            assert res["state"].model.cfg.num_classes == 42
+            assert all(p.dtype == torch.float32 for p in res["state"].model.parameters())
 
 
 def test_cli_refuses_what_it_cannot_run(sets, tmp_path):
@@ -511,8 +516,9 @@ def test_cli_refuses_what_it_cannot_run(sets, tmp_path):
         tcli.main(base + ["--resume", str(tmp_path / "orbax_dir")])
     with pytest.raises(SystemExit):
         tcli.main(base + ["--coordinator", "localhost:1"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="mesh.num_devices 2"):
         tcli.main(base + ["--num_devices", "2"])
+    assert tcli.build_config(tcli.parse_args(base + ["--num_devices", "2"])).mesh.num_devices == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tcli.main(["--dataset", sets["tsyn"], "--output_dir", str(tmp_path / "c"), "--device", "cuda"])

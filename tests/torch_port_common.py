@@ -111,18 +111,19 @@ def flax_model_and_variables(dla_node: str = "dcn", num_classes: int = 7):
     return model, perturb(jax.tree_util.tree_map_with_path(one, shapes), seed=1)
 
 
-def random_train_batch(seed: int = 0, res: int = 64, B: int = 2):
+def random_train_batch(seed: int = 0, res: int = 64, B: int = 2, num_classes: int = 7):
     """A training batch of random numpy tensors for the tiny model."""
     rs = np.random.RandomState(seed)
     Ho = res // 4
     f = np.float32
+    K = num_classes
     return {
         "cur_img": rs.randn(B, res, res, 3).astype(f), "pre_img": rs.randn(B, res, res, 3).astype(f),
         "pre_hm": rs.rand(B, res, res, 1).astype(f), "repro_hm": rs.rand(B, res, res, 1).astype(f),
-        "pre_hm_cls": rs.rand(B, Ho, Ho, 7).astype(f), "repro_hm_cls": rs.rand(B, Ho, Ho, 7).astype(f),
-        "gt_belief_maps": rs.rand(B, Ho, Ho, 7).astype(f),
-        "kp_int": rs.randint(0, Ho, (B, 7, 2)).astype(np.int32),
-        "reg_target": rs.rand(B, 7, 2).astype(f), "tracking_target": rs.randn(B, 7, 2).astype(f),
+        "pre_hm_cls": rs.rand(B, Ho, Ho, K).astype(f), "repro_hm_cls": rs.rand(B, Ho, Ho, K).astype(f),
+        "gt_belief_maps": rs.rand(B, Ho, Ho, K).astype(f),
+        "kp_int": rs.randint(0, Ho, (B, K, 2)).astype(np.int32),
+        "reg_target": rs.rand(B, K, 2).astype(f), "tracking_target": rs.randn(B, K, 2).astype(f),
     }
 
 
