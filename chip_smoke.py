@@ -8,7 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (TF32 off for cuDNN convolutions and matmuls, so the float32 path is
      float32);
   2. build every CUDA kernel from sgtapose_tpu_torch/csrc (one nvcc per
-     source, all started together, sm_90a);
+     source, all started together, sm_90a); the launch floor: an empty
+     launch (a one-element zero_()) timed cold and warm as the kernels are,
+     printed on its own line;
   3. the float32 biased-attention kernel against its plain PyTorch version at
      the flagship shapes plus a ragged n (and the key-tiled float32 kernel at
      a 42-keypoint model's levels 0 and 1), with kernel (cold, and warm: 3
@@ -159,12 +161,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the single-frame model in the CenterTrack and CenterNet wirings,
      and the bf16 exact runner for the global variant: fps, stage times and
      launches asserted per frame (18 no-bias attention launches per global
-     frame); (b) the no-bias attention kernels (float32 and bf16) against
-     their plain versions at the global variant's (28, d), d = 4 ... 128:
-     the forward at batch 1, 4 and 8, the backward at 4 and 8 (every output
-     the same bit for bit in two runs), with cold / plain / SDPA times and
-     bounds; (c) `cli/train.main` for one epoch on phase 13 (A)'s set at
-     batch 4 for the global variant (float32 and --bf16), the
+     frame); (b) the no-bias attention kernels (`csrc/attention_nobias.cu`;
+     float32, and bf16 with a bf16 or a float32 q) against their plain
+     versions and against the kernels they replaced, their yardsticks (on
+     no path), at the global variant's (28, d), d = 4 ... 128: the forward
+     at batch 1, 4 and 8, the backward at 4 and 8, every output the same bit
+     for bit in two runs; cold and warm times in turns (yardstick, new, new,
+     yardstick), plain / SDPA times and bounds; (c) `cli/train.main` for
+     one epoch on phase 13 (A)'s set at batch 4 for the global variant
+     (float32 and --bf16), the
      three-frame variant (--phase PlanA_three, three-frame windows) and the
      concat baseline (--phase PlanACAT, the DCN backward at its
      double-width decoder), with launches asserted per step, stage times, steps/s and peak memory; the
@@ -351,10 +356,14 @@ DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "d
                 "deform_sample_bf16": "deform_sample_bf16_kernel",
                 "biased_attention_bwd_rows": "biased_attention_rows_bwd_kernel",
                 "deform_conv_wgrad": "deform_conv_wgrad_", "deform_conv_wgrad_bf16": "deform_conv_bf16_wgrad_",
-                "biased_attention_nobias": "attention_nobias_kernel",
-                "biased_attention_nobias_bf16": "attention_nobias_bf16_kernel",
-                "biased_attention_bwd_nobias": "attention_bwd_nobias_kernel",
-                "biased_attention_bwd_nobias_bf16": "attention_bwd_nobias_bf16_kernel",
+                "biased_attention_nobias": "nobias_attention_fwd_kernel",
+                "biased_attention_nobias_bf16": "nobias_attention_fwd_bf16_kernel",
+                "biased_attention_bwd_nobias": "nobias_attention_bwd_kernel",
+                "biased_attention_bwd_nobias_bf16": "nobias_attention_bwd_bf16_kernel",
+                "biased_attention_nobias_rowtile": "attention_nobias_kernel",
+                "biased_attention_nobias_rowtile_bf16": "attention_nobias_bf16_kernel",
+                "biased_attention_bwd_nobias_cluster": "attention_bwd_nobias_kernel",
+                "biased_attention_bwd_nobias_cluster_bf16": "attention_bwd_nobias_bf16_kernel",
                 "biased_attention_tiled_bf16": "biased_attention_tiled_bf16_kernel",
                 "biased_attention_bwd_rows_bf16": "biased_attention_rows_bf16_bwd_kernel"}
 
@@ -486,6 +495,13 @@ def main() -> int:
             e.synchronize()
             total += s.elapsed_time(e) / reps
         return total / iters
+
+    # the launch floor: an empty launch (a one-element zero_) timed as the
+    # kernels are, below which no small kernel's time can fall
+    one = torch.zeros(1, device=dev)
+    report["launch_floor"] = {"cold_ms": cold_ms(one.zero_), "warm_ms": warm_ms(one.zero_),
+                              "note": "a one-element zero_() under cold_ms / warm_ms"}
+    print("launch floor: " + json.dumps(report["launch_floor"]))
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cfg = Config()
@@ -1045,7 +1061,7 @@ def main() -> int:
         report["bf16_training"] = bf16_train
         # ---- 15. the arch zoo ----------------------------------------------
         mark("15")
-        zoo = zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64)
+        zoo = zoo_phase(torch, dev, gen, cfg, cold_ms, warm_ms, no_launches, work, ckpt, ref64)
         report["zoo"] = zoo
         # ---- 16. the DREAM baselines ---------------------------------------
         mark("16")
@@ -1192,7 +1208,7 @@ def main() -> int:
         "shapes_note": "level 2 of a 42-keypoint model at phase 13's --depth batch of 2, per --depth step"})
     bf16_train["deform_conv_wgrad_bf16_shapes"] = wgrad_rows[bf16]
     kernels += bf16_kernel_rows(bf16_train, per_frame)
-    kernels += zoo_kernel_rows(zoo, per_frame)
+    kernels += zoo_kernel_rows(zoo, per_frame, report["launch_floor"])
     # the bf16 forward's shared-memory kernel at a 42-keypoint level 1,
     # (2058, 8), as phase 17's 42-keypoint bf16 run launches it
     level1 = report["bf16_depth"]["attention_bf16_level1_shapes"]
@@ -2233,9 +2249,12 @@ ZOO_SERVING = [("dlapa_34", "PlanA", dict(biased_attention_nobias=18, deform_con
 GLOBAL_DIMS = (4, 8, 16, 32, 64, 128)  # SGTAPoseGlobal's head dim per level
 GLOBAL_TOKENS = 28
 ZOO_TRAIN_BATCH = 4  # phase 13 (A)'s batch
+# the no-bias kernels' cases: float32, and bf16 k and v with a bf16 q (the
+# first tied layer) or a float32 q (the other two)
+NOBIAS_MODES = ("float32", "bfloat16", "bf16_k_v_float32_q")
 
 
-def zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64):
+def zoo_phase(torch, dev, gen, cfg, cold_ms, warm_ms, no_launches, work, ckpt, ref64):
     """Phase 15 (module docstring): the arch zoo on the card. (a) the exact
     runner over ZOO_FRAMES frames for every variant and phase of
     ZOO_SERVING, and the bf16 exact runner for the global variant, launches
@@ -2310,31 +2329,50 @@ def zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64):
         del model, detector
     out["serving"] = serving
 
-    # ---- (b) the no-bias kernels against their plain versions --------------
+    # ---- (b) the no-bias kernels against their plain versions and the ------
+    # kernels they replaced (the yardsticks), timed in turns: yardstick,
+    # new, new, yardstick
     n = GLOBAL_TOKENS
     fwd_rows, bwd_rows = [], []
-    for dt in (torch.float32, bf16):
+    rel = lambda a, b: rel_err(a.float(), b.float())  # noqa: E731
+    for mode in NOBIAS_MODES:
+        bf = mode != "float32"
+        el, el_q = (2 if bf else 4), (2 if mode == "bfloat16" else 4)
+        # per global frame (step) a level launches the first tied layer with
+        # a bf16 q and the other two with a float32 q (their LayerNorm)
+        layers = n_layers if not bf else (1 if mode == "bfloat16" else n_layers - 1)
+        if bf:
+            kern, plain = ak.biased_attention_bf16_cuda, ak.plain_biased_attention_bf16
+            plain_bwd, tol, bwd_tol = ak.plain_biased_attention_backward_bf16, ATTN_BF16_TOL, BWD_BF16_REL_TOL
+        else:
+            kern, plain = ak.biased_attention_cuda, ak.plain_biased_attention
+            plain_bwd, tol, bwd_tol = ak.plain_biased_attention_backward, ATTN_TOL, BWD_REL_TOL
         for d in GLOBAL_DIMS:
             for B in (1, 4, 8):
-                q, k, v = (torch.randn(B, h, n, d, generator=gen, device=dev) for _ in range(3))
-                if dt == bf16:  # the first tied layer: q bf16
-                    q, k, v = q.to(bf16), k.to(bf16), v.to(bf16)
-                    plain, kern = ak.plain_biased_attention_bf16, ak.biased_attention_bf16_cuda
-                    tol = 1e-3  # tests/test_torch_port_cuda.py's bf16 forward bar
-                else:
-                    plain, kern = ak.plain_biased_attention, ak.biased_attention_cuda
-                    tol = ATTN_TOL
-                got = kern(q, k, v, None)
+                q, k, v, dout = (torch.randn(B, h, n, d, generator=gen, device=dev) for _ in range(4))
+                if bf:
+                    k, v = k.to(bf16), v.to(bf16)
+                    q = q.to(bf16) if mode == "bfloat16" else q
+                new = lambda: kern(q, k, v, None)  # noqa: E731
+                yard = lambda: ak.attention_nobias_rowtile_cuda(q, k, v)  # noqa: E731
+                got, old = new(), yard()
                 torch.cuda.synchronize()
-                err = (got - plain(q, k, v, None)).abs().max().item()
-                if not math.isfinite(err) or err > tol:
-                    raise AssertionError(f"no-bias attention {dt} d={d} B={B}: max abs err {err} > {tol}")
-                el = 2 if dt == bf16 else 4
-                b_ms, b_by = bound_ms(3 * el * B * h * n * d + 4 * B * h * n * d, B * h * n * n * (4 * d + 4))
-                row = dict(dtype=str(dt).replace("torch.", ""), n=n, d=d, B=B, per_frame=n_layers if B == 1 else 0,
-                           max_abs_err=err, ms=cold_ms(lambda: kern(q, k, v, None)),
+                ref = plain(q, k, v, None)
+                err, old_err = (got - ref).abs().max().item(), (old - ref).abs().max().item()
+                if not all(math.isfinite(e) and e <= tol for e in (err, old_err)):
+                    raise AssertionError(f"no-bias attention {mode} d={d} B={B}: max abs err {err}, "
+                                         f"yardstick {old_err} > {tol}")
+                if not torch.equal(got, new()):
+                    raise AssertionError(f"no-bias attention {mode} d={d} B={B}: reruns differ")
+                cold = [cold_ms(yard), cold_ms(new), cold_ms(new), cold_ms(yard)]
+                warm = [warm_ms(yard), warm_ms(new), warm_ms(new), warm_ms(yard)]
+                b_ms, b_by = bound_ms(B * h * n * d * (el_q + 2 * el + 4), B * h * n * n * (4 * d + 4))
+                row = dict(dtype="bfloat16" if bf else "float32", q_dtype="bfloat16" if mode == "bfloat16" else "float32", n=n, d=d, B=B,
+                           per_frame=layers if B == 1 else 0, max_abs_err=err, yardstick_max_abs_err=old_err,
+                           ms=(cold[1] + cold[2]) / 2, yardstick_ms=(cold[0] + cold[3]) / 2,
+                           warm_ms=(warm[1] + warm[2]) / 2, yardstick_warm_ms=(warm[0] + warm[3]) / 2,
                            plain_ms=cold_ms(lambda: plain(q, k, v, None)),
-                           library_ms=cold_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                           library_ms=cold_ms(lambda: F.scaled_dot_product_attention(q.to(k.dtype), k, v)),
                            bound_ms=b_ms, bound_by=b_by)
                 fwd_rows.append(row)
                 print("attention_nobias " + json.dumps(row))
@@ -2342,32 +2380,34 @@ def zoo_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ckpt, ref64):
                     continue
                 # the backward at the training batches; per step at phase 13's
                 # batch of 4, levels 2-5 (levels 0 and 1 feed no head)
-                o = plain(q, k, v, None)
-                dout = torch.randn(B, h, n, d, generator=gen, device=dev)
-                got = ak.attention_bwd_nobias_cuda(q, k, v, o, dout)
+                new = lambda: ak.attention_bwd_nobias_cuda(q, k, v, ref, dout)  # noqa: E731
+                yard = lambda: ak.attention_bwd_nobias_cluster_cuda(q, k, v, ref, dout)  # noqa: E731
+                got, old = new(), yard()
                 torch.cuda.synchronize()
-                pl = ak.plain_biased_attention_backward_bf16 if dt == bf16 else ak.plain_biased_attention_backward
-                ref = pl(q, k, v, None, o, dout)
-                err = max(rel_err(a.float(), b.float()) for a, b in zip(got, ref[:3]))
-                tol = BWD_BF16_REL_TOL if dt == bf16 else BWD_REL_TOL
-                if not math.isfinite(err) or err > tol:
-                    raise AssertionError(f"no-bias attention backward {dt} d={d} B={B}: rel err {err} > {tol}")
-                again = ak.attention_bwd_nobias_cuda(q, k, v, o, dout)
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise AssertionError(f"no-bias attention backward {dt} d={d} B={B}: reruns differ")
-                leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                want = plain_bwd(q, k, v, None, ref, dout)
+                err = max(rel(a, b) for a, b in zip(got, want[:3]))
+                old_err = max(rel(a, b) for a, b in zip(old, want[:3]))
+                if not all(math.isfinite(e) and e <= bwd_tol for e in (err, old_err)):
+                    raise AssertionError(f"no-bias attention backward {mode} d={d} B={B}: rel err {err}, "
+                                         f"yardstick {old_err} > {bwd_tol}")
+                if not all(torch.equal(a, b) for a, b in zip(got, new())):
+                    raise AssertionError(f"no-bias attention backward {mode} d={d} B={B}: reruns differ")
+                leaves = [t.detach().clone().to(k.dtype).requires_grad_() for t in (q, k, v)]
                 sd_out = F.scaled_dot_product_attention(*leaves)
 
                 def sdpa_bwd():
                     torch.autograd.grad(sd_out, leaves, dout.to(sd_out.dtype), retain_graph=True)
 
-                b_ms, b_by = bound_ms(3 * el * B * h * n * d + 8 * B * h * n * d + 3 * el * B * h * n * d,
-                                      B * h * n * n * (10 * d + 5))
-                row = dict(dtype=str(dt).replace("torch.", ""), n=n, d=d, B=B,
-                           per_step=n_layers if (B == ZOO_TRAIN_BATCH and d >= 16) else 0,
-                           max_abs_err=err, ms=cold_ms(lambda: ak.attention_bwd_nobias_cuda(q, k, v, o, dout)),
-                           plain_ms=cold_ms(lambda: pl(q, k, v, None, o, dout)), library_ms=cold_ms(sdpa_bwd),
-                           bound_ms=b_ms, bound_by=b_by)
+                cold = [cold_ms(yard), cold_ms(new), cold_ms(new), cold_ms(yard)]
+                warm = [warm_ms(yard), warm_ms(new), warm_ms(new), warm_ms(yard)]
+                b_ms, b_by = bound_ms(B * h * n * d * (2 * el_q + 4 * el + 8), B * h * n * n * (10 * d + 5))
+                row = dict(dtype="bfloat16" if bf else "float32", q_dtype="bfloat16" if mode == "bfloat16" else "float32", n=n, d=d, B=B,
+                           per_step=layers if (B == ZOO_TRAIN_BATCH and d >= 16) else 0,
+                           max_abs_err=err, yardstick_max_abs_err=old_err,
+                           ms=(cold[1] + cold[2]) / 2, yardstick_ms=(cold[0] + cold[3]) / 2,
+                           warm_ms=(warm[1] + warm[2]) / 2, yardstick_warm_ms=(warm[0] + warm[3]) / 2,
+                           plain_ms=cold_ms(lambda: plain_bwd(q, k, v, None, ref, dout)),
+                           library_ms=cold_ms(sdpa_bwd), bound_ms=b_ms, bound_by=b_by)
                 bwd_rows.append(row)
                 print("attention_bwd_nobias " + json.dumps(row))
     out["nobias_forward_shapes"], out["nobias_backward_shapes"] = fwd_rows, bwd_rows
@@ -2976,39 +3016,55 @@ def conv_macs(torch, model, x) -> int:
     return sum(macs)
 
 
-def zoo_kernel_rows(zoo, per_step_sum):
-    """The kernels-line entries of the no-bias attention kernels: the
-    forward per frame of the exact runner at batch 1 (3 tied layers at each
-    of the 6 levels), read from (a)'s runs; the backward per step of (c)'s
-    global-variant CLI runs at batch 4 (levels 2-5)."""
+def zoo_kernel_rows(zoo, per_step_sum, floor):
+    """The kernels-line entries of the no-bias attention kernels and of
+    their yardsticks: the forward per frame of the exact runner at batch 1
+    (3 tied layers at each of the 6 levels), read from (a)'s runs; the
+    backward per step of (c)'s global-variant CLI runs at batch 4 (levels
+    2-5). The yardsticks' launches are those of the same runs (0), their
+    times from (b)'s comparison; `floor` is the empty launch's cold and warm
+    ms, times the launches of a frame or step."""
     kernels = []
-    for name, dtype, rows, unit, launches, note in (
-        ("biased_attention_nobias", "float32", zoo["nobias_forward_shapes"], "per_frame",
-         zoo["serving"]["dlapa_34/PlanA"]["launches"], "F.scaled_dot_product_attention without a mask"),
-        ("biased_attention_nobias_bf16", "bfloat16", zoo["nobias_forward_shapes"], "per_frame",
-         zoo["serving"]["dlapa_34/PlanA/bf16"]["launches"], "F.scaled_dot_product_attention in bf16"),
-        ("biased_attention_bwd_nobias", "float32", zoo["nobias_backward_shapes"], "per_step",
-         zoo["train_cli"]["global"]["launches"], "backward of F.scaled_dot_product_attention"),
-        ("biased_attention_bwd_nobias_bf16", "bfloat16", zoo["nobias_backward_shapes"], "per_step",
-         zoo["train_cli"]["global_bf16"]["launches"], "backward of F.scaled_dot_product_attention in bf16"),
+    for name, yard, dtype, rows, unit, launches, note in (
+        ("biased_attention_nobias", "biased_attention_nobias_rowtile", "float32", zoo["nobias_forward_shapes"],
+         "per_frame", zoo["serving"]["dlapa_34/PlanA"]["launches"], "F.scaled_dot_product_attention without a mask"),
+        ("biased_attention_nobias_bf16", "biased_attention_nobias_rowtile_bf16", "bfloat16",
+         zoo["nobias_forward_shapes"], "per_frame", zoo["serving"]["dlapa_34/PlanA/bf16"]["launches"],
+         "F.scaled_dot_product_attention in bf16"),
+        ("biased_attention_bwd_nobias", "biased_attention_bwd_nobias_cluster", "float32",
+         zoo["nobias_backward_shapes"], "per_step", zoo["train_cli"]["global"]["launches"],
+         "backward of F.scaled_dot_product_attention"),
+        ("biased_attention_bwd_nobias_bf16", "biased_attention_bwd_nobias_cluster_bf16", "bfloat16",
+         zoo["nobias_backward_shapes"], "per_step", zoo["train_cli"]["global_bf16"]["launches"],
+         "backward of F.scaled_dot_product_attention in bf16"),
     ):
         rows = [r for r in rows if r["dtype"] == dtype]
         main = [r for r in rows if r[unit]]
         bounds = [r["bound_by"] for r in main]
         bound_by = max(set(bounds), key=bounds.count)
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "sgtapose_tpu_torch/csrc/biased_attention" + ("_bwd" if "bwd" in name else "") + ".cu",
-            "replaces": "sgtapose_tpu/ops/attention_kernel.py:" + ("145" if "bwd" in name else "108"),
-            "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": per_step_sum(rows, "ms", unit), "plain_ms": per_step_sum(rows, "plain_ms", unit),
-            "bound_ms": per_step_sum(rows, "bound_ms", unit), "bound_by": bound_by,
-            "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else "67 TFLOP/s float32 FMA",
+        per_launches = sum(r[unit] for r in main)
+        common = {
+            "route": "cuda", "replaces": "sgtapose_tpu/ops/attention_kernel.py:" + ("145" if "bwd" in name else "108"),
+            "plain_ms": per_step_sum(rows, "plain_ms", unit), "bound_ms": per_step_sum(rows, "bound_ms", unit),
+            "bound_by": bound_by, "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else "67 TFLOP/s float32 FMA",
             "library_ms": per_step_sum(rows, "library_ms", unit), "library_ms_note": note,
-            "ms_per_launch": {f"d={r['d']},B={r['B']}": r["ms"] for r in rows},
+            "launch_floor_ms": {"cold": floor["cold_ms"] * per_launches, "warm": floor["warm_ms"] * per_launches},
             "shapes_note": ("the global variant's (28, d), d = 4 ... 128, batch 1, per frame" if unit == "per_frame"
-                            else "the global variant's levels 2-5, (28, d), d = 16 ... 128, batch 4, per step")})
+                            else "the global variant's levels 2-5, (28, d), d = 16 ... 128, batch 4, per step")
+            + ("; bf16: per level 1 launch with a bf16 q, 2 with a float32 q" if dtype == "bfloat16" else "")}
+        kernels.append({
+            "name": name, "source": "sgtapose_tpu_torch/csrc/attention_nobias.cu", "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per_step_sum(rows, "ms", unit), "warm_ms": per_step_sum(rows, "warm_ms", unit),
+            "yardstick": yard, "yardstick_ms": per_step_sum(rows, "yardstick_ms", unit),
+            "yardstick_warm_ms": per_step_sum(rows, "yardstick_warm_ms", unit),
+            "ms_per_launch": {f"d={r['d']},B={r['B']},q={r['q_dtype']}": r["ms"] for r in rows}, **common})
+        kernels.append({
+            "name": yard, "source": "sgtapose_tpu_torch/csrc/biased_attention" + ("_bwd" if "bwd" in name else "") + ".cu",
+            "launches": launches.get(yard, 0), "max_abs_err": max(r["yardstick_max_abs_err"] for r in rows),
+            "ms": per_step_sum(rows, "yardstick_ms", unit), "warm_ms": per_step_sum(rows, "yardstick_warm_ms", unit),
+            "note": f"on no path: the yardstick of {name}, launched only by phase 15 (b)'s comparison",
+            "ms_per_launch": {f"d={r['d']},B={r['B']},q={r['q_dtype']}": r["yardstick_ms"] for r in rows}, **common})
     return kernels
 
 

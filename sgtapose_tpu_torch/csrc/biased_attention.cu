@@ -1,10 +1,12 @@
 // Biased attention forward: out = softmax(q k^T / sqrt(d) + bias) v, one
 // design in two instantiations: float32 (biased_attention_fwd) and bf16
 // serving (biased_attention_bf16_fwd); each also without a bias
-// (biased_attention_nobias_fwd, biased_attention_nobias_bf16_fwd: the
-// plain MHA of the global-attention variant SGTAPoseGlobal,
+// (biased_attention_nobias_rowtile_fwd, biased_attention_nobias_rowtile_bf16_fwd:
+// the plain MHA of the global-attention variant SGTAPoseGlobal,
 // sgtapose_tpu/models/variants.py:222-274, at (n, d) = (28, 4 ... 128)),
-// a compile-time flag that reads no bias and stages no bias span. Beyond
+// a compile-time flag that reads no bias and stages no bias span; these
+// run on no path: attention_nobias.cu's latency-first forward replaced
+// them, and they stay as its yardstick. Beyond
 // the n this design holds in shared memory, a key-tiled design (below), in
 // the same two precisions (biased_attention_tiled_fwd,
 // biased_attention_tiled_bf16_fwd).
@@ -64,7 +66,7 @@
 // launch (K/V and first span, 4-5 items a block), and the two passes'
 // shared-memory traffic, ~44 B per (row, key) in float32, most of it K and V.
 //
-// Without a bias (NOBIAS): no ring and no span copies; the logits are formed
+// Without a bias (NOBIAS, the yardstick instantiation): no ring and no span copies; the logits are formed
 // in both passes (pass 1 has no bias span to write them over). At the
 // global variant's n = 28 a launch is latency: 4 row tiles per (batch,
 // head). At d = 64 and 128 a lane's whole row and p v sums would outgrow its
@@ -662,14 +664,16 @@ extern "C" int biased_attention_bf16_fwd(const void* q, const void* k, const voi
   return fwd<uint16_t, float, true>(q, k, v, bias, out, B, heads, n, d, stream);
 }
 
-// float32 q, k, v, no bias
-extern "C" int biased_attention_nobias_fwd(const void* q, const void* k, const void* v, void* out,
+// float32 q, k, v, no bias: the row-tiled instantiation, the yardstick of
+// attention_nobias.cu's forward (on no path)
+extern "C" int biased_attention_nobias_rowtile_fwd(const void* q, const void* k, const void* v, void* out,
                                            int B, int heads, int n, int d, void* stream) {
   return fwd<float, float, false>(q, k, v, nullptr, out, B, heads, n, d, stream);
 }
 
-// bf16 k, v, no bias; q_bf16 as in biased_attention_bf16_fwd
-extern "C" int biased_attention_nobias_bf16_fwd(const void* q, const void* k, const void* v,
+// bf16 k, v, no bias; q_bf16 as in biased_attention_bf16_fwd: the row-tiled
+// instantiation, the yardstick of attention_nobias.cu's bf16 forward
+extern "C" int biased_attention_nobias_rowtile_bf16_fwd(const void* q, const void* k, const void* v,
                                                 void* out, int B, int heads, int n, int d,
                                                 int q_bf16, void* stream) {
   if (q_bf16) return fwd<uint16_t, uint16_t, false>(q, k, v, nullptr, out, B, heads, n, d, stream);

@@ -52,8 +52,9 @@
 // What bounds it on an H100: bytes, ~2.3 MB at level 2, batch 8 (0.7 us);
 // the block's latency chain (a cold load, two phases, a cluster barrier) is
 // what remains, not work.
-// Without a bias (biased_attention_bwd_nobias and _nobias_bf16, the global
-// variant's (28, d) for d = 4 ... 128): the same blocks stage no bias tile
+// Without a bias (biased_attention_bwd_nobias_cluster and _cluster_bf16,
+// the global variant's (28, d) for d = 4 ... 128; on no path since
+// attention_nobias.cu's backward replaced them, kept as its yardstick): the same blocks stage no bias tile
 // and keep no dbias tile, form no dS sum over b, write no dbias and need no
 // cluster barrier. Beyond d = 32 the row phase reads the query and dO rows
 // from shared memory (broadcasts) instead of holding them in registers, and
@@ -1227,8 +1228,9 @@ extern "C" int biased_attention_bwd_rows_bf16(const void* q, const void* k, cons
 
 // no bias, the cluster path (cluster_floats(n, d, false) * 4 bytes within a
 // block's shared memory, as at the global variant's (28, d <= 128)): float32
-// q, k, v, out, dout -> dq, dk, dv; no dbias
-extern "C" int biased_attention_bwd_nobias(const void* q, const void* k, const void* v,
+// q, k, v, out, dout -> dq, dk, dv; no dbias. The yardstick of
+// attention_nobias.cu's backward (on no path)
+extern "C" int biased_attention_bwd_nobias_cluster(const void* q, const void* k, const void* v,
                                            const void* out, const void* dout, void* dq, void* dk,
                                            void* dv, int B, int heads, int n, int d, void* stream) {
   if (B <= 0 || heads <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
@@ -1258,8 +1260,9 @@ extern "C" int biased_attention_bwd_nobias(const void* q, const void* k, const v
 }
 
 // no bias, bf16 training's cluster path: k, v bf16, q bf16 when q_bf16, else
-// float32; out and dout float32 -> dq in q's dtype, dk and dv bf16
-extern "C" int biased_attention_bwd_nobias_bf16(const void* q, const void* k, const void* v,
+// float32; out and dout float32 -> dq in q's dtype, dk and dv bf16. The
+// yardstick of attention_nobias.cu's bf16 backward (on no path)
+extern "C" int biased_attention_bwd_nobias_cluster_bf16(const void* q, const void* k, const void* v,
                                                 const void* out, const void* dout, void* dq,
                                                 void* dk, void* dv, int B, int heads, int n, int d,
                                                 int q_bf16, void* stream) {

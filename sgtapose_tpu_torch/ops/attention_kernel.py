@@ -40,11 +40,17 @@ rounded once to bf16 (pos_embed is bf16, promoted in `energy + bias`).
 
 No bias (`bias=None`): the plain MHA of the global-attention variant
 (`sgtapose_tpu/models/variants.py:SGTAPoseGlobal`, `pos_embed=False`) at
-(n, d) = (28, 4 ... 128). On the card the forward runs the no-bias
-instantiations of the same kernels (`biased_attention_nobias`, `_bf16`: no
-bias read, no bias span staged) and the backward those of the cluster path
-(`biased_attention_bwd_nobias`, `_bf16`: no dbias formed or written); an
-(n, d) beyond the cluster path raises. The gradient of the bias is None.
+(n, d) = (28, 4 ... 128). On the card both directions run the latency-first
+kernels of `csrc/attention_nobias.cu` (`biased_attention_nobias`, `_bf16`
+forward; `biased_attention_bwd_nobias`, `_bf16` backward, three blocks per
+(batch, head), no dbias), whose arithmetic order `latency_nobias_attention`
+and `latency_nobias_attention_backward` render in plain PyTorch. The
+forward takes n up to `NOBIAS_MAX_TOKENS` within its shared memory
+(`nobias_fwd_smem_bytes`), the backward every (n, d) of
+`bwd_uses_cluster(n, d, bias=False)`; beyond, they raise. The no-bias instantiations of the biased designs that preceded them
+(`attention_nobias_rowtile_cuda`, `attention_bwd_nobias_cluster_cuda`) run
+on no path: they are the new kernels' yardsticks on the card. The gradient
+of the bias is None.
 """
 
 from __future__ import annotations
@@ -67,6 +73,12 @@ KERNEL_NOBIAS = "biased_attention_nobias"
 KERNEL_NOBIAS_BF16 = "biased_attention_nobias_bf16"
 BWD_KERNEL_NOBIAS = "biased_attention_bwd_nobias"
 BWD_KERNEL_NOBIAS_BF16 = "biased_attention_bwd_nobias_bf16"
+# the yardsticks of the four no-bias kernels: the no-bias instantiations of
+# the row-tiled forward and of the backward's cluster path (on no path)
+KERNEL_NOBIAS_ROWTILE = "biased_attention_nobias_rowtile"
+KERNEL_NOBIAS_ROWTILE_BF16 = "biased_attention_nobias_rowtile_bf16"
+BWD_KERNEL_NOBIAS_CLUSTER = "biased_attention_bwd_nobias_cluster"
+BWD_KERNEL_NOBIAS_CLUSTER_BF16 = "biased_attention_bwd_nobias_cluster_bf16"
 SUPPORTED_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 # 64 and 128 are the global variant's, which has no bias
 BIASED_HEAD_DIM_MAX = 32
@@ -94,6 +106,42 @@ def fits_smem(n: int, d: int, elem_bytes: int = 4) -> bool:
     4) or bf16 (2); beyond it the key-tiled kernel of the same precision
     runs."""
     return kernel_smem_bytes(n, d, elem_bytes) <= _SMEM_LIMIT
+
+
+# the no-bias kernels (csrc/attention_nobias.cu): a lane takes up to 6 keys
+NOBIAS_MAX_TOKENS = 32 * 6
+
+
+def _line(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _nobias_key_pitch(d: int) -> int:
+    return 4 if d == 4 else d + 4
+
+
+def _nobias_fwd_splits(d: int) -> int:
+    """Blocks per (batch, head) of the no-bias forward: its query rows split
+    in 1, 2 or 4 at d <= 32, 64 and 128."""
+    return 1 if d <= 32 else (2 if d == 64 else 4)
+
+
+def nobias_fwd_smem_bytes(n: int, d: int, q_bytes: int = 4, kv_bytes: int = 4) -> int:
+    """Shared memory of a no-bias forward block (`csrc/attention_nobias.cu`),
+    each tensor in its own dtype (q_bytes, kv_bytes: 4 float32, 2 bf16): the
+    block's ceil(n / splits) q rows, k in rows padded to d + 4 (d > 4), v."""
+    rows = -(-n // _nobias_fwd_splits(d))
+    return _line(rows * d * q_bytes) + _line(n * _nobias_key_pitch(d) * kv_bytes) + _line(n * d * kv_bytes)
+
+
+def nobias_bwd_smem_bytes(n: int, d: int, q_bytes: int = 4, kv_bytes: int = 4) -> int:
+    """Shared memory of the no-bias backward's block (`csrc/attention_nobias.cu`):
+    an n x p float32 tile of dS or P (p = n rounded up to 4), q in its dtype,
+    O and dO float32, k and v in their dtype in rows padded to d + 4 (d >
+    4). In float32 never more than `bwd_cluster_smem_bytes(n, d,
+    bias=False)` for n >= 2."""
+    return (_line(4 * n * (-(-n // 4) * 4)) + _line(n * d * q_bytes) + 2 * _line(4 * n * d)
+            + 2 * _line(n * _nobias_key_pitch(d) * kv_bytes))
 
 
 def _add_bias(energy, bias):
@@ -184,6 +232,81 @@ def split_lane_attention(q, k, v, bias):
     return lane_acc.sum(dim=-2) / lane_l.sum(dim=-1, keepdim=True)
 
 
+def _split_keys(a, b, kg: int | None = None):
+    """a @ b, a (..., r, n) and b (..., n, c), as the no-bias kernels form
+    their d-wide outputs: the keys split over KG = 32 / (d / 4) lanes (lane
+    g takes keys g, g + KG, ...; `kg` overrides KG), the lanes' partial sums
+    added across the lane bits, highest first."""
+    n = b.shape[-2]
+    KG = kg or 32 // (b.shape[-1] // 4)
+    pad = -n % KG
+    a = torch.nn.functional.pad(a, (0, pad)).unflatten(-1, (-1, KG))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad)).unflatten(-2, (-1, KG))
+    return _fold_lanes(torch.einsum("bhrmg,bhmgc->bhrcg", a, b))
+
+
+def _fold_lanes(part):
+    """Sum the last dim (one entry per lane) pairwise across the highest
+    lane bit first, as the kernels' shuffles do."""
+    while part.shape[-1] > 1:
+        half = part.shape[-1] // 2
+        part = part[..., :half] + part[..., half:]
+    return part[..., 0]
+
+
+def _latency_probs(q, k):
+    """The no-bias kernels' logits, whole q.k dots of the widened q and k
+    (rounded to bf16 for a bf16 q) divided by sqrt(d) rounded to float32,
+    and p = 2^(s log2 e - max log2 e), not normalised."""
+    f32 = torch.float32
+    e = torch.einsum("bhid,bhjd->bhij", q.to(f32), k.to(f32))
+    if q.dtype == torch.bfloat16:
+        e = e.to(torch.bfloat16).to(f32)
+    s = e / sqrt_d(q.shape[-1])
+    log2e = 1.0 / math.log(2.0)
+    return torch.exp2(s * log2e - s.amax(dim=-1, keepdim=True) * log2e)
+
+
+def latency_nobias_attention(q, k, v):
+    """The latency-first no-bias forward (`csrc/attention_nobias.cu`) in plain
+    PyTorch, in its order of arithmetic: p from `_latency_probs`, then p v
+    and the row sums of p with the keys split over lanes (`_split_keys`),
+    the output times 1 / the sum. float32 q, k, v, or bf16 k, v with a bf16
+    or float32 q (the rounding points of `plain_biased_attention_bf16`) ->
+    float32. Same function as `plain_biased_attention(q, k, v, None)` (or
+    its bf16 form)."""
+    p = _latency_probs(q, k)
+    kg = 32 // (q.shape[-1] // 4)
+    l = _split_keys(p, torch.ones(p.shape[:-2] + (p.shape[-1], 1), dtype=p.dtype), kg)
+    return _split_keys(p, v.to(torch.float32)) * (1.0 / l)
+
+
+def latency_nobias_attention_backward(q, k, v, out, dout):
+    """The latency-first no-bias backward (`csrc/attention_nobias.cu`) in
+    plain PyTorch, in its order of arithmetic: p as the forward forms it, P
+    = p times 1 / its row sum (one key a lane, summed across the warp),
+    D_i = dO_i . O_i, dS / sqrt(d) = P (dO v^T - D) / sqrt(d) (rounded to
+    bf16 for a bf16 q), then dq, dk and dv with the keys (or query rows)
+    split over lanes (`_split_keys`), each rounded once to its input's
+    dtype. Same function as `plain_biased_attention_backward` (or its bf16
+    form) with bias None: returns (dq, dk, dv)."""
+    f32 = torch.float32
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    d = q.shape[-1]
+    p = _latency_probs(q, k)
+    n = p.shape[-1]
+    lanes = torch.nn.functional.pad(p, (0, -n % 32)).unflatten(-1, (-1, 32)).sum(-2)
+    P = p * (1.0 / _fold_lanes(lanes)[..., None])
+    delta = (dout * out).sum(-1, keepdim=True)
+    de = P * (torch.einsum("bhid,bhjd->bhij", dout, vf) - delta) / sqrt_d(d)
+    if q.dtype == torch.bfloat16:
+        de = de.to(torch.bfloat16).to(f32)
+    dq = _split_keys(de, kf)
+    dk = _split_keys(de.transpose(-1, -2), qf)
+    dv = _split_keys(P.transpose(-1, -2), dout)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 TILE_KEYS = 256  # keys per chunk of the key-tiled kernel
 
 
@@ -262,14 +385,19 @@ def _check(q, k, v, bias, bf16: bool = False, smem: bool = True):
         raise ValueError(f"head dim {d} not supported by the CUDA kernel {SUPPORTED_HEAD_DIMS}")
     if bias is not None and d > BIASED_HEAD_DIM_MAX:
         raise ValueError(f"head dim {d}: the kernel takes a bias at head dims up to {BIASED_HEAD_DIM_MAX}")
-    need = kernel_smem_bytes(n, d, 2 if bf16 else 4, bias is not None)
+    if bias is not None:
+        need = kernel_smem_bytes(n, d, 2 if bf16 else 4)
+    else:
+        need = nobias_fwd_smem_bytes(n, d, q.element_size(), k.element_size())
     if smem and need > _SMEM_LIMIT:
         raise ValueError(f"n={n}, d={d} needs {need} B of shared memory, more than the kernel's {_SMEM_LIMIT}")
+    if smem and bias is None and n > NOBIAS_MAX_TOKENS:
+        raise ValueError(f"n={n}: the no-bias kernel takes up to {NOBIAS_MAX_TOKENS} tokens")
 
 
 def biased_attention_cuda(q, k, v, bias):
     """Launch the CUDA kernel on the current stream (CUDA tensors only);
-    bias None launches the no-bias instantiation."""
+    bias None launches the no-bias kernel (`csrc/attention_nobias.cu`)."""
     _check(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_cuda needs CUDA tensors")
@@ -320,7 +448,8 @@ def biased_attention_tiled_cuda(q, k, v, bias):
 def biased_attention_bf16_cuda(q, k, v, bias):
     """Launch the bf16 shared-memory kernel on the current stream (CUDA
     tensors only; `fits_smem(n, d, 2)`): bf16 k, v, bias (or None: the
-    no-bias instantiation); bf16 or float32 q; float32 out."""
+    no-bias kernel's bf16 instantiation, `csrc/attention_nobias.cu`); bf16
+    or float32 q; float32 out."""
     _check(q, k, v, bias, bf16=True)
     if q.device.type != "cuda":
         raise ValueError("biased_attention_bf16_cuda needs CUDA tensors")
@@ -361,9 +490,11 @@ def bwd_cluster_smem_bytes(n: int, d: int, bias: bool = True) -> int:
 def bwd_uses_cluster(n: int, d: int, bias: bool = True) -> bool:
     """The backward's path: one cluster launch when a whole (batch, head)
     problem fits in one block's shared memory (level 2 of the flagship,
-    (63, 16), and (100, 8); without a bias the global variant's (28, d), d
-    up to 128); else `bwd_uses_rows` or the two-pass kernels (with a bias;
-    without one, nothing)."""
+    (63, 16), and (100, 8)); else `bwd_uses_rows` or the two-pass kernels.
+    Without a bias the same test bounds the one plain launch of
+    `csrc/attention_nobias.cu` (the global variant's (28, d), d up to 128),
+    whose block needs no more (`nobias_bwd_smem_bytes`); beyond it,
+    nothing."""
     return bwd_cluster_smem_bytes(n, d, bias) <= _SMEM_LIMIT
 
 
@@ -392,8 +523,9 @@ def bwd_uses_rows(n: int, d: int) -> bool:
 
 def bwd_path(n: int, d: int, bias: bool = True) -> str:
     """The float32 backward's path at (n, d): "cluster", "rows" or
-    "two_pass"; without a bias "cluster" or, beyond it, "none" (raises on
-    the card)."""
+    "two_pass"; without a bias "cluster" (the one launch of
+    `attention_bwd_nobias_cuda`) or, beyond it, "none" (raises on the
+    card)."""
     if bwd_uses_cluster(n, d, bias):
         return "cluster"
     if not bias:
@@ -587,9 +719,23 @@ def biased_attention_bwd_bf16_cuda(q, k, v, bias, out, dout):
 def attention_bwd_nobias_cuda(q, k, v, out, dout):
     """Launch the no-bias backward on the current stream (CUDA tensors only):
     (dq, dk, dv) of `plain_biased_attention_backward` (or, for bf16 k and v,
-    of `plain_biased_attention_backward_bf16`) with bias None; one cluster
-    launch; an (n, d) beyond the cluster path raises NotImplementedError
-    (no variant reaches one)."""
+    of `plain_biased_attention_backward_bf16`) with bias None; one plain
+    launch of three blocks per (batch, head) (`csrc/attention_nobias.cu`);
+    an (n, d) beyond `bwd_uses_cluster(n, d, bias=False)` raises
+    NotImplementedError (no variant reaches one)."""
+    return _bwd_nobias(q, k, v, out, dout, BWD_KERNEL_NOBIAS_BF16, BWD_KERNEL_NOBIAS)
+
+
+def attention_bwd_nobias_cluster_cuda(q, k, v, out, dout):
+    """The no-bias backward's yardstick: the same function through the
+    no-bias instantiation of the backward's one-block cluster path
+    (`biased_attention_bwd_nobias_cluster`, `_bf16`), on no path."""
+    return _bwd_nobias(q, k, v, out, dout, BWD_KERNEL_NOBIAS_CLUSTER_BF16, BWD_KERNEL_NOBIAS_CLUSTER)
+
+
+def _bwd_nobias(q, k, v, out, dout, name_bf16, name_f32):
+    """Check and launch kernel `name_bf16` (bf16 k, v) or `name_f32`, both
+    taking `biased_attention_bwd_nobias`'s arguments."""
     bf16 = k.dtype == torch.bfloat16
     _check(q, k, v, None, bf16=bf16, smem=False)
     if q.device.type != "cuda":
@@ -602,11 +748,11 @@ def attention_bwd_nobias_cuda(q, k, v, out, dout):
     B, h, n, d = q.shape
     if not bwd_uses_cluster(n, d, bias=False):
         raise NotImplementedError(
-            f"attention backward without a bias at (n, d) = {(n, d)}: beyond the one-pass cluster path "
+            f"attention backward without a bias at (n, d) = {(n, d)}: beyond the one-launch path "
             f"({bwd_cluster_smem_bytes(n, d, False)} B of shared memory); no ported model reaches it")
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    name = BWD_KERNEL_NOBIAS_BF16 if bf16 else BWD_KERNEL_NOBIAS
+    name = name_bf16 if bf16 else name_f32
     fn = build.kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -618,6 +764,34 @@ def attention_bwd_nobias_cuda(q, k, v, out, dout):
     build.check(name, err)
     build.count_launch(name)
     return dq, dk, dv
+
+
+def attention_nobias_rowtile_cuda(q, k, v):
+    """The no-bias forward's yardstick: softmax(q k^T / sqrt(d)) v through
+    the no-bias instantiation of the shared-memory forward's row-tiled design
+    (`biased_attention_nobias_rowtile`; bf16 k and v:
+    `biased_attention_nobias_rowtile_bf16`), on no path; float32 out."""
+    bf16 = k.dtype == torch.bfloat16
+    _check(q, k, v, None, bf16=bf16, smem=False)
+    if q.device.type != "cuda":
+        raise ValueError("attention_nobias_rowtile_cuda needs CUDA tensors")
+    B, h, n, d = q.shape
+    if kernel_smem_bytes(n, d, 2 if bf16 else 4, bias=False) > _SMEM_LIMIT:
+        raise ValueError(f"n={n}, d={d}: beyond the row-tiled kernel's shared memory")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary (rows are read as vectors)")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    name = KERNEL_NOBIAS_ROWTILE_BF16 if bf16 else KERNEL_NOBIAS_ROWTILE
+    fn = build.kernel_fn(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, h, n, d]
+        if bf16:
+            args.append(int(q.dtype == torch.bfloat16))
+        err = fn(*args, stream)
+    build.check(name, err)
+    build.count_launch(name)
+    return out
 
 
 def forward_kernel(q, k, bias):
@@ -669,6 +843,7 @@ def fused_biased_attention(q, k, v, bias):
     any (n, d), bf16 on the cluster and row-split paths' (n, d); without a
     bias at the cluster path's (n, d) only). CUDA tensors go through the
     hand-written kernels of their dtype (beyond the shared-memory kernel's n
-    the key-tiled kernel of that dtype; no bias there raises); CPU tensors
-    take the plain versions."""
+    the key-tiled kernel of that dtype; without a bias the kernels of
+    `csrc/attention_nobias.cu`, and beyond their shared memory it raises);
+    CPU tensors take the plain versions."""
     return _BiasedAttention.apply(q, k, v, bias)

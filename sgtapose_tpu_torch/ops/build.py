@@ -35,7 +35,9 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # of bf16 training, are the second instantiation of their float32 kernel's
 # design, in the same source; the key-tiled attention shares the attention
 # source, the row-split attention backward the backward's; the no-bias
-# attention forward and backward are instantiations of their biased designs)
+# attention forward and backward share attention_nobias.cu, and the no-bias
+# instantiations of the biased designs that preceded them stay as their
+# yardsticks, "_rowtile" and "_cluster", on no path)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -52,12 +54,16 @@ KERNEL_SOURCES = {
     "biased_attention_bwd_rows": "biased_attention_bwd.cu",
     "deform_conv_wgrad": "deform_conv_wgrad.cu",
     "deform_conv_wgrad_bf16": "deform_conv_wgrad.cu",
-    "biased_attention_nobias": "biased_attention.cu",
-    "biased_attention_nobias_bf16": "biased_attention.cu",
-    "biased_attention_bwd_nobias": "biased_attention_bwd.cu",
-    "biased_attention_bwd_nobias_bf16": "biased_attention_bwd.cu",
+    "biased_attention_nobias": "attention_nobias.cu",
+    "biased_attention_nobias_bf16": "attention_nobias.cu",
+    "biased_attention_bwd_nobias": "attention_nobias.cu",
+    "biased_attention_bwd_nobias_bf16": "attention_nobias.cu",
     "biased_attention_tiled_bf16": "biased_attention.cu",
     "biased_attention_bwd_rows_bf16": "biased_attention_bwd.cu",
+    "biased_attention_nobias_rowtile": "biased_attention.cu",
+    "biased_attention_nobias_rowtile_bf16": "biased_attention.cu",
+    "biased_attention_bwd_nobias_cluster": "biased_attention_bwd.cu",
+    "biased_attention_bwd_nobias_cluster_bf16": "biased_attention_bwd.cu",
 }
 
 NVCC_FLAGS = (
@@ -112,6 +118,12 @@ _SIGNATURES = {
     "biased_attention_tiled_bf16": ("biased_attention_tiled_bf16_fwd", [_P] * 5 + [_I] * 5 + [_P]),
     # the arguments of biased_attention_bwd_bf16, on the row-split path
     "biased_attention_bwd_rows_bf16": ("biased_attention_bwd_rows_bf16", [_P] * 10 + [_I] * 5 + [_P]),
+    # the yardsticks of the four no-bias kernels above, with their arguments
+    "biased_attention_nobias_rowtile": ("biased_attention_nobias_rowtile_fwd", [_P] * 4 + [_I] * 4 + [_P]),
+    "biased_attention_nobias_rowtile_bf16": ("biased_attention_nobias_rowtile_bf16_fwd", [_P] * 4 + [_I] * 5 + [_P]),
+    "biased_attention_bwd_nobias_cluster": ("biased_attention_bwd_nobias_cluster", [_P] * 8 + [_I] * 4 + [_P]),
+    "biased_attention_bwd_nobias_cluster_bf16": ("biased_attention_bwd_nobias_cluster_bf16",
+                                                 [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -64,6 +64,16 @@ KERNEL_MODULES = {
                                     "biased_attention_tiled_cuda"),
     "biased_attention_bwd_rows_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
                                        "rows_biased_attention_backward_bf16", "biased_attention_bwd_bf16_cuda"),
+    # the yardsticks of the no-bias kernels, each behind its own wrapper
+    "biased_attention_nobias_rowtile": ("sgtapose_tpu_torch.ops.attention_kernel", "plain_biased_attention",
+                                        "attention_nobias_rowtile_cuda"),
+    "biased_attention_nobias_rowtile_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
+                                             "plain_biased_attention_bf16", "attention_nobias_rowtile_cuda"),
+    "biased_attention_bwd_nobias_cluster": ("sgtapose_tpu_torch.ops.attention_kernel",
+                                            "plain_biased_attention_backward", "attention_bwd_nobias_cluster_cuda"),
+    "biased_attention_bwd_nobias_cluster_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
+                                                 "plain_biased_attention_backward_bf16",
+                                                 "attention_bwd_nobias_cluster_cuda"),
 }
 
 
@@ -91,5 +101,7 @@ def test_every_kernel_has_its_plain_version(name):
              for a in ("KERNEL", "KERNEL_BF16", "KERNEL_TILED", "CONV_KERNEL", "CONV_KERNEL_BF16", "BWD_KERNEL",
                       "DGRAD_KERNEL", "BWD_KERNEL_BF16", "DGRAD_KERNEL_BF16", "BWD_KERNEL_ROWS", "WGRAD_KERNEL",
                       "WGRAD_KERNEL_BF16", "KERNEL_NOBIAS", "KERNEL_NOBIAS_BF16", "BWD_KERNEL_NOBIAS",
-                      "BWD_KERNEL_NOBIAS_BF16", "KERNEL_TILED_BF16", "BWD_KERNEL_ROWS_BF16")}
+                      "BWD_KERNEL_NOBIAS_BF16", "KERNEL_TILED_BF16", "BWD_KERNEL_ROWS_BF16",
+                      "KERNEL_NOBIAS_ROWTILE", "KERNEL_NOBIAS_ROWTILE_BF16", "BWD_KERNEL_NOBIAS_CLUSTER",
+                      "BWD_KERNEL_NOBIAS_CLUSTER_BF16")}
     assert name in names

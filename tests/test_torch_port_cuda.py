@@ -721,6 +721,84 @@ def test_attention_bwd_nobias_kernel_matches_plain(dev, d, B, bf16, q_bf16):
     assert build.launch_counts()[name] == before + 3
 
 
+def _nobias_inputs(dev, B, d, mode, seed, n=28):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, 8, n, d, generator=g, device=dev) for _ in range(4))
+    if mode != "f32":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        q = q.to(torch.bfloat16 if mode == "bf16_q_bf16" else torch.float32)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16_q_bf16", "bf16_q_f32"])
+@pytest.mark.parametrize("B", [1, 4, 8, 9])
+@pytest.mark.parametrize("d", GLOBAL_DIMS)
+def test_nobias_kernels_match_their_yardsticks(dev, d, B, mode):
+    """The latency-first no-bias forward and backward against their plain
+    versions and against the kernels they replaced (the yardsticks, which
+    only such a comparison launches), at the global variant's (28, d);
+    reruns the same bit for bit."""
+    q, k, v, dout = _nobias_inputs(dev, B, d, mode, 31 * d + B)
+    bf16 = mode != "f32"
+    names = ("biased_attention_nobias_rowtile_bf16", "biased_attention_bwd_nobias_cluster_bf16") if bf16 else \
+        ("biased_attention_nobias_rowtile", "biased_attention_bwd_nobias_cluster")
+    before = build.launch_counts()
+    kern = attention_kernel.biased_attention_bf16_cuda if bf16 else attention_kernel.biased_attention_cuda
+    out = kern(q, k, v, None)
+    yard = attention_kernel.attention_nobias_rowtile_cuda(q, k, v)
+    torch.cuda.synchronize()
+    plain = attention_kernel.plain_biased_attention_bf16 if bf16 else attention_kernel.plain_biased_attention
+    ref = plain(q, k, v, None)
+    tol = ATTN_BF16_ATOL if bf16 else 2e-4
+    assert (out - ref).abs().max().item() <= tol
+    assert (out - yard).abs().max().item() <= tol
+    assert torch.equal(out, kern(q, k, v, None))
+    got = attention_kernel.attention_bwd_nobias_cuda(q, k, v, ref, dout)
+    yard = attention_kernel.attention_bwd_nobias_cluster_cuda(q, k, v, ref, dout)
+    plain = (attention_kernel.plain_biased_attention_backward_bf16 if bf16
+             else attention_kernel.plain_biased_attention_backward)
+    want = plain(q, k, v, None, ref, dout)
+    bar = BWD_BF16_REL if bf16 else BWD_REL
+    for nm, a, y, w in zip(("dq", "dk", "dv"), got, yard, want):
+        assert a.dtype == y.dtype == w.dtype, nm
+        assert _rel_err(a.float(), w.float()) <= bar, (nm, _rel_err(a.float(), w.float()))
+        assert _rel_err(a.float(), y.float()) <= bar, (nm, _rel_err(a.float(), y.float()))
+    again = attention_kernel.attention_bwd_nobias_cuda(q, k, v, ref, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    after = build.launch_counts()
+    assert all(after[nm] == before[nm] + 1 for nm in names)
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 70, 163, 192])
+@pytest.mark.parametrize("d", GLOBAL_DIMS)
+def test_nobias_kernels_at_other_n(dev, d, n):
+    """The no-bias kernels off the global variant's n = 28: one token, fewer
+    keys than a warp has lanes, and beyond 32 (a lane takes up to 6 keys):
+    the forward wherever it takes n (up to NOBIAS_MAX_TOKENS, within its
+    shared memory), the backward wherever bwd_path says "cluster"; float32
+    and bf16 with a bf16 q, against the plain versions."""
+    fwd = n <= attention_kernel.NOBIAS_MAX_TOKENS
+    bwd = attention_kernel.bwd_path(n, d, bias=False) == "cluster"
+    for mode in ("f32", "bf16_q_bf16"):
+        q, k, v, dout = _nobias_inputs(dev, 2, d, mode, n + d, n=n)
+        bf16 = mode != "f32"
+        plain = attention_kernel.plain_biased_attention_bf16 if bf16 else attention_kernel.plain_biased_attention
+        ref = plain(q, k, v, None)
+        if fwd and attention_kernel.nobias_fwd_smem_bytes(n, d, q.element_size(), k.element_size()) <= 227 * 1024:
+            kern = attention_kernel.biased_attention_bf16_cuda if bf16 else attention_kernel.biased_attention_cuda
+            out = kern(q, k, v, None)
+            torch.cuda.synchronize()
+            assert (out - ref).abs().max().item() <= (ATTN_BF16_ATOL if bf16 else 2e-4), mode
+        if bwd:
+            got = attention_kernel.attention_bwd_nobias_cuda(q, k, v, ref, dout)
+            torch.cuda.synchronize()
+            plain_bwd = (attention_kernel.plain_biased_attention_backward_bf16 if bf16
+                         else attention_kernel.plain_biased_attention_backward)
+            want = plain_bwd(q, k, v, None, ref, dout)
+            for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+                assert _rel_err(a.float(), b.float()) <= (BWD_BF16_REL if bf16 else BWD_REL), (mode, nm)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_attention_kernel_refuses_a_bias_at_the_global_dims(dev, d):
     """The kernels take a bias at head dims up to 32 only (no model runs a
