@@ -63,7 +63,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      the run) asserted per frame step, finite outputs of the expected shapes,
      per-stage times (CUDA events around each stage, so a stage's time
      includes the host's launch gaps inside it), fps, and from torch.profiler
-     over 2 frames the CUDA launches per stage, the device kernel time per
+     over 1 frame the CUDA launches per stage, the device kernel time per
      frame step (busy share against the unprofiled step time) and the device
      time of each hand-written kernel. The feature-cache runner's trunk stage
      must launch exactly what one trunk call on one frame launches;
@@ -212,7 +212,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      `infer/detector.make_sharded_video_detector` as one rank (no process
      group) on phase 9's 8-video batch, its launches asserted and its
      results held to the batched runner's;
- 18. a `{"kernels": [...]}` line, the card line, and last the device line
+ 18. int8 serving, QAT and the DCN memory knobs: (a) the hand-written int8
+     kernel `int8_conv` (csrc/int8_conv.cu) at each of the 57 quantizable
+     sites of one flagship frame (480x480, the bf16 model with static
+     scales calibrated on `eval/synthetic_eval.calibration_inputs`: the
+     trunk at batch 2, the heads at 120x120, the DCN's contractions over
+     its columns), its s32 accumulators and outputs bit for bit against
+     `plain_int8_conv` (exact in float64), with cold and warm times, the
+     plain version's, and the yardsticks: torch._int_mm on the same s8
+     operands at the 1x1 sites, im2col + torch._int_mm at the 3x3 and 7x7
+     ones, cuDNN's bf16 F.conv2d at all, summed per frame; (b) the bf16
+     exact and feature-cache runners on phase 9's video, each with static
+     and dynamic scales and with min_ch 0 and 64 (static at 0 and dynamic at
+     64, and the other way round),
+     launches asserted per frame (int8_conv once per ungated site,
+     deform_sample_bf16 16 times, deform_conv_bf16 never), fps and ms by
+     stage; one static-scale int8 forward card against CPU, within
+     INT8_CARD_VS_CPU x the card's own int8-vs-bf16 gap; (c)
+     `cli/infer.main --quant int8 --quant_static --quant_min_ch 64` on
+     phase 12's synthetic set with phase 11's checkpoint (calibration and
+     serving launches asserted), `cli/train_demo.main --quant_train` for
+     QAT_STEPS steps at batch 8 and its int8 eval (launches asserted per
+     step: the sampler and its backward, no fused DCN kernel), and
+     `cli/train.main` for one epoch of phase 13 (A)'s set plain, with
+     --dcn_chunks 4 and with --dcn_remat (its DCN forward launched twice a
+     step): losses against (A)'s first epoch, peak memory beside it;
+ 19. a `{"kernels": [...]}` line, the card line, and last the device line
      `{"ok": true, "device": {...}}`.
 
 The detector runs of phase 9 take 8 frames each (16 before the training
@@ -225,8 +250,9 @@ frame launches (per-step sums over one training step's shapes for the
 sampler and the backward kernels; per --depth step for the row-split
 attention backward). Bounds (H100 SXM data sheet): the larger of bytes over
 3.35 TB/s and operations over the rate of the instructions used, 67 TFLOP/s
-for float32 FMAs, 165 TFLOP/s (495 / 3) for 3xTF32 and 989 TFLOP/s for dense
-bf16 on the tensor cores. Details go to chiprun_out/chip_smoke.json.
+for float32 FMAs, 165 TFLOP/s (495 / 3) for 3xTF32, 989 TFLOP/s for dense
+bf16 and 1,979 TOP/s for dense int8 on the tensor cores. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -937,7 +963,9 @@ def main() -> int:
 
     def drive(name, detector, video, steps, per_step, expect_shapes, n_streams=1):
         """Warm up on 2 frames, then one timed run with the launch counters
-        reset just before it; then 2 profiled frames."""
+        reset just before it; then 1 profiled frame (the profiler's trace
+        of a frame step, ~12k launches, takes tens of seconds to read
+        back, `profile_s`)."""
         sub = slice_frames(video, 2, batched=n_streams > 1)
         detector(sub)
         torch.cuda.synchronize()
@@ -957,7 +985,7 @@ def main() -> int:
                "fps": n_streams * steps / wall, "stage_ms_per_step": timer.per_frame_ms(steps),
                "launches": counts,
                "valid_detections": int((kps > det_lib.KP_SENTINEL).all(-1).sum())}
-        prof = profile_frames(detector, sub, torch)
+        prof = profile_frames(detector, slice_frames(video, 1, batched=n_streams > 1), torch)
         prof["device_busy_share"] = prof["device_kernel_ms_per_frame"] / (1e3 * wall / steps)
         run["profiled"] = prof
         print(f"detector {name}: " + json.dumps(run))
@@ -1073,11 +1101,14 @@ def main() -> int:
                    "per_frame_launches": per_frame_launches16}
         report["bf16_depth"] = bf16_depth_phase(torch, dev, gen, cfg, cold_ms, warm_ms, no_launches, work, serving)
         del serving
+        # ---- 18. int8 serving, QAT, the DCN memory knobs ---------------------
+        mark("18")
+        report["int8"] = int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train_cli)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 18. kernels line --------------------------------------------------
-    mark("18")
+    # ---- 19. kernels line --------------------------------------------------
+    mark("19")
     per_frame = shape_sum
 
     rates = {"biased_attention": "67 TFLOP/s float32 FMA", "deform_sample": "67 TFLOP/s float32 FMA",
@@ -1178,10 +1209,17 @@ def main() -> int:
                 r["ms"] * n for r in rows if r["offsets"] == 0.0
                 for H_, C_, O_, n in DCN_NODES if (r["H"], r["C"], r["O"]) == (H_, C_, O_))
             entry["offsets_note"] = "ms, pair_ms, plain_ms at offsets in [-3, 3] px"
+        qat = report["int8"]["qat"]["launches_per_step"]
         if name == "deform_sample_bwd":
-            entry["note"] = "off the path since deform_conv_dgrad; ms summed over the 16 nodes it ran on"
+            entry["note"] = ("off the fused training path since deform_conv_dgrad (ms summed over the 16 nodes it "
+                             "ran on); on the QAT path: the DCN's columns' backward")
+            entry["qat_launches_per_step"] = qat["deform_sample_bwd"]
         if name == "deform_sample":
-            entry["note"] = "off the path since deform_conv_wgrad; ms summed over the 16 nodes it ran on"
+            entry["note"] = ("off the fused paths since deform_conv_wgrad (ms summed over the 16 nodes it ran on); "
+                             "on the int8 paths of a float32 model (cli/infer --quant int8) and the QAT path: "
+                             "the DCN's columns")
+            entry["qat_launches_per_step"] = qat["deform_sample"]
+            entry["int8_infer_cli_launches"] = report["int8"]["infer_cli"]["launches"]["deform_sample"]
         if name.startswith("deform"):
             entry["library_ms_note"] = "no single PyTorch call computes this function"
         else:
@@ -1208,6 +1246,12 @@ def main() -> int:
         "shapes_note": "level 2 of a 42-keypoint model at phase 13's --depth batch of 2, per --depth step"})
     bf16_train["deform_conv_wgrad_bf16_shapes"] = wgrad_rows[bf16]
     kernels += bf16_kernel_rows(bf16_train, per_frame)
+    int8_serving = report["int8"]["runners"]["exact_static"]["launches_per_frame"]
+    entry = next(e for e in kernels if e["name"] == "deform_sample_bf16")
+    entry["note"] = ("off the bf16 training path since deform_conv_wgrad_bf16 (ms summed over the 16 nodes it ran "
+                     "on); on the bf16 int8 serving path: the DCN's columns")
+    entry["int8_serving_launches_per_frame"] = int8_serving["deform_sample_bf16"]
+    kernels.append(int8_kernel_rows(report["int8"], int8_serving["int8_conv"]))
     kernels += zoo_kernel_rows(zoo, per_frame, report["launch_floor"])
     # the bf16 forward's shared-memory kernel at a 42-keypoint level 1,
     # (2058, 8), as phase 17's 42-keypoint bf16 run launches it
@@ -2994,6 +3038,341 @@ def bf16_depth_kernel_rows(depth, per_sum):
     ]
 
 
+# phase 18, int8 serving, QAT and the DCN memory knobs: train_demo
+# --quant_train steps at the training batch, and the int8 forward card
+# against CPU within the larger of INT8_CARD_VS_CPU x the card's own
+# int8-vs-bf16 gap of each head (the CPU tests measure the two frameworks'
+# int8 heads at up to 1.1x that gap: an activation within float rounding of
+# an int8 rounding boundary moves one x_q by a step, which the later sites
+# carry on) and phase 8's bf16 bar, BF16_CARD_VS_CPU_ULPS bf16 units at the
+# head's largest value (the heads are bf16 before they are cast back: the
+# hm head's int8 gap is itself one bf16 unit at its -4.6 prior bias)
+INT8_OPS_PER_S = 1979e12
+QAT_STEPS = 3
+INT8_CARD_VS_CPU = 1.5
+
+
+def quant_sites(torch, model, min_ch: int) -> int:
+    """The model's quantizable sites with min(out_ch, in_ch) >= min_ch, each
+    called once per frame by the exact and the feature-cache runners."""
+    from sgtapose_tpu_torch.models import deform_conv, layers
+
+    n = 0
+    for m in model.modules():
+        if isinstance(m, layers.Conv2d):
+            n += min(m.out_channels, m.in_channels) >= min_ch
+        elif isinstance(m, deform_conv.DeformConv2d):
+            n += min(m.kernel.weight.shape) >= min_ch
+    return n
+
+
+def _int_mm_yardstick(torch, x_q, qw, stride, pad):
+    """The library yardstick of an int8 site on the same s8 operands: one
+    torch._int_mm at a 1x1 site, the pair im2col (pad, unfold views, one
+    copy) + torch._int_mm at a 3x3 or 7x7 one; None where _int_mm refuses
+    the shapes (K or O not a multiple of 8)."""
+    import torch.nn.functional as F
+
+    N, H, W, C = x_q.shape
+    K = qw.kh * qw.kw * C
+    w = qw.q[:, :K].t()  # (K, O), column-major
+    if qw.kh == 1 and stride == 1 and pad == 0:
+        a = x_q.reshape(-1, C)
+        return lambda: torch._int_mm(a, w)
+
+    def pair():
+        xp = F.pad(x_q, (0, 0, pad, pad, pad, pad))
+        cols = xp.unfold(1, qw.kh, stride).unfold(2, qw.kw, stride).permute(0, 1, 2, 4, 5, 3).reshape(-1, K)
+        return torch._int_mm(cols, w)
+
+    return pair
+
+
+def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train_cli_run):
+    """Phase 18 (module docstring): (a) the int8 kernel against its plain
+    version at every site of one flagship frame, timed with its yardsticks;
+    (b) the bf16 exact and feature-cache runners under int8, launches
+    asserted per frame, and one int8 forward card against CPU; (c) the
+    inference CLI with --quant int8 --quant_static --quant_min_ch 64,
+    train_demo --quant_train, and cli/train with --dcn_chunks 4 and
+    --dcn_remat against the same run without them."""
+    import torch.nn.functional as F
+
+    from sgtapose_tpu_torch.cli import infer, train as train_cli, train_demo
+    from sgtapose_tpu_torch.data import synthetic
+    from sgtapose_tpu_torch.eval.synthetic_eval import calibration_inputs, make_bf16_apply
+    from sgtapose_tpu_torch.infer import detector as det_lib
+    from sgtapose_tpu_torch.models import layers
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.ops import build, int8_conv
+    from sgtapose_tpu_torch.train import trainer
+    from sgtapose_tpu_torch.utils.precision import bf16_inference_model
+
+    out = {}
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    model_cpu = create_model(cfg.model, device="cpu", seed=0)
+    perturb_zero_init(model_cpu, torch.Generator().manual_seed(1))
+    model16_cpu = bf16_inference_model(model_cpu)
+    model16 = bf16_inference_model(model_cpu).to(dev)
+    del model_cpu
+    H, W = cfg.model.input_res
+    Ho, Wo = cfg.model.output_res
+    g = torch.Generator().manual_seed(2)
+    inputs = [torch.randn(1, H, W, 3, generator=g), torch.randn(1, H, W, 3, generator=g),
+              torch.rand(1, H, W, 1, generator=g), torch.rand(1, H, W, 1, generator=g),
+              torch.rand(1, Ho, Wo, 7, generator=g), torch.rand(1, Ho, Wo, 7, generator=g)]
+    inputs16 = [x.to(bf) for x in inputs]
+    calib = calibration_inputs(cfg, device=dev)
+    n_calib = len(calib)  # the inference CLI calibrates on as many frames
+    scales = layers.calibrate(make_bf16_apply(model16), calib)
+    n_sites = {min_ch: quant_sites(torch, model16, min_ch) for min_ch in (0, 64)}
+    if len(scales) != n_sites[0] or n_sites[0] != 57:
+        raise AssertionError(f"int8: {len(scales)} calibrated scales, {n_sites[0]} sites; expected 57")
+    out["sites"] = {str(k): v for k, v in n_sites.items()}
+
+    # ---- (a) the kernel at every site of one frame ------------------------
+    calls = []
+    real = int8_conv.int8_conv
+
+    def recording(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    int8_conv.int8_conv = recording
+    try:
+        with torch.no_grad(), layers.quantized("int8", scales=scales):
+            model16(*[x.to(dev) for x in inputs16])
+    finally:
+        int8_conv.int8_conv = real
+    torch.cuda.synchronize()
+    if len(calls) != 57:
+        raise AssertionError(f"int8: {len(calls)} int8_conv calls in one forward, expected 57")
+    shapes = {}
+    for x_q, qw, a_scale, bias, stride, pad, out_dtype in calls:
+        got, acc = int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, stride, pad, out_dtype, return_acc=True)
+        ref, ref_acc = int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, stride, pad, out_dtype, return_acc=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(acc, ref_acc) and torch.equal(got, ref)):
+            raise AssertionError(f"int8_conv x_q {tuple(x_q.shape)} w {tuple(qw.q.shape)} {qw.kh}x{qw.kw} s{stride}: "
+                                 f"accumulators or outputs differ from the plain version")
+        key = (tuple(x_q.shape), tuple(qw.q.shape), qw.kh, stride, pad, bias is not None)
+        shapes.setdefault(key, [0, (x_q, qw, a_scale, bias, stride, pad, out_dtype)])[0] += 1
+    rows = []
+    for (xs, ws, k, stride, pad, has_bias), (count, args) in shapes.items():
+        x_q, qw, a_scale, bias, stride, pad, out_dtype = args
+        N, Hs, Ws, C = xs
+        O = ws[0]
+        Ho_, Wo_ = int8_conv.out_size(Hs, k, stride, pad), int8_conv.out_size(Ws, k, stride, pad)
+        M, K = N * Ho_ * Wo_, k * k * C
+        b_ms, b_by = bound_ms(x_q.numel() + O * K + 2 * M * O + 4 * (O + N) + (2 * O if has_bias else 0),
+                              2 * M * O * K, INT8_OPS_PER_S)
+        kern = lambda: int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, stride, pad, out_dtype)  # noqa: E731
+        yard = _int_mm_yardstick(torch, x_q, qw, stride, pad)
+        try:
+            yard_ms = cold_ms(yard, iters=10)
+        except RuntimeError as e:  # _int_mm's shape rules (K, O multiples of 8)
+            yard_ms, yard_note = None, str(e).splitlines()[0][:120]
+        else:
+            yard_note = None
+        x16 = x_q.to(bf).permute(0, 3, 1, 2)
+        w16 = qw.unpacked().to(bf).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        row = {"x_q": list(xs), "O": O, "kernel": k, "stride": stride, "bias": has_bias, "per_frame": count,
+               "max_abs_err": 0.0, "bitwise": True,
+               "ms": cold_ms(kern, iters=10), "warm_ms": warm_ms(kern, iters=10),
+               "plain_ms": cold_ms(lambda: int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, stride, pad, out_dtype),
+                                   iters=2, warmup=1),
+               "library_ms": yard_ms if k == 1 else None, "pair_ms": yard_ms if k > 1 else None,
+               "int_mm_note": yard_note,
+               "cudnn_bf16_ms": cold_ms(lambda: F.conv2d(x16, w16, None, stride, pad), iters=10),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        print("int8_conv " + json.dumps(row))
+    out["int8_conv_shapes"] = rows
+    del calls, shapes
+    sums = {key: sum(r[key] * r["per_frame"] for r in rows if r[key] is not None)
+            for key in ("ms", "warm_ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "library_ms", "pair_ms")}
+    sums["kernel_ms_at_1x1_sites"] = sum(r["ms"] * r["per_frame"] for r in rows if r["kernel"] == 1)
+    sums["kernel_ms_at_yardstick_sites"] = sum(r["ms"] * r["per_frame"] for r in rows
+                                               if (r["library_ms"] or r["pair_ms"]) is not None)
+    out["int8_conv_per_frame"] = sums
+    print("int8_conv per frame: " + json.dumps(sums))
+
+    # ---- (b) the int8 runners on phase 9's video; card vs CPU forward -----
+    projs, raw, _ = synthetic.make_sequence(torch.Generator().manual_seed(3), T_FRAMES, return_pos_cam=True,
+                                            device=dev)
+    images, _, _ = det_lib.preprocess_frames(raw, cfg)
+    x3d = synthetic.skeleton(dev)[None].expand(T_FRAMES, -1, -1).contiguous()
+    video = det_lib.VideoFrames(images=images, x3d=x3d, init_kps=projs[0])
+    K, raw_hw = synthetic.camera_K(dev), (synthetic.RAW_H, synthetic.RAW_W)
+    warm_cfg = dataclasses.replace(cfg, infer=dataclasses.replace(cfg.infer, pnp_warm_start=True))
+    timer = StageTimer()
+    shapes_ok = {"detected_kps": (T_FRAMES, 7, 2), "scores": (T_FRAMES, 7), "tracking": (T_FRAMES, 7, 2)}
+    out["runners"] = {}
+    # each runner with static and dynamic scales, min_ch 0 and 64
+    for name, cached, static, min_ch in (("exact_static", False, True, 0), ("exact_dynamic_min_ch64", False, False, 64),
+                                         ("cached_dynamic", True, False, 0), ("cached_static_min_ch64", True, True, 64)):
+        make = det_lib.make_cached_video_detector if cached else det_lib.make_video_detector
+        detector = make(model16, warm_cfg if cached else cfg, K, raw_hw, device=dev, stage_timer=timer, quant="int8",
+                        quant_scales=scales if static else None, quant_min_ch=min_ch)
+        detector(slice_frames(video, 2))
+        torch.cuda.synchronize()
+        timer.reset()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = detector(video)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = build.launch_counts()
+        expect = {kn: n * T_FRAMES for kn, n in dict(no_launches, biased_attention_bf16=9, deform_sample_bf16=16,
+                                                      int8_conv=n_sites[min_ch]).items()}
+        if counts != expect:
+            raise AssertionError(f"int8 runner {name}: launches {counts}, expected {expect}")
+        check_result(res, shapes_ok)
+        run = {"frames": T_FRAMES, "wall_s": wall, "fps": T_FRAMES / wall,
+               "stage_ms_per_frame": timer.per_frame_ms(T_FRAMES),
+               "launches_per_frame": {kn: n // T_FRAMES for kn, n in counts.items() if n},
+               "valid_detections": int((res.detected_kps > det_lib.KP_SENTINEL).all(-1).sum())}
+        out["runners"][name] = run
+        print(f"int8 runner {name}: " + json.dumps(run))
+    # one static-scale int8 forward, card against CPU, against the card's int8 error
+    with torch.no_grad():
+        fwd = make_bf16_apply(model16, quant="int8", quant_scales=scales)
+        card_q = fwd(*[x.to(dev) for x in inputs])
+        card_f = make_bf16_apply(model16)(*[x.to(dev) for x in inputs])
+        t0 = time.perf_counter()
+        cpu_q = make_bf16_apply(model16_cpu, quant="int8", quant_scales=scales)(*inputs)
+        cpu_s = time.perf_counter() - t0
+    cmp = {"cpu_seconds": cpu_s}
+    for key in ("hm", "reg", "tracking"):
+        gap = (card_q[key] - card_f[key]).abs().max().item()
+        err = (card_q[key].cpu() - cpu_q[key]).abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(cpu_q[key].abs().max().item())) - 7)
+        bar = max(INT8_CARD_VS_CPU * gap, BF16_CARD_VS_CPU_ULPS * ulp)
+        cmp[key] = {"card_vs_cpu": err, "card_int8_vs_bf16": gap, "bar": bar}
+        if not (0 < gap < 0.1 and math.isfinite(err) and err <= bar):
+            raise AssertionError(f"int8 forward {key}: card vs CPU {err}, card int8 vs bf16 {gap} (bar {bar})")
+    out["forward_card_vs_cpu"] = cmp
+    print("int8 forward 480x480 card vs cpu: " + json.dumps(cmp))
+    # (c)'s peak memory is read beside phase 13's: drop what (a) and (b) hold
+    del model16_cpu, cpu_q, model16, card_q, card_f, video, images, raw, calib
+
+    # ---- (c) the CLIs and the knobs -----------------------------------------
+    syn = os.path.join(work, "syn")  # phase 12's set: CLI_VIDEOS x CLI_FRAMES
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = infer.main(["--dataset", syn, "--ckpt", ckpt, "--output_dir", os.path.join(work, "int8_infer"),
+                      "--quant", "int8", "--quant_static", "--quant_min_ch", "64", "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    frames = CLI_VIDEOS * CLI_FRAMES
+    # calibration (float32 model): the float DCN and the columns it records; serving: int8
+    expect = dict(no_launches, biased_attention=9 * (n_calib + frames), deform_conv=16 * n_calib,
+                  deform_sample=16 * (n_calib + frames), int8_conv=n_sites[64] * frames)
+    km = res["keypoint_metrics"]
+    if counts != expect or km["num_gt_inframe"] + km["num_gt_outframe"] != frames * 7:
+        raise AssertionError(f"int8 infer cli: launches {counts} (expected {expect}), GT counts {km}")
+    out["infer_cli"] = {"seconds": time.perf_counter() - t0, "launches": counts, "fps": res["timing"]["fps"],
+                        "stage_s": res["timing"]["stage_s"], "keypoint_metrics": km}
+    print("int8 infer cli: " + json.dumps(out["infer_cli"]))
+
+    step_calls = []
+    real_calls = _counting_calls(trainer, ("train_step",), step_calls)
+    try:
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_demo.main(["--steps", str(QAT_STEPS), "--batch", str(TRAIN_BATCH), "--eval_videos", "1",
+                               "--eval_frames", str(T_FRAMES), "--log_every", "1", "--quant_train",
+                               "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in real_calls.items():
+            setattr(trainer, name, fn)
+    counts = build.launch_counts()
+    qat_step = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_sample=16, deform_sample_bwd=16)
+    evals = dict(no_launches, biased_attention_bf16=9 * T_FRAMES, deform_sample_bf16=16 * T_FRAMES,
+                 int8_conv=57 * T_FRAMES)
+    if (len(step_calls) != QAT_STEPS or any(launched != qat_step for _, launched in step_calls)
+            or counts != {kn: evals[kn] + QAT_STEPS * qat_step[kn] for kn in counts}
+            or not all(math.isfinite(r["tot"]) for r in res["logged"])):
+        raise AssertionError(f"train_demo --quant_train: step launches {step_calls}, launches {counts}")
+    km = res["results"]["keypoint_metrics"]
+    out["qat"] = {"steps": QAT_STEPS, "batch": TRAIN_BATCH, "wall_s_with_eval": wall, "logged": res["logged"],
+                  "launches_per_step": {kn: n for kn, n in qat_step.items() if n}, "eval_fps": res["fps"],
+                  "eval_keypoint_metrics": km, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("train_demo --quant_train: " + json.dumps(out["qat"]))
+    del res
+
+    step_expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16,
+                       deform_conv_dgrad=16, deform_conv_wgrad=16)
+    # phase 13 (A)'s set and schedule, without validation and mosaics
+    base = ["--dataset", os.path.join(work, "train_syn"), "--batch_size", str(TRAIN_CLI_BATCH), "--num_epochs", "1",
+            "--lr_step", "2", "--log_every", "1", "--image_log_every", "0", "--device", "cuda"]
+    knobs = {}
+    for name, flags in (("plain", []), ("dcn_chunks_4", ["--dcn_chunks", "4"]), ("dcn_remat", ["--dcn_remat"])):
+        step_calls.clear()
+        real_calls = _counting_calls(trainer, ("train_step",), step_calls)
+        exp = os.path.join(work, f"knobs_{name}")
+        try:
+            build.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train_cli.main(base + ["--output_dir", exp] + flags)
+            torch.cuda.synchronize()
+        finally:
+            for fn_name, fn in real_calls.items():
+                setattr(trainer, fn_name, fn)
+        # remat runs each DCN forward again in the backward
+        expect = dict(step_expect, deform_conv=32) if name == "dcn_remat" else step_expect
+        if not step_calls or any(launched != expect for _, launched in step_calls):
+            raise AssertionError(f"train cli {name}: step launches {step_calls}, expected {expect}")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            losses = [r["tot"] for r in map(json.loads, f) if r["prefix"] == "train"]
+        knobs[name] = {"seconds": time.perf_counter() - t0, "steps": len(step_calls), "losses": losses,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del res
+    ref = [r["tot"] for r in train_cli_run["synthetic"]["records"] if r["prefix"] == "train"][:len(knobs["plain"]["losses"])]
+    knobs["phase13_A_losses"] = ref
+    knobs["phase13_A_peak_memory_gb"] = train_cli_run["synthetic"]["peak_memory_gb"]
+    for name in ("plain", "dcn_chunks_4", "dcn_remat"):
+        got = knobs[name]["losses"]
+        # the first step's loss: the same forward; later steps: the DCN data
+        # gradient's float atomics add in another order in every run
+        if len(got) != len(ref) or abs(got[0] - ref[0]) > 1e-6 * abs(ref[0]) or any(
+                abs(a - b) > 1e-4 * abs(b) for a, b in zip(got, ref)):
+            raise AssertionError(f"train cli {name}: losses {got}, phase 13 (A) {ref}")
+    out["dcn_knobs"] = knobs
+    print("train cli knobs: " + json.dumps(knobs))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def int8_kernel_rows(int8, launches_per_frame):
+    """The kernels-line entry of the int8 kernel: launches from the int8
+    exact runner (static scales, every site), per-frame sums of (a)."""
+    rows = int8["int8_conv_shapes"]
+    s = int8["int8_conv_per_frame"]
+    bounds = [r["bound_by"] for r in rows]
+    bound_by = max(set(bounds), key=bounds.count)
+    run = int8["runners"]["exact_static"]  # every site
+    return {"name": "int8_conv", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "sgtapose_tpu/models/layers.py:155", "launches": run["launches_per_frame"]["int8_conv"] * T_FRAMES,
+            "launches_per_frame": launches_per_frame, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": s["ms"], "warm_ms": s["warm_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": bound_by, "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else "1979 TOP/s dense int8",
+            "library_ms": None,
+            "library_ms_note": ("no single PyTorch call computes the 3x3 and 7x7 sites; torch._int_mm at the 1x1 "
+                                "sites sums to library_ms_1x1_sites beside the kernel's kernel_ms_at_1x1_sites"),
+            "library_ms_1x1_sites": s["library_ms"], "kernel_ms_at_1x1_sites": s["kernel_ms_at_1x1_sites"],
+            "pair_ms": s["pair_ms"], "pair_note": "im2col + torch._int_mm at the 3x3 and 7x7 sites it takes",
+            "kernel_ms_at_yardstick_sites": s["kernel_ms_at_yardstick_sites"],
+            "cudnn_bf16_ms": s["cudnn_bf16_ms"], "cudnn_note": "F.conv2d in bf16 at the same sites, for the record",
+            "shapes_note": "the 57 sites of one flagship frame at 480x480 (trunk at batch 2), per frame; "
+                           "accumulators and outputs bit for bit against plain_int8_conv"}
+
+
 def conv_macs(torch, model, x) -> int:
     """Multiply-adds of the model's convolutions (transposed ones included)
     in one forward of x, counted from their output shapes."""
@@ -3181,14 +3560,16 @@ def trunk_launches(model, image, torch):
 
 def profile_frames(detector, video, torch):
     """CUDA launches per stage and device busy time over the frames of
-    `video` (2), from torch.profiler (launch API calls inside each stage's
-    range)."""
+    `video`, from torch.profiler (launch API calls inside each stage's
+    range); `profile_s`, the seconds from the start of the profiled call to
+    the end of this function."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     frames = video.images.shape[-4]
     saved = detector.stage_timer
     detector.stage_timer = record_function
+    t_start = time.perf_counter()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3214,7 +3595,7 @@ def profile_frames(detector, video, torch):
             "kernel_ms_per_frame": kernel_ms,
             "launches_per_frame": len(launches) / frames,
             "device_kernel_ms_per_frame": device_us / 1e3 / frames,
-            "profiled_wall_ms_per_frame": wall_ms / frames}
+            "profiled_wall_ms_per_frame": wall_ms / frames, "profile_s": time.perf_counter() - t_start}
 
 
 if __name__ == "__main__":

@@ -8,10 +8,11 @@ JAX package:
   config.py   model/inference dataclasses (same defaults as the reference)
   core/       geometry, masked EPnP + LM PnP solver (batched over videos or
               frames), the eval harness's weighted refinement
-  models/     DLA-34 trunk, DCNv2 decoder, windowed cross-attention, SGTAPose
+  models/     DLA-34 trunk, DCNv2 decoder, windowed cross-attention, SGTAPose,
+              the quantizable conv of int8 serving and QAT (layers.py)
   ops/        hand-written CUDA kernels (csrc/*.cu: forward and backward in
-              float32 and bf16): the nvcc build, the ctypes bindings and the
-              launch counters
+              float32 and bf16, int8 serving's s8 convolution): the nvcc
+              build, the ctypes bindings and the launch counters
   decode/     peak finding + sub-pixel decode (batched over videos)
   infer/      streaming video detectors: exact, feature-cache, batched,
               sharded over the ranks of a process group; the tracker's

@@ -32,9 +32,15 @@ one `python -m sgtapose_tpu_torch.cli.convert --torch_ckpt X.pth --out
 C.pt` wrote from a reference-format .pth; without it the weights are random
 (seeded), a smoke mode. An orbax checkpoint directory of the JAX package
 goes through JAX's converter first (`python -m sgtapose_tpu.cli.convert
---ckpt DIR --out_pth X.pth`, then `--torch_ckpt X.pth`). Not ported yet,
-and raising NotImplementedError with the ROADMAP.md Queue 1 item that brings
-them: --quant / --quant_static / --quant_min_ch (int8, 8).
+--ckpt DIR --out_pth X.pth`, then `--torch_ckpt X.pth`).
+
+--quant int8 serves the quantizable convs as s8 x s8 -> s32
+(`models/layers.py`, the hand-written `csrc/int8_conv.cu` on the card);
+--quant_static first calibrates static activation scales on synthetic
+frames (`eval/synthetic_eval.calibration_inputs`, the float32 model);
+--quant_min_ch N leaves the sites with min(out_ch, in_ch) below N in float.
+A DREAM baseline (--is_ct false) has no quantizable conv: --quant changes
+nothing there.
 """
 
 from __future__ import annotations
@@ -84,9 +90,12 @@ def parse_args(argv=None):
     p.add_argument("--max_videos", type=int, default=None)
     p.add_argument("--ref_sort", default="score", choices=["score", "y"],
                    help="peak ambiguity ordering (decode/peaks.py)")
-    p.add_argument("--quant", default=None, choices=["int8"], help="not ported")
-    p.add_argument("--quant_static", action="store_true", help="not ported")
-    p.add_argument("--quant_min_ch", type=int, default=0, help="not ported above 0")
+    p.add_argument("--quant", default=None, choices=["int8"],
+                   help="int8 serving: the quantizable convs run s8 x s8 -> s32 (models/layers.py)")
+    p.add_argument("--quant_static", action="store_true",
+                   help="calibrate static activation scales on synthetic frames first (else dynamic)")
+    p.add_argument("--quant_min_ch", type=int, default=0,
+                   help="quantize only convs with min(in_ch, out_ch) >= N")
     p.add_argument("--decode_coord", default="reg", choices=["reg", "avg", "logquad", "mean"],
                    help="final sub-pixel coordinate estimator (decode/peaks.py)")
     p.add_argument("--phase", default=None,
@@ -111,8 +120,7 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    """SystemExit for --flip_test on the temporal detector (as the JAX CLI);
-    NotImplementedError, naming the ROADMAP item, for what is not ported."""
+    """SystemExit for --flip_test on the temporal detector, as the JAX CLI."""
     if args.flip_test and args.is_ct != "false":
         raise SystemExit(
             "--flip_test is only defined for the DREAM single-frame mode (--is_ct false). On the "
@@ -120,14 +128,24 @@ def _refuse_unported(args) -> None:
             "image batch, so _flip_output averages an empty [1:2] slice); flip-TTA is also "
             "ill-posed there because the PnP prior and attention cls maps are not "
             "mirror-equivariant.")
-    unported = [
-        ("--quant", args.quant is not None, 8),
-        ("--quant_static", args.quant_static, 8),
-        ("--quant_min_ch > 0", args.quant_min_ch > 0, 8),
-    ]
-    asked = [f"{flag} (ROADMAP.md Queue 1 item {item})" for flag, on, item in unported if on]
-    if asked:
-        raise NotImplementedError(f"not ported to sgtapose_tpu_torch yet: {', '.join(asked)}")
+
+
+def quant_options(args, model, cfg: Config) -> Dict[str, object]:
+    """The detector's int8 serving arguments of --quant, --quant_static and
+    --quant_min_ch (JAX's `_make_apply`): with --quant_static, the static
+    scales calibrated on the float32 model over `calibration_inputs(cfg)`,
+    the phase's inputs of each."""
+    if args.quant is None or args.is_ct == "false":
+        return {}
+    scales = None
+    if args.quant_static:
+        from sgtapose_tpu_torch.eval.synthetic_eval import calibration_inputs
+        from sgtapose_tpu_torch.models.layers import calibrate
+
+        inputs = [det_lib._phase_model_inputs(args.phase, *a) for a in calibration_inputs(cfg, device=args.device)]
+        scales = calibrate(model, inputs)
+        print(f"int8: calibrated {len(scales)} static activation scales")
+    return {"quant": args.quant, "quant_scales": scales, "quant_min_ch": args.quant_min_ch}
 
 
 class DetOut:
@@ -154,7 +172,8 @@ def _make_runner(args, model, cfg: Config, camera_K, raw_hw, timer=None):
         return lambda imgs_np, x3d: DetOut(*dream(imgs_np))
     debug = args.debug > 0
     detector = det_lib.make_video_detector(model, cfg, camera_K, raw_hw, device=args.device,
-                                           debug_outputs=debug, phase=args.phase)
+                                           debug_outputs=debug, phase=args.phase,
+                                           **getattr(args, "quant_kwargs", {}))
 
     def run(imgs_np, x3d):
         raw = torch.from_numpy(np.ascontiguousarray(imgs_np)).to(args.device)
@@ -530,6 +549,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     cfg = make_config(args)
     model = load_model(args, cfg, dev)
+    args.quant_kwargs = quant_options(args, model, cfg)
 
     if args.depth:
         results = run_depth(args, cfg, model)

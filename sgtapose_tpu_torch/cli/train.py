@@ -52,8 +52,10 @@ with --init_backbone_stem also into the image stem) before --resume.
 attention runs the bf16 key-tiled forward, levels 1 and 2 the bf16
 shared-memory one, and level 2's backward the bf16 row-split path.
 
-Not ported yet, and raising NotImplementedError with the ROADMAP.md Queue 1
-item that brings each: --dcn_chunks > 1 and --dcn_remat (9). An orbax
+--dcn_chunks N and --dcn_remat are the DCN decoder's memory knobs
+(`models/dla.py:DeformNode`): N row slabs where the port forms the sampled
+columns with plain ops (on the card the fused kernels hold no such temps),
+and the DCN recomputed in the backward; neither changes a number. An orbax
 checkpoint directory as --resume raises with the two commands that convert
 it (`cli/convert.py`).
 """
@@ -108,8 +110,10 @@ def parse_args(argv=None):
                         "reference's live renderer)")
     p.add_argument("--input_res", type=int, default=480)
     p.add_argument("--dla_node", default="dcn", choices=["dcn", "conv"])
-    p.add_argument("--dcn_chunks", type=int, default=1, help="not ported above 1")
-    p.add_argument("--dcn_remat", action="store_true", help="not ported")
+    p.add_argument("--dcn_chunks", type=int, default=1,
+                   help="form the DCN's sampled columns in N row slabs (memory knob; numbers unchanged)")
+    p.add_argument("--dcn_remat", action="store_true",
+                   help="recompute the DCN nodes in the backward (memory knob; numbers unchanged)")
     p.add_argument("--kernel_list", default="12,6,3,1,1,1",
                    help="per-level attention window sizes")
     p.add_argument("--num_devices", type=int, default=None,
@@ -146,21 +150,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    unported = [
-        ("--dcn_chunks > 1", args.dcn_chunks > 1, 9),
-        ("--dcn_remat", args.dcn_remat, 9),
-    ]
-    asked = [f"{flag} (ROADMAP.md Queue 1 item {item})" for flag, on, item in unported if on]
-    if asked:
-        raise NotImplementedError(f"not ported to sgtapose_tpu_torch yet: {', '.join(asked)}")
-
-
 def build_config(args) -> Config:
     return Config(
         model=ModelConfig(arch=args.arch, input_res=(args.input_res, args.input_res),
                           num_classes=42 if args.depth else len(KEYPOINT_NAMES[args.robot]),
-                          dla_node=args.dla_node,
+                          dla_node=args.dla_node, dcn_chunks=args.dcn_chunks, dcn_remat=args.dcn_remat,
                           kernel_list=tuple(int(x) for x in args.kernel_list.split(","))),
         train=TrainConfig(lr=args.lr, seed=args.seed, hm_disturb=args.hm_disturb,
                           lost_disturb=args.lost_disturb, fp_disturb=args.fp_disturb,
@@ -201,7 +195,6 @@ def main(argv=None, stage_timer=None):
     loader batch), "batch" (to the card, augmentation, priors), the train
     step's "forward", "backward" and "optimizer", and "validation"."""
     args = parse_args(argv)
-    _refuse_unported(args)
     if args.coordinator and (args.num_processes is None or args.process_id is None):
         raise SystemExit("--coordinator requires both --num_processes and --process_id")
     dev = resolve_device(args.device)

@@ -17,7 +17,11 @@ CLI does. Each step draws its raw batch and its augmentation from
 generators seeded from (seed + 1, step). --init_backbone X.pth loads a
 bare ImageNet DLA-34 state dict into the trunk (with --init_backbone_stem
 also into the image stem; `utils/torch_convert.convert_imagenet_dla34`).
-Flags not ported yet raise: --quant_train, --dcn_chunks > 1, --dcn_remat.
+--quant_train fine-tunes with quantization-aware training (every step under
+`models/layers.quantized("int8_train")`: straight-through fake-quantized
+convs) and evaluates the exact (and with --eval_cache the feature-cache)
+runner under int8 serving. --dcn_chunks N and --dcn_remat are the DCN
+decoder's memory knobs (`models/dla.py:DeformNode`; numbers unchanged).
 --fused_attention is accepted and changes nothing: the port always runs its
 attention kernel, which computes the JAX default (einsum) form, under
 --bf16 too. Checkpoints are `torch.save` files
@@ -36,6 +40,7 @@ from sgtapose_tpu_torch import resolve_device
 from sgtapose_tpu_torch.config import Config, ModelConfig, TrainConfig
 from sgtapose_tpu_torch.data import pipeline, synthetic
 from sgtapose_tpu_torch.infer import detector as det_lib
+from sgtapose_tpu_torch.models import layers
 from sgtapose_tpu_torch.train import trainer
 from sgtapose_tpu_torch.utils import torch_convert
 from sgtapose_tpu_torch.utils.precision import bf16_inference_model
@@ -53,8 +58,10 @@ def parse_args(argv=None):
     p.add_argument("--fused_attention", action="store_true",
                    help="accepted; the port always runs its attention kernel, which computes the "
                         "JAX default (einsum) form, also under --bf16")
-    p.add_argument("--dcn_chunks", type=int, default=1, help="not ported above 1")
-    p.add_argument("--dcn_remat", action="store_true", help="not ported")
+    p.add_argument("--dcn_chunks", type=int, default=1,
+                   help="form the DCN's sampled columns in N row slabs (memory knob; numbers unchanged)")
+    p.add_argument("--dcn_remat", action="store_true",
+                   help="recompute the DCN nodes in the backward (memory knob; numbers unchanged)")
     p.add_argument("--eval_frames", type=int, default=16)
     p.add_argument("--eval_videos", type=int, default=4)
     p.add_argument("--log_every", type=int, default=50)
@@ -74,7 +81,8 @@ def parse_args(argv=None):
     p.add_argument("--init_backbone_stem", action="store_true",
                    help="also copy the ImageNet base_layer into the image stem")
     p.add_argument("--reg_weight", type=float, default=0.01)
-    p.add_argument("--quant_train", action="store_true", help="not ported")
+    p.add_argument("--quant_train", action="store_true",
+                   help="quantization-aware training (fake-quantized convs), then an int8 serving eval")
     p.add_argument("--cache_prior", action="store_true",
                    help="condition the pre pass on a PnP-reprojection prior (the feature-cache "
                         "runner's input distribution)")
@@ -82,14 +90,6 @@ def parse_args(argv=None):
                    help="also evaluate the feature-cache runner")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    unported = {"--quant_train": args.quant_train,
-                "--dcn_chunks > 1": args.dcn_chunks > 1, "--dcn_remat": args.dcn_remat}
-    asked = [flag for flag, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: not ported to sgtapose_tpu_torch yet")
 
 
 def step_generator(seed: int, step: int, stream: int) -> torch.Generator:
@@ -100,7 +100,8 @@ def step_generator(seed: int, step: int, stream: int) -> torch.Generator:
 
 def make_config(args) -> Config:
     return Config(
-        model=ModelConfig(input_res=(args.input_res, args.input_res), dla_node=args.dla_node),
+        model=ModelConfig(input_res=(args.input_res, args.input_res), dla_node=args.dla_node,
+                          dcn_chunks=args.dcn_chunks, dcn_remat=args.dcn_remat),
         train=TrainConfig(lr=args.lr, warmup_iters=min(100, (args.schedule_iters or args.steps) // 4)),
     )
 
@@ -116,6 +117,8 @@ def train_loop(state, cfg: Config, args, device, stage_timer=None):
     stages."""
     timed = stage_timer or (lambda name: contextlib.nullcontext())
     batch_fn = pipeline.make_batch_fn(cfg, synthetic.camera_K(), cache_prior=args.cache_prior)
+    # --quant_train: every step runs its forward and backward fake-quantized
+    quant = (lambda: layers.quantized("int8_train")) if args.quant_train else contextlib.nullcontext
     logged = []
     t0 = time.time()
     for it in range(args.steps):
@@ -123,8 +126,9 @@ def train_loop(state, cfg: Config, args, device, stage_timer=None):
             step = args.resume_step + it
             raw = synthetic.make_raw_batch(step_generator(args.seed, step, 0), args.batch, device=device)
             batch = batch_fn(step_generator(args.seed, step, 1), raw)
-        stats = trainer.train_step(state, batch, reg_weight=args.reg_weight, bf16=args.bf16,
-                                   stage_timer=stage_timer)
+        with quant():
+            stats = trainer.train_step(state, batch, reg_weight=args.reg_weight, bf16=args.bf16,
+                                       stage_timer=stage_timer)
         if it % args.log_every == 0 or it == args.steps - 1:
             s = {k: v.item() for k, v in stats.items()}
             logged.append(dict(step=it, **s))
@@ -138,21 +142,22 @@ def train_loop(state, cfg: Config, args, device, stage_timer=None):
 
 def evaluate(model, cfg: Config, args, device, cached: bool = False):
     """The bf16 copy of the trained weights through the exact (or, with
-    cached, the feature-cache) runner on held-out synthetic videos:
-    (results of `analyze_sequence_results`, fps)."""
+    cached, the feature-cache) runner on held-out synthetic videos, under
+    int8 serving (dynamic scales) with --quant_train: (results of
+    `analyze_sequence_results`, fps)."""
     from sgtapose_tpu_torch.eval.synthetic_eval import evaluate_runner, make_eval_videos
 
     model16 = bf16_inference_model(model.eval())
     raw_hw = (synthetic.RAW_H, synthetic.RAW_W)
     make = det_lib.make_cached_video_detector if cached else det_lib.make_video_detector
-    run = make(model16, cfg, synthetic.camera_K(device), raw_hw, device=device)
+    run = make(model16, cfg, synthetic.camera_K(device), raw_hw, device=device,
+               quant="int8" if args.quant_train else None)
     vids = make_eval_videos(args.eval_videos, args.eval_frames, args.seed, device=device)
     return evaluate_runner(run, cfg, vids, device=device)
 
 
 def main(argv=None, stage_timer=None):
     args = parse_args(argv)
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     # float32 training (and bf16 training's float32 parts) means float32:
     # cuDNN convolutions default to TF32
@@ -173,7 +178,8 @@ def main(argv=None, stage_timer=None):
                                                       state.model, map_stem=args.init_backbone_stem)
         print(f"ImageNet trunk init from {args.init_backbone}: {report['n_converted']} tensors")
 
-    print(f"training {args.steps} steps, batch {args.batch}, {'bf16' if args.bf16 else 'float32'}, on {dev}")
+    print(f"training {args.steps} steps, batch {args.batch}, {'bf16' if args.bf16 else 'float32'}"
+          f"{', int8 QAT' if args.quant_train else ''}, on {dev}")
     t0 = time.time()
     logged = train_loop(state, cfg, args, dev, stage_timer=stage_timer)
     print(f"training done in {time.time() - t0:.0f}s")

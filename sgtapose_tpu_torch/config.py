@@ -62,9 +62,10 @@ IMAGE_STD = (0.5, 0.5, 0.5)
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture config. Fields the port does not use yet (bf16, int8,
-    DCN chunking, fused-attention switches) are absent: the port always runs
-    its attention kernel and float32."""
+    """Architecture config. bf16, int8 and the fused-attention switch are not
+    fields here: bf16 is a cast of the model (`utils/precision.py`), int8 a
+    context around its calls (`models/layers.py`), and the port always runs
+    its attention kernel."""
 
     arch: str = "dlapawdl3new_34"  # flagship: DLA-34 + l3new windowed attention
     num_classes: int = 7
@@ -84,6 +85,14 @@ class ModelConfig:
     # the ablation variant's (dlaabla) trunk sharing and prior wiring:
     # wo_shared | shared | shared_repro
     ablation_mode: str = "shared_repro"
+    # large-batch training memory knobs of the DCN decoder nodes (numbers
+    # unchanged; models/dla.py:DeformNode): dcn_chunks > 1 forms the DCN's
+    # sampled columns in row slabs where the port forms them (the plain
+    # versions, the int8 modes), bounding their (B,H,W,9,C) gather temps;
+    # dcn_remat recomputes the DCN in the backward instead of keeping its
+    # activations
+    dcn_chunks: int = 1
+    dcn_remat: bool = False
 
     @property
     def output_res(self) -> Tuple[int, int]:

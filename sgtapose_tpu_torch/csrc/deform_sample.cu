@@ -21,10 +21,12 @@
 // same offset/mask words, a broadcast), which is cheaper than staging it.
 // A scalar variant handles C % 4 != 0 or unaligned pointers.
 //
-// No path of the port launches it: the DCN weight gradient forms the same
-// columns inside csrc/deform_conv_wgrad.cu. It stays as that kernel's
-// yardstick (the sampler, then torch.matmul, as chip_smoke.py times it) and
-// for the tests.
+// The fused paths do not launch it (the DCN weight gradient forms the same
+// columns inside csrc/deform_conv_wgrad.cu, for which it stays the
+// yardstick: the sampler, then torch.matmul, as chip_smoke.py times it).
+// The int8 paths do: under int8 serving and quantization-aware training the
+// DCN's contraction is a quantizable site over these columns
+// (models/deform_conv.py:deform_columns), 16 launches a frame or step.
 //
 // Two instantiations: float32 (deform_sample_fwd) and bf16
 // (deform_sample_bf16_fwd), the columns of bf16 training's weight gradient

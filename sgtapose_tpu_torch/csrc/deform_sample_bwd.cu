@@ -27,6 +27,10 @@
 // same offset and mask words, a broadcast) and the three per-tap sums are
 // added with shuffles. The atomics into dfeat are the part that is not a
 // plain stream.
+//
+// On the quantization-aware training path (models/deform_conv.py:
+// deform_columns, under int8_train) it is the columns' backward, 16 launches
+// a step; the fused training path takes csrc/deform_conv_bwd.cu instead.
 
 #include <cuda_runtime.h>
 #include <math.h>

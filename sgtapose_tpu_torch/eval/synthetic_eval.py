@@ -1,12 +1,12 @@
 """Synthetic-video evaluation harness.
 
 Counterpart of `sgtapose_tpu/eval/synthetic_eval.py`: the bf16 inference
-wrapper (`make_bf16_apply`), held-out synthetic videos (`make_eval_videos`)
-and the runner -> `analyze_sequence_results` plumbing (`evaluate_runner`),
-which scores a detector's keypoints and ADD on the same videos, so the
-accuracy cost of bf16 serving and of the feature cache can be read beside
-the exact float32 detector's. int8 (`quant=` in the JAX package) is not
-ported yet.
+wrapper (`make_bf16_apply`, with int8 serving through `quant=`), the int8
+calibration frames (`calibration_inputs`), held-out synthetic videos
+(`make_eval_videos`) and the runner -> `analyze_sequence_results` plumbing
+(`evaluate_runner`), which scores a detector's keypoints and ADD on the same
+videos, so the accuracy cost of bf16 and int8 serving and of the feature
+cache can be read beside the exact float32 detector's.
 """
 
 from __future__ import annotations
@@ -18,23 +18,52 @@ import numpy as np
 import torch
 
 from sgtapose_tpu_torch.config import Config
-from sgtapose_tpu_torch.data import synthetic
+from sgtapose_tpu_torch.data import pipeline, synthetic
 from sgtapose_tpu_torch.eval.analysis import analyze_sequence_results
 from sgtapose_tpu_torch.infer import detector as det_lib
+from sgtapose_tpu_torch.models import layers
 from sgtapose_tpu_torch.utils.precision import cast_floating
 
 
-def make_bf16_apply(model) -> Callable:
+def make_bf16_apply(model, quant: str | None = None, quant_scales=None, quant_min_ch: int = 0) -> Callable:
     """fn(*inputs) -> heads: the inputs cast to bf16, the model run, the head
     outputs cast to float32. `model` is a bf16 model
-    (`utils/precision.bf16_inference_model`)."""
+    (`utils/precision.bf16_inference_model`). quant="int8" runs every call as
+    one forward under `models/layers.quantized`: quant_scales (from
+    `layers.calibrate`) make the activation scales static, quant_min_ch
+    leaves sites with min(out_ch, in_ch) below it in float."""
 
     @torch.no_grad()
     def apply(*inputs):
         out = model(*cast_floating(inputs, torch.bfloat16))
         return {k: v.to(torch.float32) for k, v in out.items()}
 
+    if quant is not None:
+        apply = layers.quantized_apply(apply, quant, scales=quant_scales, min_ch=quant_min_ch)
     return apply
+
+
+def calibration_inputs(cfg: Config, n_frames: int = 4, seed: int = 0, device="cuda"):
+    """Single-frame model inputs for int8 calibration, as the JAX package
+    draws them (from the port's generators: frame i from one seeded from
+    (seed + 4242, i)): a 2-frame synthetic video through the training
+    batch pipeline's preprocessing and ground-truth prior rendering, giving
+    (cur, pre, pre_hm, repro_hm, pre_cls, repro_cls) tuples of batch 1 on
+    `device`, shaped like the streaming detector's per-frame inputs. The
+    keypoint count follows cfg.model.num_classes."""
+    n_kp = cfg.model.num_classes
+    skel = synthetic.robot_skeleton(n_kp, device)
+    batch_fn = pipeline.make_batch_fn(cfg, synthetic.camera_K(device))
+    out = []
+    for i in range(n_frames):
+        gen = torch.Generator().manual_seed((seed + 4242) * 1_000_003 + i)
+        projs, imgs = synthetic.make_sequence(gen, 2, n_kp=n_kp, device=device)
+        raw = pipeline.RawSample(prev_img=imgs[0][None], next_img=imgs[1][None], prev_projs=projs[0][None],
+                                 next_projs=projs[1][None], prev_x3d_rob=skel[None], next_x3d_rob=skel[None])
+        b = batch_fn(gen, raw)
+        out.append(tuple(b[k] for k in ("cur_img", "pre_img", "pre_hm", "repro_hm", "pre_hm_cls",
+                                         "repro_hm_cls")))
+    return out
 
 
 def make_eval_videos(n_videos: int, n_frames: int, seed: int, n_kp: int | None = None,

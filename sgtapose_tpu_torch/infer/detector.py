@@ -36,6 +36,16 @@ its inputs are cast to its parameter dtype and its heads back to float32,
 as the JAX package's `make_bf16_apply` does; PnP, rendering and decode stay
 float32. Everything stays on the device; the frame loop never reads a value
 back to the host (PnP's eigh/SVD check their own status, see core/pnp.py).
+
+int8 serving (`quant="int8"`, `quant_scales`, `quant_min_ch`; the JAX
+runners take them through the wrapped apply, `models/layers.py`) runs each
+frame step's trunk and fuse stages under one `quantized` context, as one
+wrapped apply call is one forward in JAX: the static scales are consumed
+from the first site of the trunk each frame, and a dynamic scale covers
+what the site sees in that step: [previous; current] frames in the exact
+runner's trunk, the current frame in the feature-cache runner's, and, in
+the batched runner, each video apart (`groups` = V: JAX vmaps one video's
+runner).
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from sgtapose_tpu_torch import resolve_device
 from sgtapose_tpu_torch.config import IMAGE_MEAN, IMAGE_STD, Config
 from sgtapose_tpu_torch.core import geometry, pnp
 from sgtapose_tpu_torch.decode import peaks as decode_lib
+from sgtapose_tpu_torch.models import layers
 from sgtapose_tpu_torch.models.sgta import CHANNELS
 from sgtapose_tpu_torch.parallel import mesh
 from sgtapose_tpu_torch.utils.precision import param_dtype
@@ -159,14 +170,19 @@ class VideoDetector:
     video's VideoFrames returns (T, ...) fields. stage_timer: optional
     callable(stage_name) -> context manager wrapped around each of the five
     stages of every frame step (see STAGES), for measurement; None runs them
-    bare."""
+    bare. quant, quant_scales, quant_min_ch: int8 serving (module
+    docstring)."""
 
     def __init__(self, model, cfg: Config, camera_K, raw_hw: Tuple[int, int], device,
                  debug_outputs: bool = False,
                  stage_timer: Optional[Callable[[str], contextlib.AbstractContextManager]] = None,
-                 phase: str = "PlanA_win"):
+                 phase: str = "PlanA_win", quant: Optional[str] = None, quant_scales=None,
+                 quant_min_ch: int = 0):
         _phase_model_inputs(phase, *(None,) * 6)  # an unknown phase raises here
+        if quant not in (None, "int8"):
+            raise ValueError(f"quant must be None or 'int8', got {quant!r}")
         self.phase = phase
+        self.quant = (quant, quant_scales, quant_min_ch)
         self.device = resolve_device(device)
         p = next(model.parameters())
         if p.device.type != self.device.type:
@@ -183,6 +199,14 @@ class VideoDetector:
 
     def _stage(self, name: str):
         return self.stage_timer(name) if self.stage_timer is not None else contextlib.nullcontext()
+
+    def _forward(self, videos: int):
+        """The context of one frame step's network stages over `videos`
+        videos: one quantized forward under int8 serving, else nothing."""
+        mode, scales, min_ch = self.quant
+        if mode is None:
+            return contextlib.nullcontext()
+        return layers.quantized(mode, scales=scales, min_ch=min_ch, groups=videos)
 
     def _prior(self, carry: DetectorCarry, prev_x3d, next_x3d, teacher, with_pre_hm=True):
         """Stages 1-2: (pose, pre_hm, repro_hm, pre_cls, repro_cls)."""
@@ -206,10 +230,11 @@ class VideoDetector:
         dt = self.dtype
         inputs = tuple(x.to(dt) for x in _phase_model_inputs(self.phase, cur_img, pre_img, pre_hm, repro_hm,
                                                               pre_cls, repro_cls))
-        with self._stage("trunk"):
-            feats = self.model.trunk_features(*inputs)
-        with self._stage("fuse"):
-            out = self.model.fuse_features(feats, *inputs)
+        with self._forward(cur_img.shape[0]):
+            with self._stage("trunk"):
+                feats = self.model.trunk_features(*inputs)
+            with self._stage("fuse"):
+                out = self.model.fuse_features(feats, *inputs)
         return {k: v.to(torch.float32) for k, v in out.items()}
 
     def _decode(self, out):
@@ -312,12 +337,13 @@ class CachedVideoDetector(VideoDetector):
         pose, _, repro_hm, pre_cls, repro_cls = self._prior(carry, prev_x3d, next_x3d, None,
                                                             with_pre_hm=False)
         dt = self.dtype
-        with self._stage("trunk"):
-            cur_feats = self.model.trunk(cur_img.to(dt), repro_hm.to(dt))
-        with self._stage("fuse"):
-            first = carry.frame_idx == 0
-            pre_feats = [torch.where(first, c, p) for c, p in zip(cur_feats, carry.pre_feats)]
-            out = self.model.fuse(pre_feats, cur_feats, pre_cls.to(dt), repro_cls.to(dt))
+        with self._forward(cur_img.shape[0]):
+            with self._stage("trunk"):
+                cur_feats = self.model.trunk(cur_img.to(dt), repro_hm.to(dt))
+            with self._stage("fuse"):
+                first = carry.frame_idx == 0
+                pre_feats = [torch.where(first, c, p) for c, p in zip(cur_feats, carry.pre_feats)]
+                out = self.model.fuse(pre_feats, cur_feats, pre_cls.to(dt), repro_cls.to(dt))
         out = {k: v.to(torch.float32) for k, v in out.items()}
         detected, scores, trk_raw, _ = self._decode(out)
         new_carry = DetectorCarry(pre_img=cur_img, detected_kps=detected,
@@ -340,25 +366,32 @@ class CachedVideoDetector(VideoDetector):
 
 def make_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int], device="cuda",
                         debug_outputs: bool = False, stage_timer=None,
-                        phase: str = "PlanA_win") -> VideoDetector:
+                        phase: str = "PlanA_win", quant: Optional[str] = None, quant_scales=None,
+                        quant_min_ch: int = 0) -> VideoDetector:
     """Single-video exact streaming detector: fn(VideoFrames) -> FrameResult
     stacked over T. `model` is the phase's model (`models/sgta.create_model`)
     on `device`, float32 or bf16 (its trunk_features / fuse_features are
     called per frame). debug_outputs adds the per-frame post-sigmoid heatmaps
-    and rendered prior."""
+    and rendered prior. quant="int8" serves the quantizable convs in int8
+    (module docstring; quant_scales from `models/layers.calibrate` make the
+    scales static, quant_min_ch gates small sites)."""
     return VideoDetector(model, cfg, camera_K, raw_hw, device, debug_outputs=debug_outputs,
-                         stage_timer=stage_timer, phase=phase)
+                         stage_timer=stage_timer, phase=phase, quant=quant, quant_scales=quant_scales,
+                         quant_min_ch=quant_min_ch)
 
 
 def make_batched_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int],
                                 device="cuda", debug_outputs: bool = False,
-                                stage_timer=None, phase: str = "PlanA_win") -> BatchedVideoDetector:
+                                stage_timer=None, phase: str = "PlanA_win", quant: Optional[str] = None,
+                                quant_scales=None, quant_min_ch: int = 0) -> BatchedVideoDetector:
     """The exact detector over a batch of videos (frames depend on each other,
     videos do not): fn(VideoFrames with a leading video dim) -> FrameResult
     fields (V, T, ...). One trunk pass over the V videos' frames, one fuse
-    over V and one batched PnP solve per frame step."""
+    over V and one batched PnP solve per frame step. quant*: int8 serving,
+    dynamic scales per video (module docstring)."""
     return BatchedVideoDetector(model, cfg, camera_K, raw_hw, device, debug_outputs=debug_outputs,
-                                stage_timer=stage_timer, phase=phase)
+                                stage_timer=stage_timer, phase=phase, quant=quant, quant_scales=quant_scales,
+                                quant_min_ch=quant_min_ch)
 
 
 def make_sharded_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int], device="cuda",
@@ -390,9 +423,12 @@ def make_sharded_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int,
 
 
 def make_cached_video_detector(model, cfg: Config, camera_K, raw_hw: Tuple[int, int],
-                               device="cuda", stage_timer=None) -> CachedVideoDetector:
+                               device="cuda", stage_timer=None, quant: Optional[str] = None,
+                               quant_scales=None, quant_min_ch: int = 0) -> CachedVideoDetector:
     """Single-video feature-cache detector (one trunk pass per frame; see
     `CachedVideoDetector`): fn(VideoFrames) -> FrameResult stacked over T.
     Set cfg.infer.pnp_warm_start for the fast path the JAX benchmark runs.
-    Teacher forcing raises."""
-    return CachedVideoDetector(model, cfg, camera_K, raw_hw, device, stage_timer=stage_timer)
+    Teacher forcing raises. quant, quant_scales, quant_min_ch: int8 serving
+    (module docstring), as JAX's `make_cached_video_detector` takes them."""
+    return CachedVideoDetector(model, cfg, camera_K, raw_hw, device, stage_timer=stage_timer, quant=quant,
+                               quant_scales=quant_scales, quant_min_ch=quant_min_ch)

@@ -36,6 +36,18 @@ plain versions (the sampler mirrors the JAX `_sample_pieces`, its backward
 split, `plain_deform_conv_wgrad` the weight-gradient kernel's split of the
 pixels).
 
+int8 serving and quantization-aware training (`models/layers.py`) contract
+the sampled columns through the quantizable site instead of the fused
+kernel: `deform_columns` launches the sampler (`deform_sample` /
+`deform_sample_bf16`) forward and `deform_sample_bwd` backward.
+
+`dcn_chunks` (`DeformConv2d(chunks=)`, JAX's `deform_sample_batch_chunked`)
+forms the columns, their backward and the weight gradient's columns in row
+slabs of `pick_chunks(H, chunks)` where the port forms them with plain ops
+(CPU tensors), global rows kept (JAX's `_sample_pieces` row offset): the same
+numbers, the (B,H,W,9,C) corner temps cut by the slab count. The kernels
+hold no such temps, so on the card chunks changes nothing.
+
 bf16 backward: dx and d(om) from the bf16 instantiation of the data-gradient
 kernel (dY W on bf16 tensor cores with float32 accumulators, the scatter in
 float32, each output rounded once to bf16); dW = dY^T A from the bf16
@@ -53,6 +65,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from sgtapose_tpu_torch.models import layers
 from sgtapose_tpu_torch.ops import build
 
 KERNEL = "deform_sample"
@@ -83,43 +96,77 @@ def dgrad_scratch_floats(C: int, O: int, bf16: bool = False) -> int:
     return -(-C // 16) * -(-O // 32) * 2 * 4608
 
 
-def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """feat (B,H,W,C), offsets (B,H,W,18) as (dy, dx) per tap, masks (B,H,W,9)
-    already sigmoided -> (B,H,W,9*C). Zero padding outside the map. A bf16
-    feat (the bf16 sampler's form: offsets and masks float32) is sampled in
-    float32 and each output element rounded once to bf16."""
-    if feat.dtype == torch.bfloat16:
-        return plain_deform_sample(feat.to(torch.float32), offsets, masks).to(torch.bfloat16)
-    B, H, W, C = feat.shape
-    dev = feat.device
-    gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None, None]
+def pick_chunks(H: int, chunks: int) -> int:
+    """The row slabs of `dcn_chunks`: the largest divisor of H that is <=
+    chunks (JAX's `_pick_chunks`), so the slabs tile H exactly."""
+    for s in range(min(chunks, H), 0, -1):
+        if H % s == 0:
+            return s
+    return 1
+
+
+def _tap_grid(B: int, r0: int, Hs: int, W: int, offsets: torch.Tensor):
+    """Sample coordinates of output rows r0 .. r0 + Hs - 1 (JAX's
+    `_sample_pieces`: global rows, so slabs concatenate to the whole map):
+    (y0i, x0i, fy, fx), each (B, Hs, W, 9)."""
+    dev = offsets.device
+    gy = torch.arange(r0, r0 + Hs, dtype=torch.float32, device=dev)[:, None, None]
     gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :, None]
     taps = torch.arange(9, device=dev)
     ky = (taps // 3 - 1).to(torch.float32)[None, None, :]
     kx = (taps % 3 - 1).to(torch.float32)[None, None, :]
-
-    off = offsets.reshape(B, H, W, 9, 2)
-    y = (gy + ky)[None] + off[..., 0]  # (B,H,W,9)
+    off = offsets.reshape(B, Hs, W, 9, 2)
+    y = (gy + ky)[None] + off[..., 0]  # (B,Hs,W,9)
     x = (gx + kx)[None] + off[..., 1]
-    y0 = torch.floor(y)
-    x0 = torch.floor(x)
-    fy = y - y0
-    fx = x - x0
-    y0i = y0.to(torch.int64)
-    x0i = x0.to(torch.int64)
+    y0, x0 = torch.floor(y), torch.floor(x)
+    return y0.to(torch.int64), x0.to(torch.int64), y - y0, x - x0
 
-    flat = feat.reshape(B, H * W, C)
-    out = None
-    for dy, dx, wy, wx in ((0, 0, 1 - fy, 1 - fx), (0, 1, 1 - fy, fx),
-                           (1, 0, fy, 1 - fx), (1, 1, fy, fx)):
-        yi = y0i + dy
-        xi = x0i + dx
+
+def _corners(y0i, x0i, fy, fx, H: int, W: int):
+    """The 4 bilinear corners: (flat index into the map (clamped), the
+    weight with validity folded in, d(weight)/dy and d(weight)/dx before
+    validity, validity), each (B, Hs, W, 9)."""
+    out = []
+    for dy, dx, w, cy, cx in ((0, 0, (1 - fy) * (1 - fx), -(1 - fx), -(1 - fy)),
+                              (0, 1, (1 - fy) * fx, -fx, 1 - fy),
+                              (1, 0, fy * (1 - fx), 1 - fx, -fy),
+                              (1, 1, fy * fx, fx, fy)):
+        yi, xi = y0i + dy, x0i + dx
         valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).to(torch.float32)
-        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
-        vals = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C)).reshape(B, H, W, 9, C)
-        term = vals * (wy * wx * valid)[..., None]
-        out = term if out is None else out + term
-    return (out * masks[..., None]).reshape(B, H, W, 9 * C)
+        out.append((yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1), w * valid, cy, cx, valid))
+    return out
+
+
+def _gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """flat (B, H*W, C) at idx (B, Hs, W, 9) -> (B, Hs, W, 9, C)."""
+    B, C = flat.shape[0], flat.shape[-1]
+    return torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C)).reshape(idx.shape + (C,))
+
+
+def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                        chunks: int = 1) -> torch.Tensor:
+    """feat (B,H,W,C), offsets (B,H,W,18) as (dy, dx) per tap, masks (B,H,W,9)
+    already sigmoided -> (B,H,W,9*C). Zero padding outside the map. A bf16
+    feat (the bf16 sampler's form: offsets and masks float32) is sampled in
+    float32 and each output element rounded once to bf16. chunks > 1 forms
+    the output in `pick_chunks(H, chunks)` row slabs (`dcn_chunks`): the
+    (B,Hs,W,9,C) corner temps shrink by the slab count, every number is the
+    same."""
+    if feat.dtype == torch.bfloat16:
+        return plain_deform_sample(feat.to(torch.float32), offsets, masks, chunks).to(torch.bfloat16)
+    B, H, W, C = feat.shape
+    S = pick_chunks(H, chunks)
+    Hs = H // S
+    flat = feat.reshape(B, H * W, C)
+    slabs = []
+    for r0 in range(0, H, Hs):
+        rows = slice(r0, r0 + Hs)
+        out = None
+        for idx, w, _, _, _ in _corners(*_tap_grid(B, r0, Hs, W, offsets[:, rows]), H, W):
+            term = _gather(flat, idx) * w[..., None]
+            out = term if out is None else out + term
+        slabs.append((out * masks[:, rows, ..., None]).reshape(B, Hs, W, 9 * C))
+    return slabs[0] if S == 1 else torch.cat(slabs, dim=1)
 
 
 def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -177,19 +224,20 @@ def wgrad_splits(M: int, C: int, O: int, dtype: torch.dtype, sms: int) -> int:
 
 
 def plain_deform_conv_wgrad(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
-                            dy: torch.Tensor, splits: int = 1) -> torch.Tensor:
+                            dy: torch.Tensor, splits: int = 1, chunks: int = 1) -> torch.Tensor:
     """The weight gradient dW (O, 9C) = sum over pixels of dy[p, o] A[p, k*C +
     c] of the columns A = `plain_deform_sample(feat, offsets, masks)`, in the
     kernel's order: the pixels cut into `splits` contiguous ranges of whole K
     steps (`wgrad_step_pixels`), a float32 product per range, the ranges'
     sums added in order. bf16 feat and dy (the bf16 kernel's form; offsets
     and masks float32): A rounded once to bf16, the products and sums in
-    float32, dW rounded once."""
+    float32, dW rounded once. chunks: the columns' row slabs
+    (`plain_deform_sample`)."""
     B, H, W, C = feat.shape
     O = dy.shape[-1]
     M = B * H * W
     f32 = torch.float32
-    cols = plain_deform_sample(feat, offsets, masks).reshape(M, 9 * C).to(f32)
+    cols = plain_deform_sample(feat, offsets, masks, chunks).reshape(M, 9 * C).to(f32)
     dy2 = dy.reshape(M, O).to(f32)
     kp = wgrad_step_pixels(feat.dtype)
     steps = -(-M // kp)
@@ -243,46 +291,47 @@ def deform_conv_wgrad_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: tor
 
 
 def plain_deform_sample_backward(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
-                                 grad: torch.Tensor):
+                                 grad: torch.Tensor, chunks: int = 1):
     """A mirror of the JAX `_bwd_core`: the gradients (dfeat (B,H,W,C),
     doffsets (B,H,W,18), dmask (B,H,W,9)) of `plain_deform_sample` given
     grad (B,H,W,9C), with validity folded into the bilinear weights and
-    their derivatives."""
+    their derivatives. chunks > 1 works in row slabs (`dcn_chunks`), with
+    the same numbers: doffsets and dmask are per output pixel, and dfeat's
+    additions reach each of its elements in the same order (corner by
+    corner, output rows in order; the slabs of one corner add in row order,
+    and different images never add into the same element)."""
     B, H, W, C = feat.shape
-    dev = feat.device
-    gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None, None]
-    gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :, None]
-    taps = torch.arange(9, device=dev)
-    ky = (taps // 3 - 1).to(torch.float32)[None, None, :]
-    kx = (taps % 3 - 1).to(torch.float32)[None, None, :]
-    off = offsets.reshape(B, H, W, 9, 2)
-    y = (gy + ky)[None] + off[..., 0]
-    x = (gx + kx)[None] + off[..., 1]
-    y0, x0 = torch.floor(y), torch.floor(x)
-    fy, fx = y - y0, x - x0
-    y0i, x0i = y0.to(torch.int64), x0.to(torch.int64)
+    S = pick_chunks(H, chunks)
+    Hs = H // S
     flat = feat.reshape(B, H * W, C)
-    g9 = grad.reshape(B, H, W, 9, C)
-    dsamp = g9 * masks[..., None]
-    dfeat = torch.zeros(B * H * W, C, dtype=feat.dtype, device=dev)
-    batch_base = (torch.arange(B, device=dev) * (H * W))[:, None]
-    samp = dval_dy = dval_dx = 0.0
-    for dy, dx, w, cy, cx in ((0, 0, (1 - fy) * (1 - fx), -(1 - fx), -(1 - fy)),
-                              (0, 1, (1 - fy) * fx, -fx, 1 - fy),
-                              (1, 0, fy * (1 - fx), 1 - fx, -fy),
-                              (1, 1, fy * fx, fx, fy)):
-        yi, xi = y0i + dy, x0i + dx
-        valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).to(torch.float32)
-        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
-        vals = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C)).reshape(B, H, W, 9, C)
-        wv = (w * valid)[..., None]
-        samp = samp + vals * wv
-        dval_dy = dval_dy + vals * (cy * valid)[..., None]
-        dval_dx = dval_dx + vals * (cx * valid)[..., None]
-        dfeat.index_add_(0, (idx.reshape(B, -1) + batch_base).reshape(-1), (dsamp * wv).reshape(-1, C))
-    dmask = (samp * g9).sum(-1)
-    doffsets = torch.stack([(dsamp * dval_dy).sum(-1), (dsamp * dval_dx).sum(-1)], dim=-1)
-    return dfeat.reshape(B, H, W, C), doffsets.reshape(B, H, W, 18), dmask
+    batch_base = (torch.arange(B, device=feat.device) * (H * W))[:, None]
+
+    def slab(r0):
+        rows = slice(r0, r0 + Hs)
+        g9 = grad[:, rows].reshape(B, Hs, W, 9, C)
+        dsamp = g9 * masks[:, rows, ..., None]
+        return g9, dsamp, _corners(*_tap_grid(B, r0, Hs, W, offsets[:, rows]), H, W)
+
+    doffsets, dmask = [], []
+    for r0 in range(0, H, Hs):
+        g9, dsamp, corners = whole = slab(r0)
+        samp = dval_dy = dval_dx = 0.0
+        for idx, wv, cy, cx, valid in corners:
+            vals = _gather(flat, idx)
+            samp = samp + vals * wv[..., None]
+            dval_dy = dval_dy + vals * (cy * valid)[..., None]
+            dval_dx = dval_dx + vals * (cx * valid)[..., None]
+        dmask.append((samp * g9).sum(-1))
+        doffsets.append(torch.stack([(dsamp * dval_dy).sum(-1), (dsamp * dval_dx).sum(-1)], dim=-1)
+                        .reshape(B, Hs, W, 18))
+    dfeat = torch.zeros(B * H * W, C, dtype=feat.dtype, device=feat.device)
+    for corner in range(4):
+        for r0 in range(0, H, Hs):
+            # one slab is the whole map: nothing to recompute
+            _, dsamp, corners = whole if S == 1 else slab(r0)
+            idx, wv = corners[corner][:2]
+            dfeat.index_add_(0, (idx.reshape(B, -1) + batch_base).reshape(-1), (dsamp * wv[..., None]).reshape(-1, C))
+    return dfeat.reshape(B, H, W, C), torch.cat(doffsets, dim=1), torch.cat(dmask, dim=1)
 
 
 def deform_sample_bwd_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
@@ -324,18 +373,26 @@ def deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor
     return deform_sample_cuda(feat, offsets, masks)
 
 
+def sample_inputs(om: torch.Tensor):
+    """(offsets (B,H,W,18), masks (B,H,W,9)) of the raw offset/mask conv
+    output, in float32 (a bf16 om widened exactly, the mask sigmoid taken in
+    float32, as the bf16 kernels form them)."""
+    f32 = torch.float32
+    return om[..., :18].to(f32).contiguous(), torch.sigmoid(om[..., 18:27].to(f32)).contiguous()
+
+
 def plain_deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
+                      bias: torch.Tensor, chunks: int = 1) -> torch.Tensor:
     """x (B,H,W,C), om (B,H,W,27) the raw offset/mask conv output, weight
     (O, 9C) with input index k*C + c, bias (O,) -> (B,H,W,O). bf16 inputs
     follow the bf16 kernel: the sampled columns formed in float32 and rounded
-    once to bf16, the product and bias in float32, rounded once."""
+    once to bf16, the product and bias in float32, rounded once. chunks: the
+    columns' row slabs (`plain_deform_sample`)."""
     if x.dtype == torch.bfloat16:
         f32, bf16 = torch.float32, torch.bfloat16
-        flat = plain_deform_sample(x.to(f32), om[..., :18].to(f32),
-                                   torch.sigmoid(om[..., 18:27].to(f32))).to(bf16)
+        flat = plain_deform_sample(x.to(f32), *sample_inputs(om), chunks).to(bf16)
         return torch.nn.functional.linear(flat.to(f32), weight.to(f32), bias.to(f32)).to(bf16)
-    flat = plain_deform_sample(x, om[..., :18], torch.sigmoid(om[..., 18:27]))
+    flat = plain_deform_sample(x, om[..., :18], torch.sigmoid(om[..., 18:27]), chunks)
     return torch.nn.functional.linear(flat, weight, bias)
 
 
@@ -377,20 +434,20 @@ def deform_conv_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
 
 
 def plain_deform_conv_dgrad(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
-                            dy: torch.Tensor):
+                            dy: torch.Tensor, chunks: int = 1):
     """The data gradients (dx (B,H,W,C), dom (B,H,W,27)) of `plain_deform_conv`
     given dy (B,H,W,O): the columns' cotangent dy W, the sampling backward,
     and the mask logits' sigmoid derivative. bf16 inputs (the bf16 kernel's
     form): the float32 formulas from the widened inputs, dx and dom rounded
-    once to bf16."""
+    once to bf16. chunks: the sampling backward's row slabs."""
     if x.dtype == torch.bfloat16:
         f32 = torch.float32
-        dx, dom = plain_deform_conv_dgrad(x.to(f32), om.to(f32), weight.to(f32), dy.to(f32))
+        dx, dom = plain_deform_conv_dgrad(x.to(f32), om.to(f32), weight.to(f32), dy.to(f32), chunks)
         return dx.to(torch.bfloat16), dom.to(torch.bfloat16)
     B, H, W, C = x.shape
     masks = torch.sigmoid(om[..., 18:27])
     dcols = (dy.reshape(-1, weight.shape[0]) @ weight).reshape(B, H, W, 9 * C)
-    dx, doffsets, dmask = plain_deform_sample_backward(x, om[..., :18], masks, dcols)
+    dx, doffsets, dmask = plain_deform_sample_backward(x, om[..., :18], masks, dcols, chunks)
     return dx, torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
 
 
@@ -495,25 +552,27 @@ def tiled_deform_scatter(feat: torch.Tensor, offsets: torch.Tensor, masks: torch
     return dfeat.reshape(B, H, W, C), in_halo / max(total, 1)
 
 
-def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
+def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                         chunks: int = 1):
     """Gradients (dx, dom, dweight, dbias) of `plain_deform_conv` given dy
     (B,H,W,O), in x's dtype, float32 or bf16 (module docstring). CUDA tensors
     launch the data-gradient and the weight-gradient kernels of their dtype
-    (or raise); CPU tensors take the plain versions. dbias is a plain sum."""
+    (or raise; they hold no column temps, so chunks changes nothing there);
+    CPU tensors take the plain versions, in `chunks` row slabs. dbias is a
+    plain sum."""
     O = weight.shape[0]
     dy2 = dy.reshape(-1, O)
     if x.dtype == torch.bfloat16:
         # float32 coordinates and masks, as the bf16 fused forward forms them
-        offsets = om[..., :18].to(torch.float32).contiguous()
-        masks = torch.sigmoid(om[..., 18:27].to(torch.float32)).contiguous()
+        offsets, masks = sample_inputs(om)
         dbias = dy2.sum(0, dtype=torch.float32).to(dy.dtype)
     else:
         offsets = om[..., :18].contiguous()
         masks = torch.sigmoid(om[..., 18:27]).contiguous()
         dbias = dy2.sum(0)
     if x.device.type == "cpu":
-        dweight = plain_deform_conv_wgrad(x, offsets, masks, dy)
-        dx, dom = plain_deform_conv_dgrad(x, om, weight, dy)
+        dweight = plain_deform_conv_wgrad(x, offsets, masks, dy, chunks=chunks)
+        dx, dom = plain_deform_conv_dgrad(x, om, weight, dy, chunks)
     else:
         dweight = deform_conv_wgrad_cuda(x, offsets, masks, dy)
         dx, dom = deform_conv_dgrad_cuda(x, om, weight, dy)
@@ -522,28 +581,69 @@ def deform_conv_backward(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor
 
 class _DeformConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, om, weight, bias):
+    def forward(ctx, x, om, weight, bias, chunks):
         ctx.save_for_backward(x, om, weight)
+        ctx.chunks = chunks
         if x.device.type == "cpu":
-            return plain_deform_conv(x, om, weight, bias)
+            return plain_deform_conv(x, om, weight, bias, chunks)
         return deform_conv_cuda(x, om, weight, bias)
 
     @staticmethod
     def backward(ctx, dy):
         x, om, weight = ctx.saved_tensors
-        return deform_conv_backward(x, om, weight, dy.contiguous())
+        return deform_conv_backward(x, om, weight, dy.contiguous(), ctx.chunks) + (None,)
 
 
 def deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+                bias: torch.Tensor, chunks: int = 1) -> torch.Tensor:
     """Modulated deformable conv from the offset/mask conv's raw output (see
     `plain_deform_conv`), differentiable in float32 and bf16. CUDA tensors go through
     the fused kernel of their dtype, float32 or bf16, and the backward
-    kernels (or raise); CPU tensors take the plain versions. Any other dtype
-    raises on both."""
+    kernels (or raise); CPU tensors take the plain versions, which form the
+    columns in `chunks` row slabs. Any other dtype raises on both."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"deform_conv runs float32 or bf16, got {x.dtype}")
-    return _DeformConv.apply(x, om, weight, bias)
+    return _DeformConv.apply(x, om, weight, bias, chunks)
+
+
+class _DeformSample(torch.autograd.Function):
+    """The sampled columns (B,H,W,9C) of x and the raw offset/mask conv
+    output om, differentiable: CUDA tensors launch the sampler
+    (`deform_sample` / `deform_sample_bf16`) forward and `deform_sample_bwd`
+    backward (float32: a bf16 x and cotangent are widened exactly and the
+    gradients rounded once), CPU tensors the plain versions in `chunks` row
+    slabs."""
+
+    @staticmethod
+    def forward(ctx, x, om, chunks):
+        offsets, masks = sample_inputs(om)
+        ctx.save_for_backward(x, offsets, masks)
+        ctx.chunks, ctx.om_dtype = chunks, om.dtype
+        if x.device.type == "cpu":
+            return plain_deform_sample(x, offsets, masks, chunks)
+        return deform_sample_cuda(x, offsets, masks)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offsets, masks = ctx.saved_tensors
+        f32 = torch.float32
+        x32, g32 = x.to(f32).contiguous(), g.to(f32).contiguous()
+        if x.device.type == "cpu":
+            dx, doffsets, dmask = plain_deform_sample_backward(x32, offsets, masks, g32, ctx.chunks)
+            dom = torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
+        else:
+            dx, dom = deform_sample_bwd_cuda(x32, offsets, masks, g32)
+        return dx.to(x.dtype), dom.to(ctx.om_dtype), None
+
+
+def deform_columns(x: torch.Tensor, om: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+    """The DCN's sampled columns (B,H,W,9C) of x (B,H,W,C) and the raw
+    offset/mask conv output om (B,H,W,27), in x's dtype (bf16: each element
+    formed in float32 and rounded once), differentiable (`_DeformSample`):
+    what the int8 modes contract with their quantizable 1x1."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"deform_columns runs float32 or bf16, got {x.dtype}")
+    return _DeformSample.apply(x, om, chunks)
 
 
 class DeformConv2d(nn.Module):
@@ -552,10 +652,20 @@ class DeformConv2d(nn.Module):
     Takes and returns NCHW tensors (channels_last memory keeps the NHWC views
     the fused kernel reads and writes free of copies). `conv_offset_mask` starts at zero, so
     the initial op is a plain 3x3 conv with 0.5 masks, as in the JAX module.
+
+    Under a quantization mode (`models/layers.py`) the (9C -> O) contraction
+    is a quantizable site, as the JAX module's `Conv` over its sampled
+    columns: "int8" and "int8_train" form the columns (`deform_columns`) and
+    contract them through the site (min_ch reads in_ch as 9C); "int8_calib"
+    records the columns' max|x| and runs the float DCN; a site gated by
+    min_ch runs the float DCN. chunks (`dcn_chunks`) forms the columns in
+    row slabs where the port forms them with plain ops (CPU tensors); the
+    kernels hold no (B,H,W,9,C) temps, so on the card it changes nothing.
     """
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, chunks: int = 1):
         super().__init__()
+        self.chunks = chunks
         self.conv_offset_mask = nn.Conv2d(in_features, 27, 3, padding=1)
         nn.init.zeros_(self.conv_offset_mask.weight)
         nn.init.zeros_(self.conv_offset_mask.bias)
@@ -564,5 +674,13 @@ class DeformConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1).contiguous()  # (B,H,W,27)
-        out = deform_conv(x.permute(0, 2, 3, 1).contiguous(), om, self.kernel.weight, self.kernel.bias)
+        xh = x.permute(0, 2, 3, 1).contiguous()
+        weight, bias = self.kernel.weight, self.kernel.bias
+        action, a_max = layers.take_site(*weight.shape)
+        if action == "calib":
+            layers.record(deform_columns(xh, om, self.chunks))
+        if action in (None, "calib"):
+            out = deform_conv(xh, om, weight, bias, self.chunks)
+        else:
+            out = layers.quantized_linear(self, deform_columns(xh, om, self.chunks), weight, bias, action, a_max)
         return out.permute(0, 3, 1, 2)

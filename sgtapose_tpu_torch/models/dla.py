@@ -20,8 +20,10 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sgtapose_tpu_torch.models.deform_conv import DeformConv2d
+from sgtapose_tpu_torch.models.layers import Conv2d
 from sgtapose_tpu_torch.parallel import mesh
 
 BN_MOMENTUM = 0.9  # flax convention: running = 0.9 running + 0.1 batch
@@ -82,7 +84,7 @@ class ConvBnAct(nn.Module):
 
     def __init__(self, in_features: int, features: int, stride: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, features, 3, stride, padding=1, bias=False)
+        self.Conv_0 = Conv2d(in_features, features, 3, stride, padding=1, bias=False)
         self.BatchNorm_0 = _bn(features)
 
     def forward(self, x):
@@ -95,7 +97,7 @@ class BasicBlock(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int = 1):
         super().__init__()
         self.ConvBnAct_0 = ConvBnAct(in_features, features, stride)
-        self.Conv_0 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.Conv_0 = Conv2d(features, features, 3, padding=1, bias=False)
         self.BatchNorm_0 = _bn(features)
 
     def forward(self, x, residual=None):
@@ -110,7 +112,7 @@ class Root(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.Conv_0 = Conv2d(in_features, features, 1, bias=False)
         self.BatchNorm_0 = _bn(features)
 
     def forward(self, children: Sequence[torch.Tensor]):
@@ -132,7 +134,7 @@ class Tree(nn.Module):
             root_in = 2 * features + (in_features if level_root else 0)
         if levels == 1:
             if in_features != features:
-                self.project_conv = nn.Conv2d(in_features, features, 1, bias=False)
+                self.project_conv = Conv2d(in_features, features, 1, bias=False)
                 self.project_bn = _bn(features)
             else:
                 self.project_conv = None
@@ -165,7 +167,7 @@ class Stem(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, features, 7, padding=3, bias=False)
+        self.Conv_0 = Conv2d(in_features, features, 7, padding=3, bias=False)
         self.BatchNorm_0 = _bn(features)
 
     def forward(self, x):
@@ -217,20 +219,31 @@ def depthwise_upsample(features: int, factor: int) -> nn.ConvTranspose2d:
 
 
 class DeformNode(nn.Module):
-    """DCN (or 1x1 conv) + BN + ReLU decoder node."""
+    """DCN (or 1x1 conv) + BN + ReLU decoder node. The training memory knobs
+    of the JAX node: dcn_chunks samples the DCN's columns in row slabs where
+    the port forms them (`DeformConv2d`), and dcn_remat recomputes the DCN,
+    and only the DCN, in the backward (`torch.utils.checkpoint`,
+    non-reentrant, as `nn.remat(DeformConv2d)`); BatchNorm stays outside.
+    Neither changes a number."""
 
-    def __init__(self, in_features: int, features: int, node_type: str = "dcn"):
+    def __init__(self, in_features: int, features: int, node_type: str = "dcn", dcn_chunks: int = 1,
+                 dcn_remat: bool = False):
         super().__init__()
+        self.remat = dcn_remat and node_type == "dcn"
         if node_type == "dcn":
-            self.conv = DeformConv2d(in_features, features)
+            self.conv = DeformConv2d(in_features, features, chunks=dcn_chunks)
         elif node_type == "conv":
-            self.conv = nn.Conv2d(in_features, features, 1, bias=False)
+            self.conv = Conv2d(in_features, features, 1, bias=False)
         else:
             raise ValueError(f"unknown dla_node {node_type!r}")
         self.BatchNorm_0 = _bn(features)
 
     def forward(self, x):
-        return F.relu(self.BatchNorm_0(self.conv(x)))
+        if self.remat and torch.is_grad_enabled():
+            y = checkpoint(self.conv, x, use_reentrant=False)
+        else:
+            y = self.conv(x)
+        return F.relu(self.BatchNorm_0(y))
 
 
 class IDAUp(nn.Module):
@@ -239,13 +252,14 @@ class IDAUp(nn.Module):
     result back into the list."""
 
     def __init__(self, features: int, in_channels: Tuple[int, ...], up_factors: Tuple[int, ...],
-                 node_type: str = "dcn"):
+                 node_type: str = "dcn", dcn_chunks: int = 1, dcn_remat: bool = False):
         super().__init__()
         self.n = len(in_channels)
+        kw = dict(dcn_chunks=dcn_chunks, dcn_remat=dcn_remat)
         for j in range(1, self.n):
-            setattr(self, f"proj_{j}", DeformNode(in_channels[j], features, node_type))
+            setattr(self, f"proj_{j}", DeformNode(in_channels[j], features, node_type, **kw))
             setattr(self, f"up_{j}", depthwise_upsample(features, int(up_factors[j])))
-            setattr(self, f"node_{j}", DeformNode(features, features, node_type))
+            setattr(self, f"node_{j}", DeformNode(features, features, node_type, **kw))
 
     def forward(self, layers: List[torch.Tensor], startp: int, endp: int) -> List[torch.Tensor]:
         for i in range(startp + 1, endp):
@@ -259,7 +273,7 @@ class DLAUp(nn.Module):
     """Full decoder pyramid."""
 
     def __init__(self, startp: int, channels: Tuple[int, ...], scales: Tuple[int, ...],
-                 node_type: str = "dcn"):
+                 node_type: str = "dcn", dcn_chunks: int = 1, dcn_remat: bool = False):
         super().__init__()
         channels = list(channels)
         in_channels = list(channels)
@@ -268,7 +282,8 @@ class DLAUp(nn.Module):
         for i in range(self.n):
             j = -i - 2
             up_f = tuple(s // scales[j] for s in scales[j:])
-            setattr(self, f"ida_{i}", IDAUp(channels[j], tuple(in_channels[j:]), up_f, node_type))
+            setattr(self, f"ida_{i}", IDAUp(channels[j], tuple(in_channels[j:]), up_f, node_type, dcn_chunks,
+                                            dcn_remat))
             scales[j + 1:] = [scales[j] for _ in scales[j + 1:]]
             in_channels[j + 1:] = [channels[j] for _ in in_channels[j + 1:]]
 

@@ -25,6 +25,7 @@ from sgtapose_tpu_torch import resolve_device
 from sgtapose_tpu_torch.config import ModelConfig
 from sgtapose_tpu_torch.models import attention as attn_lib
 from sgtapose_tpu_torch.models.dla import DLA34Backbone, DLAUp, IDAUp, Stem
+from sgtapose_tpu_torch.models.layers import Conv2d
 
 CHANNELS = (16, 32, 64, 128, 256, 512)
 
@@ -38,12 +39,12 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class HeadConv(nn.Module):
-    """3x3 (-> head_conv) + ReLU + 1x1 (-> classes)."""
+    """3x3 (-> head_conv, a quantizable site) + ReLU + 1x1 (-> classes, float)."""
 
     def __init__(self, in_features: int, classes: int, head_conv: int = 256,
                  out_bias_init: float = 0.0):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, head_conv, 3, padding=1)
+        self.Conv_0 = Conv2d(in_features, head_conv, 3, padding=1)  # quantizable, as in JAX
         self.Conv_1 = nn.Conv2d(head_conv, classes, 1)
         nn.init.constant_(self.Conv_1.bias, out_bias_init)
 
@@ -94,10 +95,11 @@ class DecoderHeads(nn.Module):
         ch = tuple(c * width_mult for c in CHANNELS)
         first_level, last_level = 2, 5
         dla_channels = ch[first_level:]
+        knobs = (cfg.dcn_chunks, cfg.dcn_remat)
         self.dla_up = DLAUp(first_level, dla_channels,
-                            tuple(2 ** i for i in range(len(dla_channels))), cfg.dla_node)
+                            tuple(2 ** i for i in range(len(dla_channels))), cfg.dla_node, *knobs)
         self.ida_up = IDAUp(dla_channels[0], tuple(dla_channels[:last_level - first_level]),
-                            tuple(2 ** i for i in range(last_level - first_level)), cfg.dla_node)
+                            tuple(2 ** i for i in range(last_level - first_level)), cfg.dla_node, *knobs)
         head_in = dla_channels[0]
         self.hm = HeadConv(head_in, cfg.num_classes, cfg.head_conv, cfg.prior_bias)
         self.reg = HeadConv(head_in, 2, cfg.head_conv)

@@ -37,7 +37,8 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # source, the row-split attention backward the backward's; the no-bias
 # attention forward and backward share attention_nobias.cu, and the no-bias
 # instantiations of the biased designs that preceded them stay as their
-# yardsticks, "_rowtile" and "_cluster", on no path)
+# yardsticks, "_rowtile" and "_cluster", on no path; int8 serving's
+# convolution is its own source)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -64,6 +65,7 @@ KERNEL_SOURCES = {
     "biased_attention_nobias_rowtile_bf16": "biased_attention.cu",
     "biased_attention_bwd_nobias_cluster": "biased_attention_bwd.cu",
     "biased_attention_bwd_nobias_cluster_bf16": "biased_attention_bwd.cu",
+    "int8_conv": "int8_conv.cu",
 }
 
 NVCC_FLAGS = (
@@ -124,6 +126,9 @@ _SIGNATURES = {
     "biased_attention_bwd_nobias_cluster": ("biased_attention_bwd_nobias_cluster", [_P] * 8 + [_I] * 4 + [_P]),
     "biased_attention_bwd_nobias_cluster_bf16": ("biased_attention_bwd_nobias_cluster_bf16",
                                                  [_P] * 8 + [_I] * 5 + [_P]),
+    # x, w, w_scale, a_scale, bias, out, acc_out, N, H, W, C, O, KH, KW,
+    # stride, pad, Ho, Wo, Kp, out_bf16, stream
+    "int8_conv": ("int8_conv_fwd", [_P] * 7 + [_I] * 13 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -74,6 +74,7 @@ KERNEL_MODULES = {
     "biased_attention_bwd_nobias_cluster_bf16": ("sgtapose_tpu_torch.ops.attention_kernel",
                                                  "plain_biased_attention_backward_bf16",
                                                  "attention_bwd_nobias_cluster_cuda"),
+    "int8_conv": ("sgtapose_tpu_torch.ops.int8_conv", "plain_int8_conv", "int8_conv_cuda"),
 }
 
 

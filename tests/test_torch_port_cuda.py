@@ -810,3 +810,55 @@ def test_attention_kernel_refuses_a_bias_at_the_global_dims(dev, d):
     kv, bias = q.to(torch.bfloat16), bias.to(torch.bfloat16)
     with pytest.raises(ValueError, match="up to 32"):
         attention_kernel.fused_biased_attention(q, kv, kv, bias)
+
+
+# (N, H, W, C, O, kernel, stride) of int8 sites: flagship trunk and head
+# shapes, the stems' C_in 3 and 1, ragged ones (C % 16 != 0, O below a tile)
+INT8_SHAPES = [(2, 60, 60, 64, 64, 3, 1), (2, 120, 120, 32, 64, 3, 2), (2, 96, 96, 3, 16, 7, 1),
+               (2, 96, 96, 1, 16, 7, 1), (1, 30, 30, 4608, 256, 1, 1), (1, 120, 120, 64, 256, 3, 1),
+               (3, 9, 11, 24, 5, 3, 2), (1, 7, 5, 40, 70, 1, 1)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,H,W,C,O,k,s", INT8_SHAPES)
+def test_int8_conv_kernel_matches_plain(dev, N, H, W, C, O, k, s, out_dtype):
+    """s32 accumulators and outputs bit for bit, with and without a bias."""
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    g = torch.Generator(device=dev).manual_seed(N * H + C + O)
+    x_q = torch.randint(-127, 128, (N, H, W, C), generator=g, device=dev, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (O, k, k, C), generator=g, device=dev, dtype=torch.int8)
+    qw = int8_conv.pack_weight(w_q, torch.rand(O, generator=g, device=dev) * 1e-3)
+    a_scale = torch.rand(N, generator=g, device=dev) * 0.1
+    for bias in (None, torch.randn(O, generator=g, device=dev).to(out_dtype)):
+        before = build.launch_counts()["int8_conv"]
+        out, acc = int8_conv.int8_conv(x_q, qw, a_scale, bias, s, k // 2, out_dtype, return_acc=True)
+        torch.cuda.synchronize()
+        assert build.launch_counts()["int8_conv"] == before + 1
+        ref, ref_acc = int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, s, k // 2, out_dtype, return_acc=True)
+        assert torch.equal(acc, ref_acc)
+        assert torch.equal(out, ref)
+
+
+def test_int8_serving_reaches_the_kernel_at_every_site(dev):
+    """A full-width bf16 forward under int8 (batch 1, 96x96): one int8_conv
+    launch per site (57), the DCN's columns from the bf16 sampler (16), no
+    fused DCN; with min_ch 64 the gated sites run float."""
+    from sgtapose_tpu_torch.config import ModelConfig
+    from sgtapose_tpu_torch.models import layers
+    from sgtapose_tpu_torch.models.sgta import create_model
+    from sgtapose_tpu_torch.utils.precision import bf16_inference_model
+
+    model = bf16_inference_model(create_model(ModelConfig(input_res=(96, 96)), device=dev))
+    g = torch.Generator(device=dev).manual_seed(0)
+    inputs = [torch.randn(1, 96, 96, c, generator=g, device=dev).to(torch.bfloat16) for c in (3, 3, 1, 1)]
+    inputs += [torch.rand(1, 24, 24, 7, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+    for min_ch, sites in ((0, 57), (64, None)):
+        build.reset_launch_counts()
+        with torch.no_grad(), layers.quantized("int8", min_ch=min_ch):
+            out = model(*inputs)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert all(torch.isfinite(v.float()).all() for v in out.values())
+        assert counts["deform_sample_bf16"] == 16 and counts["deform_conv_bf16"] == 0
+        assert counts["int8_conv"] == sites if sites else 16 < counts["int8_conv"] < 57

@@ -171,8 +171,8 @@ def test_main_with_checkpoint_equals_direct_call(warm, tmp_path):
 
 @pytest.mark.parametrize("flags,error", [
     (["--is_ct", "false", "--arch", "dreamhourglass_34"], None),
-    (["--quant", "int8"], NotImplementedError),
-    (["--quant_min_ch", "64"], NotImplementedError),
+    (["--quant", "int8"], None),
+    (["--quant", "int8", "--quant_static", "--quant_min_ch", "64"], None),
     (["--is_ct", "false", "--phase", "Dream", "--arch", "resnetsimple_34"], None),
     (["--is_ct", "false", "--arch", "dreamhourglass_34", "--flip_test"], None),
     (["--flip_test"], SystemExit),
@@ -183,8 +183,9 @@ def test_main_with_checkpoint_equals_direct_call(warm, tmp_path):
 ], ids=["is_ct", "quant", "quant_min_ch", "phase", "arch", "flip_test", "orbax", "cuda", "is_ct_flagship",
         "arch_temporal"])
 def test_unported_flags_raise(flags, error, tmp_path, data):
-    """The flags that are not ported raise, and so do wirings no model takes;
-    the DREAM single-frame mode (error None) runs on the synthetic set."""
+    """The wirings no model takes raise; the DREAM single-frame mode and
+    int8 serving (--quant int8, with static scales and a min_ch gate;
+    error None) run on the synthetic set."""
     if flags == ["--device", "cuda"] and torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda runs")
     argv = ["--dataset", data["syn"] if error is None else str(tmp_path), "--output_dir", str(tmp_path / "out"),

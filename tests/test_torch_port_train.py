@@ -409,8 +409,8 @@ def test_unported_training_options_raise():
 
 def test_train_demo_cli_runs_on_the_cpu_and_refuses_later_flags(tmp_path):
     """The CLI end to end at 64x64 (2 steps, batch 2, no eval), with a
-    checkpoint; the flags not ported yet raise, and the default device is
-    the card."""
+    checkpoint; --quant_train, --dcn_chunks and --dcn_remat run a step each;
+    the default device is the card."""
     from sgtapose_tpu_torch.cli import train_demo
 
     ckpt = str(tmp_path / "demo.pt")
@@ -425,8 +425,9 @@ def test_train_demo_cli_runs_on_the_cpu_and_refuses_later_flags(tmp_path):
                             "--eval_videos", "0", "--init_ckpt", ckpt, "--resume_step", "5"])
     assert res2["state"].step == 6 and res2["state"].schedule_count == 6
     for flag in (["--quant_train"], ["--dcn_chunks", "2"], ["--dcn_remat"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_demo.main(["--device", "cpu"] + flag)
+        res3 = train_demo.main(["--device", "cpu", "--steps", "1", "--batch", "2", "--input_res", "64",
+                                "--eval_videos", "0"] + flag)
+        assert res3["state"].step == 1 and np.isfinite(res3["logged"][0]["tot"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_demo.main(["--steps", "1"])

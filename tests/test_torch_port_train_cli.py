@@ -485,19 +485,17 @@ def test_cli_depth_and_kuka(sets, tmp_path):
                                    ["--phase", "Dream", "--arch", "dreamhourglass_34"],
                                    ["--dcn_chunks", "2"], ["--dcn_remat"]])
 def test_cli_unported_flags_raise(sets, tmp_path, flags):
-    """The flags not ported raise, naming their ROADMAP item. The DREAM
-    baselines and the Dream phase are ported: a single-image wiring trains
-    one epoch, but ResnetSimple under Dream, whose input/2 map the input/4
-    targets do not fit, raises ValueError at its first loss, where the JAX
-    step fails on the shapes. --bf16 --depth is ported: a 42-keypoint model
-    trains one epoch in bf16 on the depth set, its masters float32."""
+    """Every flag is ported. The DREAM baselines and the Dream phase: a
+    single-image wiring trains one epoch, but ResnetSimple under Dream,
+    whose input/2 map the input/4 targets do not fit, raises ValueError at
+    its first loss, where the JAX step fails on the shapes. --bf16 --depth:
+    a 42-keypoint model trains one epoch in bf16 on the depth set, its
+    masters float32. --dcn_chunks and --dcn_remat (the DCN's memory knobs)
+    train one epoch."""
     depth = ["--dataset", os.path.join(sets["tdepth"], "panda-depth"), "--batch_size", "2"]
     argv = ["--dataset", sets["tsyn"], "--output_dir", str(tmp_path), "--num_epochs", "1",
             "--image_log_every", "0"] + TINY + flags + (depth if "--depth" in flags else [])
-    if "--dcn_chunks" in flags or "--dcn_remat" in flags:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-            tcli.main(argv)
-    elif "resnetsimple_34" in flags:
+    if "resnetsimple_34" in flags:
         with pytest.raises(ValueError, match="input/2"):
             tcli.main(argv)
     else:
@@ -507,6 +505,9 @@ def test_cli_unported_flags_raise(sets, tmp_path, flags):
         if "--depth" in flags:
             assert res["state"].model.cfg.num_classes == 42
             assert all(p.dtype == torch.float32 for p in res["state"].model.parameters())
+        if "--dcn_chunks" in flags or "--dcn_remat" in flags:
+            cfg = res["state"].model.cfg
+            assert (cfg.dcn_chunks, cfg.dcn_remat) == ((2, False) if "--dcn_chunks" in flags else (1, True))
 
 
 def test_cli_refuses_what_it_cannot_run(sets, tmp_path):
