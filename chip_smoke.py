@@ -212,22 +212,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      `infer/detector.make_sharded_video_detector` as one rank (no process
      group) on phase 9's 8-video batch, its launches asserted and its
      results held to the batched runner's;
- 18. int8 serving, QAT and the DCN memory knobs: (a) the hand-written int8
-     kernel `int8_conv` (csrc/int8_conv.cu) at each of the 57 quantizable
-     sites of one flagship frame (480x480, the bf16 model with static
-     scales calibrated on `eval/synthetic_eval.calibration_inputs`: the
-     trunk at batch 2, the heads at 120x120, the DCN's contractions over
-     its columns), its s32 accumulators and outputs bit for bit against
-     `plain_int8_conv` (exact in float64), with cold and warm times, the
-     plain version's, and the yardsticks: torch._int_mm on the same s8
-     operands at the 1x1 sites, im2col + torch._int_mm at the 3x3 and 7x7
-     ones, cuDNN's bf16 F.conv2d at all, summed per frame; (b) the bf16
+ 18. int8 serving, QAT and the DCN memory knobs: (a) int8 serving's site
+     kernels (csrc/int8_conv_fused.cu: `int8_conv_fused`, which quantizes
+     the activation itself, and `int8_absmax`, the dynamic scale's max|x|)
+     at each of the 57 quantizable sites of one flagship frame (480x480,
+     the bf16 model with static scales calibrated on
+     `eval/synthetic_eval.calibration_inputs`: the trunk at batch 2, the
+     heads at 120x120, the DCN's contractions over its columns) on the
+     activations the frame produced, static and dynamic, s32 accumulators
+     and outputs bit for bit against `plain_int8_site`; the launch budget
+     at all 57 sites (one launch a static site, two a dynamic one, and no
+     other device kernel, from torch.profiler); cold times in turns with
+     PR 14's route (PyTorch's quantize ops + `int8_conv`, csrc/int8_conv.cu,
+     held bit for bit against `plain_int8_conv`), warm times, PR 14's
+     kernel alone, the plain versions, and the yardsticks: torch._int_mm
+     on the s8 operands at the 1x1 sites, im2col + torch._int_mm at the
+     3x3 and 7x7 ones, cuDNN's bf16 F.conv2d at all,
+     torch.linalg.vector_norm(ord=inf) for the reduction, summed per
+     frame and per site class (stems, 3x3, trunk 1x1, DCN); (b) the bf16
      exact and feature-cache runners on phase 9's video, each with static
      and dynamic scales and with min_ch 0 and 64 (static at 0 and dynamic at
      64, and the other way round),
-     launches asserted per frame (int8_conv once per ungated site,
-     deform_sample_bf16 16 times, deform_conv_bf16 never), fps and ms by
-     stage; one static-scale int8 forward card against CPU, within
+     launches asserted per frame (int8_conv_fused once per ungated site,
+     int8_absmax as often with dynamic scales, deform_sample_bf16 16 times,
+     deform_conv_bf16 never), fps and ms by stage, and the bf16 exact
+     runner without int8 beside them (trunk and fuse ms); the CUDA launches
+     of one network forward (torch.profiler) in bf16, int8 static and
+     dynamic, and int8 static through PR 14's route; one static-scale
+     int8 forward card against CPU, within
      INT8_CARD_VS_CPU x the card's own int8-vs-bf16 gap; (c)
      `cli/infer.main --quant int8 --quant_static --quant_min_ch 64` on
      phase 12's synthetic set with phase 11's checkpoint (calibration and
@@ -1251,7 +1263,7 @@ def main() -> int:
     entry["note"] = ("off the bf16 training path since deform_conv_wgrad_bf16 (ms summed over the 16 nodes it ran "
                      "on); on the bf16 int8 serving path: the DCN's columns")
     entry["int8_serving_launches_per_frame"] = int8_serving["deform_sample_bf16"]
-    kernels.append(int8_kernel_rows(report["int8"], int8_serving["int8_conv"]))
+    kernels += int8_kernel_rows(report["int8"])
     kernels += zoo_kernel_rows(zoo, per_frame, report["launch_floor"])
     # the bf16 forward's shared-memory kernel at a 42-keypoint level 1,
     # (2058, 8), as phase 17's 42-keypoint bf16 run launches it
@@ -3097,6 +3109,8 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
     train_demo --quant_train, and cli/train with --dcn_chunks 4 and
     --dcn_remat against the same run without them."""
     import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from sgtapose_tpu_torch.cli import infer, train as train_cli, train_demo
     from sgtapose_tpu_torch.data import synthetic
@@ -3131,43 +3145,83 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
         raise AssertionError(f"int8: {len(scales)} calibrated scales, {n_sites[0]} sites; expected 57")
     out["sites"] = {str(k): v for k, v in n_sites.items()}
 
-    # ---- (a) the kernel at every site of one frame ------------------------
+    # ---- (a) the site kernels at every site of one frame --------------------
     calls = []
-    real = int8_conv.int8_conv
+    real = int8_conv.int8_site
 
     def recording(*args, **kw):
         calls.append(args)
         return real(*args, **kw)
 
-    int8_conv.int8_conv = recording
+    int8_conv.int8_site = recording
     try:
         with torch.no_grad(), layers.quantized("int8", scales=scales):
             model16(*[x.to(dev) for x in inputs16])
     finally:
-        int8_conv.int8_conv = real
+        int8_conv.int8_site = real
     torch.cuda.synchronize()
     if len(calls) != 57:
-        raise AssertionError(f"int8: {len(calls)} int8_conv calls in one forward, expected 57")
+        raise AssertionError(f"int8: {len(calls)} int8_site calls in one forward, expected 57")
     shapes = {}
-    for x_q, qw, a_scale, bias, stride, pad, out_dtype in calls:
-        got, acc = int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, stride, pad, out_dtype, return_acc=True)
-        ref, ref_acc = int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, stride, pad, out_dtype, return_acc=True)
-        torch.cuda.synchronize()
-        if not (torch.equal(acc, ref_acc) and torch.equal(got, ref)):
-            raise AssertionError(f"int8_conv x_q {tuple(x_q.shape)} w {tuple(qw.q.shape)} {qw.kh}x{qw.kw} s{stride}: "
-                                 f"accumulators or outputs differ from the plain version")
-        key = (tuple(x_q.shape), tuple(qw.q.shape), qw.kh, stride, pad, bias is not None)
-        shapes.setdefault(key, [0, (x_q, qw, a_scale, bias, stride, pad, out_dtype)])[0] += 1
+    for x, qw, a_max, groups, bias, stride, pad in calls:
+        # the frame's static scale, and the dynamic one on the same activation
+        for case_max in (a_max, None):
+            got, acc = int8_conv.int8_site_cuda(x, qw, case_max, groups, bias, stride, pad, return_acc=True)
+            ref, ref_acc = int8_conv.plain_int8_site(x, qw, case_max, groups, bias, stride, pad, return_acc=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(acc, ref_acc) and torch.equal(got, ref)):
+                raise AssertionError(f"int8_conv_fused x {tuple(x.shape)} w {tuple(qw.q.shape)} {qw.kh}x{qw.kw} "
+                                     f"s{stride} a_max {case_max}: accumulators or outputs differ from the plain version")
+        key = (tuple(x.shape), tuple(qw.q.shape), qw.kh, stride, pad, bias is not None)
+        shapes.setdefault(key, [0, (x, qw, a_max, groups, bias, stride, pad)])[0] += 1
+    # the launch budget at all 57 sites: one launch a static site, two a
+    # dynamic one, no other CUDA kernel (torch.profiler's device kernels)
+    budget = {}
+    for name, dynamic in (("static", False), ("dynamic", True)):
+        build.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for x, qw, a_max, groups, bias, stride, pad in calls:
+                int8_conv.int8_site(x, qw, None if dynamic else a_max, groups, bias, stride, pad)
+            torch.cuda.synchronize()
+        counts = {kn: n for kn, n in build.launch_counts().items() if n}
+        events = list(prof.events())
+        launches = len(_launch_events(events))  # every kernel launch the host made, of any kind
+        names = sorted({e.name for e in events if e.device_type == DeviceType.CUDA})
+        expect = {"int8_conv_fused": 57, **({"int8_absmax": 57} if dynamic else {})}
+        if counts != expect or launches != sum(expect.values()) or not all(
+                "int8_conv_fused" in n or "int8_absmax_kernel" in n for n in names):
+            raise AssertionError(f"int8 launch budget {name}: counters {counts}, {launches} launches, device kernels "
+                                 f"{names}, expected {expect}")
+        budget[name] = {"launches_per_site": launches / 57, "device_kernel_names": len(names)}
+    out["launch_budget"] = budget
+    print("int8 launch budget at the 57 sites: " + json.dumps(budget))
+
+    def pr14_route(x, qw, a_max, groups, bias, stride, pad):
+        """PR 14's route, the yardstick: PyTorch's quantize ops, then PR
+        14's kernel on the s8 operands."""
+        a_scale = layers.activation_scale(x, a_max, groups)
+        x_q = layers.activation_quant(x, a_scale).to(torch.int8).contiguous()
+        return int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, stride, pad, x.dtype)
+
     rows = []
     for (xs, ws, k, stride, pad, has_bias), (count, args) in shapes.items():
-        x_q, qw, a_scale, bias, stride, pad, out_dtype = args
+        x, qw, a_max, groups, bias, stride, pad = args
         N, Hs, Ws, C = xs
         O = ws[0]
         Ho_, Wo_ = int8_conv.out_size(Hs, k, stride, pad), int8_conv.out_size(Ws, k, stride, pad)
         M, K = N * Ho_ * Wo_, k * k * C
-        b_ms, b_by = bound_ms(x_q.numel() + O * K + 2 * M * O + 4 * (O + N) + (2 * O if has_bias else 0),
-                              2 * M * O * K, INT8_OPS_PER_S)
-        kern = lambda: int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, stride, pad, out_dtype)  # noqa: E731
+        a_scale = layers.activation_scale(x, a_max, groups)
+        x_q = layers.activation_quant(x, a_scale).to(torch.int8).contiguous()
+        io = 4 * O + (x.element_size() * O if has_bias else 0) + M * O * x.element_size()
+        b_ms, b_by = bound_ms(x.numel() * x.element_size() + O * K + io, 2 * M * O * K, INT8_OPS_PER_S)
+        old_b_ms, old_b_by = bound_ms(x_q.numel() + O * K + io + 4 * N, 2 * M * O * K, INT8_OPS_PER_S)
+        slots = int8_conv.absmax_slots(x.numel() // N)
+        red_b_ms, _ = bound_ms(x.numel() * x.element_size() + 4 * N * slots, 0, INT8_OPS_PER_S)
+        plan = int8_conv.site_plan(x, qw, stride, pad)
+        kern = lambda: int8_conv.int8_site_cuda(x, qw, a_max, groups, bias, stride, pad)  # noqa: E731
+        route = lambda: pr14_route(x, qw, a_max, groups, bias, stride, pad)  # noqa: E731
+        # in turns: route, kernel, kernel, route
+        route_a, new_a, new_b, route_b = (cold_ms(f, iters=10) for f in (route, kern, kern, route))
         yard = _int_mm_yardstick(torch, x_q, qw, stride, pad)
         try:
             yard_ms = cold_ms(yard, iters=10)
@@ -3175,28 +3229,59 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
             yard_ms, yard_note = None, str(e).splitlines()[0][:120]
         else:
             yard_note = None
-        x16 = x_q.to(bf).permute(0, 3, 1, 2)
+        x16 = x.to(bf).permute(0, 3, 1, 2)
         w16 = qw.unpacked().to(bf).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        row = {"x_q": list(xs), "O": O, "kernel": k, "stride": stride, "bias": has_bias, "per_frame": count,
-               "max_abs_err": 0.0, "bitwise": True,
-               "ms": cold_ms(kern, iters=10), "warm_ms": warm_ms(kern, iters=10),
-               "plain_ms": cold_ms(lambda: int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, stride, pad, out_dtype),
+        flat = x.reshape(N, -1)
+        row = {"x": list(xs), "dtype": str(x.dtype).replace("torch.", ""), "O": O, "kernel": k, "stride": stride,
+               "bias": has_bias, "per_frame": count, "max_abs_err": 0.0, "bitwise": True,
+               "mode": plan[0], "splits": plan[1].splits,
+               "ms": (new_a + new_b) / 2, "warm_ms": warm_ms(kern, iters=10),
+               "dynamic_ms": cold_ms(lambda: int8_conv.int8_site_cuda(x, qw, None, groups, bias, stride, pad),
+                                     iters=10),
+               "route_ms": (route_a + route_b) / 2,
+               "pr14_kernel_ms": cold_ms(lambda: int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, stride, pad, x.dtype),
+                                         iters=10),
+               "pr14_bound_ms": old_b_ms, "pr14_bound_by": old_b_by,
+               "pr14_plain_ms": cold_ms(lambda: int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, stride, pad, x.dtype),
+                                        iters=2, warmup=1),
+               "plain_ms": cold_ms(lambda: int8_conv.plain_int8_site(x, qw, a_max, groups, bias, stride, pad),
                                    iters=2, warmup=1),
                "library_ms": yard_ms if k == 1 else None, "pair_ms": yard_ms if k > 1 else None,
                "int_mm_note": yard_note,
                "cudnn_bf16_ms": cold_ms(lambda: F.conv2d(x16, w16, None, stride, pad), iters=10),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "absmax_ms": cold_ms(lambda: int8_conv.int8_absmax_cuda(x), iters=10),
+               "absmax_plain_ms": cold_ms(lambda: int8_conv.plain_int8_absmax(x, slots), iters=2, warmup=1),
+               "absmax_library_ms": cold_ms(lambda: torch.linalg.vector_norm(flat, ord=math.inf, dim=1), iters=10),
+               "absmax_bound_ms": red_b_ms,
+               "class": "stem" if C <= 4 else ("3x3" if k > 1 else ("dcn" if has_bias else "1x1"))}
+        part = int8_conv.int8_absmax_cuda(x)
+        if not torch.equal(part.amax(dim=1), flat.float().abs().amax(dim=1)):
+            raise AssertionError(f"int8_absmax x {tuple(xs)}: the maxima differ from torch.amax")
+        got, acc = int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, stride, pad, x.dtype, return_acc=True)
+        ref, ref_acc = int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, stride, pad, x.dtype, return_acc=True)
+        if not (torch.equal(acc, ref_acc) and torch.equal(got, ref)):
+            raise AssertionError(f"int8_conv (PR 14's kernel) x_q {tuple(xs)}: differs from plain_int8_conv")
         rows.append(row)
-        print("int8_conv " + json.dumps(row))
+        print("int8_conv_fused " + json.dumps(row))
     out["int8_conv_shapes"] = rows
     del calls, shapes
-    sums = {key: sum(r[key] * r["per_frame"] for r in rows if r[key] is not None)
-            for key in ("ms", "warm_ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "library_ms", "pair_ms")}
+    keys = ("ms", "warm_ms", "dynamic_ms", "route_ms", "pr14_kernel_ms", "pr14_bound_ms", "pr14_plain_ms", "plain_ms",
+            "bound_ms",
+            "cudnn_bf16_ms", "library_ms", "pair_ms", "absmax_ms", "absmax_plain_ms", "absmax_library_ms",
+            "absmax_bound_ms")
+    sums = {key: sum(r[key] * r["per_frame"] for r in rows if r[key] is not None) for key in keys}
     sums["kernel_ms_at_1x1_sites"] = sum(r["ms"] * r["per_frame"] for r in rows if r["kernel"] == 1)
-    sums["kernel_ms_at_yardstick_sites"] = sum(r["ms"] * r["per_frame"] for r in rows
-                                               if (r["library_ms"] or r["pair_ms"]) is not None)
+    sums["pr14_kernel_ms_at_1x1_sites"] = sum(r["pr14_kernel_ms"] * r["per_frame"] for r in rows if r["kernel"] == 1)
+    sums["by_class"] = {cls: {key: sum(r[key] * r["per_frame"] for r in rows if r["class"] == cls)
+                              for key in ("ms", "warm_ms", "dynamic_ms", "route_ms", "pr14_kernel_ms",
+                                          "cudnn_bf16_ms", "bound_ms")}
+                        for cls in ("stem", "3x3", "1x1", "dcn")}
+    for cls in ("1x1", "dcn"):
+        sums["by_class"][cls]["int_mm_ms"] = sum(r["library_ms"] * r["per_frame"] for r in rows
+                                                 if r["class"] == cls and r["library_ms"] is not None)
     out["int8_conv_per_frame"] = sums
-    print("int8_conv per frame: " + json.dumps(sums))
+    print("int8_conv_fused per frame: " + json.dumps(sums))
 
     # ---- (b) the int8 runners on phase 9's video; card vs CPU forward -----
     projs, raw, _ = synthetic.make_sequence(torch.Generator().manual_seed(3), T_FRAMES, return_pos_cam=True,
@@ -3209,12 +3294,15 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
     timer = StageTimer()
     shapes_ok = {"detected_kps": (T_FRAMES, 7, 2), "scores": (T_FRAMES, 7), "tracking": (T_FRAMES, 7, 2)}
     out["runners"] = {}
-    # each runner with static and dynamic scales, min_ch 0 and 64
+    # each runner with static and dynamic scales, min_ch 0 and 64, and the
+    # bf16 exact runner without int8 beside them (trunk and fuse ms)
     for name, cached, static, min_ch in (("exact_static", False, True, 0), ("exact_dynamic_min_ch64", False, False, 64),
-                                         ("cached_dynamic", True, False, 0), ("cached_static_min_ch64", True, True, 64)):
+                                         ("cached_dynamic", True, False, 0), ("cached_static_min_ch64", True, True, 64),
+                                         ("bf16_exact", False, None, None)):
         make = det_lib.make_cached_video_detector if cached else det_lib.make_video_detector
-        detector = make(model16, warm_cfg if cached else cfg, K, raw_hw, device=dev, stage_timer=timer, quant="int8",
-                        quant_scales=scales if static else None, quant_min_ch=min_ch)
+        quant = {} if static is None else {"quant": "int8", "quant_scales": scales if static else None,
+                                           "quant_min_ch": min_ch}
+        detector = make(model16, warm_cfg if cached else cfg, K, raw_hw, device=dev, stage_timer=timer, **quant)
         detector(slice_frames(video, 2))
         torch.cuda.synchronize()
         timer.reset()
@@ -3224,8 +3312,12 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = build.launch_counts()
-        expect = {kn: n * T_FRAMES for kn, n in dict(no_launches, biased_attention_bf16=9, deform_sample_bf16=16,
-                                                      int8_conv=n_sites[min_ch]).items()}
+        # int8: the DCN's columns from the bf16 sampler, one int8_conv_fused a
+        # site and, with dynamic scales, one int8_absmax; bf16: the fused DCN
+        per_frame = (dict(no_launches, biased_attention_bf16=9, deform_conv_bf16=16) if static is None else
+                     dict(no_launches, biased_attention_bf16=9, deform_sample_bf16=16, int8_conv_fused=n_sites[min_ch],
+                          int8_absmax=0 if static else n_sites[min_ch]))
+        expect = {kn: n * T_FRAMES for kn, n in per_frame.items()}
         if counts != expect:
             raise AssertionError(f"int8 runner {name}: launches {counts}, expected {expect}")
         check_result(res, shapes_ok)
@@ -3235,6 +3327,36 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
                "valid_detections": int((res.detected_kps > det_lib.KP_SENTINEL).all(-1).sum())}
         out["runners"][name] = run
         print(f"int8 runner {name}: " + json.dumps(run))
+    trunk_fuse = {name: {st: out["runners"][name]["stage_ms_per_frame"][st] for st in ("trunk", "fuse")}
+                  for name in ("exact_static", "bf16_exact")}
+    trunk_fuse["int8_minus_bf16_ms"] = sum(trunk_fuse["exact_static"].values()) - sum(trunk_fuse["bf16_exact"].values())
+    out["trunk_fuse_vs_bf16"] = trunk_fuse
+    print("int8 static vs bf16, trunk and fuse ms a frame: " + json.dumps(trunk_fuse))
+    # CUDA launches of one network forward (trunk, fuse, heads) from
+    # torch.profiler: bf16, int8 static and dynamic, and int8 static through
+    # PR 14's route (PyTorch's quantize ops and its kernel)
+    fwd_launches = {}
+    dev_inputs16 = [t.to(dev) for t in inputs16]
+    for name, quant, route in (("bf16", None, None), ("int8_static", scales, None), ("int8_dynamic", "dynamic", None),
+                               ("int8_static_pr14_route", scales, pr14_route)):
+        if route is not None:
+            int8_conv.int8_site = route
+        try:
+            with torch.no_grad():
+                for profiled in (False, True):  # once to warm up, once under the profiler
+                    ctx = (contextlib.nullcontext() if quant is None else
+                           layers.quantized("int8", scales=None if quant == "dynamic" else quant))
+                    prof_ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+                                else contextlib.nullcontext())
+                    with prof_ctx as prof, ctx:
+                        model16(*dev_inputs16)
+                        torch.cuda.synchronize()
+        finally:
+            int8_conv.int8_site = real
+        fwd_launches[name] = len(_launch_events(list(prof.events())))
+    fwd_launches["pr14_route_minus_int8_static"] = fwd_launches["int8_static_pr14_route"] - fwd_launches["int8_static"]
+    out["forward_launches"] = fwd_launches
+    print("int8 forward CUDA launches (torch.profiler): " + json.dumps(fwd_launches))
     # one static-scale int8 forward, card against CPU, against the card's int8 error
     with torch.no_grad():
         fwd = make_bf16_apply(model16, quant="int8", quant_scales=scales)
@@ -3268,7 +3390,7 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
     frames = CLI_VIDEOS * CLI_FRAMES
     # calibration (float32 model): the float DCN and the columns it records; serving: int8
     expect = dict(no_launches, biased_attention=9 * (n_calib + frames), deform_conv=16 * n_calib,
-                  deform_sample=16 * (n_calib + frames), int8_conv=n_sites[64] * frames)
+                  deform_sample=16 * (n_calib + frames), int8_conv_fused=n_sites[64] * frames)
     km = res["keypoint_metrics"]
     if counts != expect or km["num_gt_inframe"] + km["num_gt_outframe"] != frames * 7:
         raise AssertionError(f"int8 infer cli: launches {counts} (expected {expect}), GT counts {km}")
@@ -3293,7 +3415,7 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
     counts = build.launch_counts()
     qat_step = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_sample=16, deform_sample_bwd=16)
     evals = dict(no_launches, biased_attention_bf16=9 * T_FRAMES, deform_sample_bf16=16 * T_FRAMES,
-                 int8_conv=57 * T_FRAMES)
+                 int8_conv_fused=57 * T_FRAMES, int8_absmax=57 * T_FRAMES)  # dynamic scales
     if (len(step_calls) != QAT_STEPS or any(launched != qat_step for _, launched in step_calls)
             or counts != {kn: evals[kn] + QAT_STEPS * qat_step[kn] for kn in counts}
             or not all(math.isfinite(r["tot"]) for r in res["logged"])):
@@ -3349,28 +3471,62 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
     return out
 
 
-def int8_kernel_rows(int8, launches_per_frame):
-    """The kernels-line entry of the int8 kernel: launches from the int8
-    exact runner (static scales, every site), per-frame sums of (a)."""
+def int8_kernel_rows(int8):
+    """The kernels-line entries of int8 serving's site kernels and of their
+    yardstick: launches from the int8 exact runners (static scales at every
+    site; dynamic ones at min_ch 64 for the reduction), per-frame sums of
+    (a)'s 57 sites."""
     rows = int8["int8_conv_shapes"]
     s = int8["int8_conv_per_frame"]
-    bounds = [r["bound_by"] for r in rows]
-    bound_by = max(set(bounds), key=bounds.count)
-    run = int8["runners"]["exact_static"]  # every site
-    return {"name": "int8_conv", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/int8_conv.cu",
-            "replaces": "sgtapose_tpu/models/layers.py:155", "launches": run["launches_per_frame"]["int8_conv"] * T_FRAMES,
-            "launches_per_frame": launches_per_frame, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": s["ms"], "warm_ms": s["warm_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": bound_by, "bound_rate": "3.35 TB/s HBM" if bound_by == "bytes" else "1979 TOP/s dense int8",
-            "library_ms": None,
-            "library_ms_note": ("no single PyTorch call computes the 3x3 and 7x7 sites; torch._int_mm at the 1x1 "
-                                "sites sums to library_ms_1x1_sites beside the kernel's kernel_ms_at_1x1_sites"),
-            "library_ms_1x1_sites": s["library_ms"], "kernel_ms_at_1x1_sites": s["kernel_ms_at_1x1_sites"],
-            "pair_ms": s["pair_ms"], "pair_note": "im2col + torch._int_mm at the 3x3 and 7x7 sites it takes",
-            "kernel_ms_at_yardstick_sites": s["kernel_ms_at_yardstick_sites"],
-            "cudnn_bf16_ms": s["cudnn_bf16_ms"], "cudnn_note": "F.conv2d in bf16 at the same sites, for the record",
-            "shapes_note": "the 57 sites of one flagship frame at 480x480 (trunk at batch 2), per frame; "
-                           "accumulators and outputs bit for bit against plain_int8_conv"}
+    runs = int8["runners"]
+    static, dynamic = runs["exact_static"]["launches_per_frame"], runs["exact_dynamic_min_ch64"]["launches_per_frame"]
+    shapes_note = ("the 57 sites of one flagship frame at 480x480 (trunk at batch 2), bf16, per frame; accumulators "
+                   "and outputs bit for bit against the plain version")
+
+    def bound_of(key):
+        bounds = [r[key] for r in rows]
+        return max(set(bounds), key=bounds.count)
+
+    conv_by = bound_of("bound_by")
+    old_by = bound_of("pr14_bound_by")
+    rate = {"bytes": "3.35 TB/s HBM", "operations": "1979 TOP/s dense int8"}
+    return [
+        {"name": "int8_conv_fused", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/int8_conv_fused.cu",
+         "replaces": "sgtapose_tpu/models/layers.py:155", "launches": static.get("int8_conv_fused", 0) * T_FRAMES,
+         "launches_per_frame": static.get("int8_conv_fused", 0), "max_abs_err": max(r["max_abs_err"] for r in rows),
+         "ms": s["ms"], "warm_ms": s["warm_ms"], "dynamic_ms": s["dynamic_ms"],
+         "dynamic_note": "int8_absmax + int8_conv_fused, the two launches of a dynamic-scale site",
+         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": conv_by, "bound_rate": rate[conv_by],
+         "library_ms": None,
+         "library_ms_note": ("no single PyTorch call computes the 3x3 and 7x7 sites; torch._int_mm at the 1x1 sites "
+                             "(on s8 operands) sums to library_ms_1x1_sites beside kernel_ms_at_1x1_sites"),
+         "library_ms_1x1_sites": s["library_ms"], "kernel_ms_at_1x1_sites": s["kernel_ms_at_1x1_sites"],
+         "pair_ms": s["pair_ms"], "pair_note": "im2col + torch._int_mm at the 3x3 and 7x7 sites it takes",
+         "cudnn_bf16_ms": s["cudnn_bf16_ms"], "cudnn_note": "F.conv2d in bf16 at the same sites, for the record",
+         "yardstick": "PR 14's route: PyTorch's quantize ops + int8_conv", "yardstick_ms": s["route_ms"],
+         "pr14_kernel_ms": s["pr14_kernel_ms"], "by_class": s["by_class"],
+         "launch_budget": int8["launch_budget"], "forward_launches": int8["forward_launches"],
+         "ms_per_launch": {f"{r['x']},O={r['O']},k={r['kernel']},s={r['stride']}": r["ms"] for r in rows},
+         "shapes_note": shapes_note + ", static scales as the frame ran (the activation quantized inside)"},
+        {"name": "int8_absmax", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/int8_conv_fused.cu",
+         "replaces": "sgtapose_tpu/models/layers.py:139", "launches": dynamic.get("int8_absmax", 0) * T_FRAMES,
+         "launches_per_frame": dynamic.get("int8_absmax", 0), "max_abs_err": 0.0,
+         "ms": s["absmax_ms"], "plain_ms": s["absmax_plain_ms"], "bound_ms": s["absmax_bound_ms"],
+         "bound_by": "bytes", "bound_rate": rate["bytes"], "library_ms": s["absmax_library_ms"],
+         "library_ms_note": "torch.linalg.vector_norm(x.reshape(N, -1), ord=inf, dim=1)",
+         "shapes_note": ("the dynamic scale's per-sample max|x| at the 57 sites of one frame (launches: the exact runner "
+                         "with dynamic scales at min_ch 64); slot maxima against the plain version, their max against "
+                         "torch.amax, exactly")},
+        {"name": "int8_conv", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "sgtapose_tpu/models/layers.py:155", "launches": static.get("int8_conv", 0) * T_FRAMES,
+         "max_abs_err": 0.0, "ms": s["pr14_kernel_ms"], "plain_ms": s["pr14_plain_ms"], "bound_ms": s["pr14_bound_ms"],
+         "bound_by": old_by, "bound_rate": rate[old_by], "library_ms": None,
+         "library_ms_note": "torch._int_mm at the 1x1 sites: library_ms_1x1_sites",
+         "library_ms_1x1_sites": s["library_ms"], "kernel_ms_at_1x1_sites": s["pr14_kernel_ms_at_1x1_sites"],
+         "note": ("on no path since PR 15: PR 14's kernel on s8 operands (PyTorch's quantize ops before it), the "
+                  "yardstick of int8_conv_fused, launched only by phase 18 (a)'s comparison"),
+         "shapes_note": shapes_note.replace("bf16, ", "s8 operands of the bf16 activations, ")},
+    ]
 
 
 def conv_macs(torch, model, x) -> int:

@@ -35,7 +35,8 @@ goes through JAX's converter first (`python -m sgtapose_tpu.cli.convert
 --ckpt DIR --out_pth X.pth`, then `--torch_ckpt X.pth`).
 
 --quant int8 serves the quantizable convs as s8 x s8 -> s32
-(`models/layers.py`, the hand-written `csrc/int8_conv.cu` on the card);
+(`models/layers.py`; on the card the hand-written `csrc/int8_conv_fused.cu`,
+which quantizes the activation inside: one launch a static site);
 --quant_static first calibrates static activation scales on synthetic
 frames (`eval/synthetic_eval.calibration_inputs`, the float32 model);
 --quant_min_ch N leaves the sites with min(out_ch, in_ch) below N in float.

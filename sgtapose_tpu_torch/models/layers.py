@@ -4,8 +4,10 @@ Counterpart of `sgtapose_tpu/models/layers.py`. `Conv2d` is an `nn.Conv2d`
 (same parameters, same state_dict keys) that switches execution under the
 `quantized(mode)` context:
 
-  "int8"        s8 x s8 -> s32 (`ops/int8_conv.py`, the hand-written kernel on
-                the card): per-output-channel weight scales max|w| / 127 and a
+  "int8"        s8 x s8 -> s32 (`ops/int8_conv.py:int8_site`: on the card
+                the hand-written kernels, which quantize the activation
+                themselves, one launch a static site and two a dynamic
+                one): per-output-channel weight scales max|w| / 127 and a
                 per-tensor activation scale, dynamic (max|x| / 127 in float32,
                 on the device: no host sync) or static (a calibrated max,
                 max(a_max, 1e-12) / 127 in double, rounded once to float32);
@@ -129,7 +131,7 @@ def weight_quant(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     w_scale = max(max|w| over the other axes / 127, 1e-12), keepdims;
     w_q = round(w / w_scale), half to even (not clipped: |w_q| <= 127)."""
     w = w.to(torch.float32)
-    w_scale = (w.abs().amax(dim=tuple(range(1, w.dim())), keepdim=True) / 127.0).clamp_min(1e-12).detach()
+    w_scale = int8_ops.div127(w.abs().amax(dim=tuple(range(1, w.dim())), keepdim=True)).clamp_min(1e-12).detach()
     return torch.round(w / w_scale), w_scale
 
 
@@ -137,13 +139,13 @@ def activation_scale(x: torch.Tensor, a_max: Optional[float] = None, groups: int
     """The per-sample activation scales (N,) float32 of x (batch first):
     static, max(a_max, 1e-12) / 127 in double rounded to float32; dynamic,
     max(max|x|, 1e-12) / 127 in float32, over the whole tensor, or per video
-    with groups = V (sample n of video n % V)."""
+    with groups = V (sample n of video n % V), as `int8_conv_fused` forms it
+    (`ops/int8_conv.py:video_scales`)."""
     N = x.shape[0]
     if a_max is not None:
         return torch.full((N,), max(a_max, 1e-12) / 127.0, dtype=torch.float32, device=x.device)
     per_sample = x.detach().to(torch.float32).abs().reshape(N, -1).amax(dim=1)
-    per_video = per_sample.reshape(N // groups, groups).amax(dim=0)
-    return (per_video.clamp_min(1e-12) / 127.0).repeat(N // groups)
+    return int8_ops.video_scales(per_sample[:, None], groups)
 
 
 def activation_quant(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
@@ -191,13 +193,9 @@ def quantized_conv(owner: nn.Module, x: torch.Tensor, weight: torch.Tensor, bias
         x_fq, w_fq = _fake(xf, x_q, a_scale, wf, w_q, w_scale)
         y = F.conv2d(x_fq, w_fq, None, stride, padding).to(x.dtype)
         return y if bias is None else y + bias.to(x.dtype)[None, :, None, None]
-    kh, kw = weight.shape[2], weight.shape[3]
-    qw = _cached_weight(owner, weight, kh, kw)
-    xh = x.permute(0, 2, 3, 1)
-    a_scale = activation_scale(xh, a_max, groups)
-    x_q = activation_quant(xh, a_scale).to(torch.int8).contiguous()
-    out = int8_ops.int8_conv(x_q, qw, a_scale, None if bias is None else bias.to(x.dtype), stride, padding,
-                             x.dtype)
+    qw = _cached_weight(owner, weight, weight.shape[2], weight.shape[3])
+    out = int8_ops.int8_site(x.permute(0, 2, 3, 1), qw, a_max, groups, None if bias is None else bias.to(x.dtype),
+                             stride, padding)
     return out.permute(0, 3, 1, 2)
 
 
@@ -213,9 +211,7 @@ def quantized_linear(owner: nn.Module, cols: torch.Tensor, weight: torch.Tensor,
         y = F.linear(x_fq, w_fq).to(cols.dtype)
         return y if bias is None else y + bias.to(cols.dtype)
     qw = _cached_weight(owner, weight, 1, 1)
-    a_scale = activation_scale(cols, a_max, groups)
-    x_q = activation_quant(cols, a_scale).to(torch.int8).contiguous()
-    return int8_ops.int8_conv(x_q, qw, a_scale, None if bias is None else bias.to(cols.dtype), 1, 0, cols.dtype)
+    return int8_ops.int8_site(cols, qw, a_max, groups, None if bias is None else bias.to(cols.dtype), 1, 0)
 
 
 class Conv2d(nn.Conv2d):

@@ -37,8 +37,10 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # source, the row-split attention backward the backward's; the no-bias
 # attention forward and backward share attention_nobias.cu, and the no-bias
 # instantiations of the biased designs that preceded them stay as their
-# yardsticks, "_rowtile" and "_cluster", on no path; int8 serving's
-# convolution is its own source)
+# yardsticks, "_rowtile" and "_cluster", on no path; int8 serving's site
+# kernels, the convolution that quantizes its activation and the max|x|
+# reduction, share a source, and PR 14's convolution on s8 operands stays
+# in its own as their yardstick, on no path)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -66,6 +68,8 @@ KERNEL_SOURCES = {
     "biased_attention_bwd_nobias_cluster": "biased_attention_bwd.cu",
     "biased_attention_bwd_nobias_cluster_bf16": "biased_attention_bwd.cu",
     "int8_conv": "int8_conv.cu",
+    "int8_conv_fused": "int8_conv_fused.cu",
+    "int8_absmax": "int8_conv_fused.cu",
 }
 
 NVCC_FLAGS = (
@@ -76,6 +80,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each library's entry point (all return cudaError_t as int)
 _SIGNATURES = {
     # q, k, v, bias, out, B, heads, n, d, stream
@@ -129,6 +134,12 @@ _SIGNATURES = {
     # x, w, w_scale, a_scale, bias, out, acc_out, N, H, W, C, O, KH, KW,
     # stride, pad, Ho, Wo, Kp, out_bf16, stream
     "int8_conv": ("int8_conv_fwd", [_P] * 7 + [_I] * 13 + [_P]),
+    # x, w, w_scale, partial_max, slots, videos, a_static, bias, out,
+    # acc_out, N, H, W, C, O, KH, KW, stride, pad, Ho, Wo, Kp, x_bf16,
+    # tile_n, mode, splits, stream
+    "int8_conv_fused": ("int8_conv_fused_fwd", [_P] * 4 + [_I, _I, _F] + [_P] * 3 + [_I] * 16 + [_P]),
+    # x, partial, N, per_sample, slots, x_bf16, stream
+    "int8_absmax": ("int8_absmax", [_P, _P] + [_I] * 4 + [_P]),
 }
 
 _LOCK = threading.Lock()

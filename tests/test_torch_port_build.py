@@ -75,6 +75,10 @@ KERNEL_MODULES = {
                                                  "plain_biased_attention_backward_bf16",
                                                  "attention_bwd_nobias_cluster_cuda"),
     "int8_conv": ("sgtapose_tpu_torch.ops.int8_conv", "plain_int8_conv", "int8_conv_cuda"),
+    # int8 serving's site kernels: the convolution that quantizes x inside,
+    # and the max|x| reduction of a dynamic scale
+    "int8_conv_fused": ("sgtapose_tpu_torch.ops.int8_conv", "plain_int8_site", "int8_site_cuda"),
+    "int8_absmax": ("sgtapose_tpu_torch.ops.int8_conv", "plain_int8_absmax", "int8_absmax_cuda"),
 }
 
 
@@ -104,5 +108,5 @@ def test_every_kernel_has_its_plain_version(name):
                       "WGRAD_KERNEL_BF16", "KERNEL_NOBIAS", "KERNEL_NOBIAS_BF16", "BWD_KERNEL_NOBIAS",
                       "BWD_KERNEL_NOBIAS_BF16", "KERNEL_TILED_BF16", "BWD_KERNEL_ROWS_BF16",
                       "KERNEL_NOBIAS_ROWTILE", "KERNEL_NOBIAS_ROWTILE_BF16", "BWD_KERNEL_NOBIAS_CLUSTER",
-                      "BWD_KERNEL_NOBIAS_CLUSTER_BF16")}
+                      "BWD_KERNEL_NOBIAS_CLUSTER_BF16", "KERNEL_FUSED", "KERNEL_ABSMAX")}
     assert name in names

@@ -817,12 +817,18 @@ def test_attention_kernel_refuses_a_bias_at_the_global_dims(dev, d):
 INT8_SHAPES = [(2, 60, 60, 64, 64, 3, 1), (2, 120, 120, 32, 64, 3, 2), (2, 96, 96, 3, 16, 7, 1),
                (2, 96, 96, 1, 16, 7, 1), (1, 30, 30, 4608, 256, 1, 1), (1, 120, 120, 64, 256, 3, 1),
                (3, 9, 11, 24, 5, 3, 2), (1, 7, 5, 40, 70, 1, 1)]
+# and the sites the redesign splits K at (the DCN's contractions at 15x15
+# and 30x30), the level-5 3x3, and both full-size stems
+INT8_SITE_SHAPES = INT8_SHAPES + [(1, 15, 15, 4608, 256, 1, 1), (1, 30, 30, 2304, 256, 1, 1),
+                                  (2, 15, 15, 512, 512, 3, 1), (2, 480, 480, 3, 16, 7, 1),
+                                  (2, 480, 480, 1, 16, 7, 1)]
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N,H,W,C,O,k,s", INT8_SHAPES)
 def test_int8_conv_kernel_matches_plain(dev, N, H, W, C, O, k, s, out_dtype):
-    """s32 accumulators and outputs bit for bit, with and without a bias."""
+    """PR 14's kernel (the yardstick, on s8 operands): s32 accumulators and
+    outputs bit for bit, with and without a bias."""
     from sgtapose_tpu_torch.ops import int8_conv
 
     g = torch.Generator(device=dev).manual_seed(N * H + C + O)
@@ -832,7 +838,7 @@ def test_int8_conv_kernel_matches_plain(dev, N, H, W, C, O, k, s, out_dtype):
     a_scale = torch.rand(N, generator=g, device=dev) * 0.1
     for bias in (None, torch.randn(O, generator=g, device=dev).to(out_dtype)):
         before = build.launch_counts()["int8_conv"]
-        out, acc = int8_conv.int8_conv(x_q, qw, a_scale, bias, s, k // 2, out_dtype, return_acc=True)
+        out, acc = int8_conv.int8_conv_cuda(x_q, qw, a_scale, bias, s, k // 2, out_dtype, return_acc=True)
         torch.cuda.synchronize()
         assert build.launch_counts()["int8_conv"] == before + 1
         ref, ref_acc = int8_conv.plain_int8_conv(x_q, qw, a_scale, bias, s, k // 2, out_dtype, return_acc=True)
@@ -840,10 +846,167 @@ def test_int8_conv_kernel_matches_plain(dev, N, H, W, C, O, k, s, out_dtype):
         assert torch.equal(out, ref)
 
 
+def _int8_site_operands(dev, N, H, W, C, O, k, dtype, seed):
+    from sgtapose_tpu_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(N, H, W, C, generator=g, device=dev) * 2).to(dtype)
+    w = torch.randn(O, C, k, k, generator=g, device=dev) / (k * k * C) ** 0.5
+    qw = layers._cached_weight(torch.nn.Module(), w, k, k)
+    bias = (0.1 * torch.randn(O, generator=g, device=dev)).to(dtype)
+    return x, qw, bias, float(x.float().abs().max()) * 0.8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,H,W,C,O,k,s", INT8_SITE_SHAPES)
+def test_int8_site_kernel_matches_plain(dev, N, H, W, C, O, k, s, dtype):
+    """The site's kernels (the activation quantized inside) against
+    `plain_int8_site`: outputs and s32 accumulators bit for bit, static and
+    dynamic scales (a static max below the data's: x_q clips), per video
+    with groups 2, with and without a bias; one int8_conv_fused launch, and
+    one int8_absmax more where the scale is dynamic."""
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    x, qw, bias, a_max = _int8_site_operands(dev, N, H, W, C, O, k, dtype, N * H + C + O)
+    cases = [(None, 1, None), (a_max, 1, bias), (None, 1, bias)] + ([(None, 2, bias)] if N % 2 == 0 else [])
+    for case_max, groups, b in cases:
+        build.reset_launch_counts()
+        out, acc = int8_conv.int8_site_cuda(x, qw, case_max, groups, b, s, k // 2, return_acc=True)
+        torch.cuda.synchronize()
+        counts = {kn: n for kn, n in build.launch_counts().items() if n}
+        assert counts == {"int8_conv_fused": 1, **({"int8_absmax": 1} if case_max is None else {})}
+        ref, ref_acc = int8_conv.plain_int8_site(x, qw, case_max, groups, b, s, k // 2, return_acc=True)
+        assert torch.equal(acc, ref_acc), (case_max, groups)
+        assert out.dtype == dtype and torch.equal(out, ref), (case_max, groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,H,W,C,O,k,s", [(2, 60, 60, 64, 128, 3, 1), (2, 30, 30, 24, 40, 3, 2),
+                                           (1, 9, 11, 600, 8, 3, 1)])
+def test_int8_site_a_producers_give_the_same_bits(dev, N, H, W, C, O, k, s, dtype):
+    """Every A producer the site allows (gather; vec where C % 16 == 0;
+    patch where it fits): the plain version's accumulators and outputs,
+    with a dynamic scale per video."""
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    x, qw, bias, _ = _int8_site_operands(dev, N, H, W, C, O, k, dtype, C + O)
+    ref, ref_acc = int8_conv.plain_int8_site(x, qw, None, N, bias, s, k // 2, return_acc=True)
+    modes = ["gather"] + (["vec"] if C % 16 == 0 else [])
+    modes += ["patch"] if int8_conv.a_mode(C, k, k, s, 1000, aligned=False) == "patch" else []
+    assert len(modes) > 1 or C == 600  # C = 600: only the gather mode
+    for mode in modes:
+        out, acc = int8_conv.int8_site_cuda(x, qw, None, N, bias, s, k // 2, return_acc=True, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref_acc) and torch.equal(out, ref), mode
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_site_quantizes_near_ties_as_plain(dev, dtype):
+    """x at and a few units in the last place around (j + 1/2) a_scale, where
+    the kernel's product by the reciprocal of the scale falls within 2^-12 of
+    a half-integer and it takes the exact quotient: x_q, so the accumulators
+    and outputs, bit for bit, in the vec and the patch modes."""
+    from sgtapose_tpu_torch.models import layers
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    a_max = 100.0
+    s = torch.tensor(a_max / 127.0, dtype=torch.float32)
+    j = torch.arange(-130, 130, dtype=torch.float32) + 0.5
+    ties = (j * s).repeat_interleave(9)  # and 4 units in the last place to either side
+    ties = (ties.view(torch.int32) + torch.arange(-4, 5, dtype=torch.int32).repeat(260)).view(torch.float32)
+    for C, k in ((16, 3), (3, 7)):
+        x = ties[torch.randperm(ties.numel(), generator=torch.Generator().manual_seed(C))]
+        x = x[:(x.numel() // (C * 36)) * C * 36].reshape(1, -1, 6, C).to(dtype).to(dev)
+        w = torch.randn(32, C, k, k, generator=torch.Generator().manual_seed(1)).to(dev)
+        qw = layers._cached_weight(torch.nn.Module(), w, k, k)
+        out, acc = int8_conv.int8_site_cuda(x, qw, a_max, 1, None, 1, k // 2, return_acc=True)
+        ref, ref_acc = int8_conv.plain_int8_site(x, qw, a_max, 1, None, 1, k // 2, return_acc=True)
+        assert torch.equal(acc, ref_acc) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("N,H,W,C,O", [(1, 15, 15, 4608, 256), (1, 30, 30, 2304, 64), (2, 15, 15, 512, 512)])
+def test_int8_site_split_on_and_off_gives_the_same_bits(dev, N, H, W, C, O):
+    """Split-K over 1, 2, 5 and 8 ranks of a cluster, and the plan's own
+    split: the same accumulators and outputs."""
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    k = 3 if C == 512 else 1
+    x, qw, bias, _ = _int8_site_operands(dev, N, H, W, C, O, k, torch.bfloat16, C + O)
+    p = int8_conv.plan(N * H * W, O, qw.q.shape[1], int8_conv._sm_count(x.device), 2)
+    assert p.splits > 1
+    ref, ref_acc = int8_conv.int8_site_cuda(x, qw, None, 1, bias, 1, k // 2, return_acc=True, splits=1)
+    for splits in (2, 5, 8, None):
+        out, acc = int8_conv.int8_site_cuda(x, qw, None, 1, bias, 1, k // 2, return_acc=True, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref_acc) and torch.equal(out, ref), splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 480, 480, 3), (1, 15, 15, 4608), (3, 7, 5, 3), (2, 1, 1, 1), (16, 30, 30, 256)])
+def test_int8_absmax_matches_amax(dev, shape, dtype):
+    """The reduction's slot maxima equal the plain version's, and their max
+    per sample equals torch.amax of |x|, exactly (also at spans that start
+    off a 16-byte line: 3 x 7 x 5 elements a sample)."""
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+    for slots in (None, 1, 7):
+        part = int8_conv.int8_absmax_cuda(x, slots)
+        torch.cuda.synchronize()
+        assert torch.equal(part, int8_conv.plain_int8_absmax(x, part.shape[1]))
+        assert torch.equal(part.amax(dim=1), x.float().abs().reshape(shape[0], -1).amax(dim=1))
+
+
+def test_int8_site_launch_budget(dev):
+    """One launch a static site, two a dynamic one, and no other CUDA
+    kernel on the route (no cast, division, rounding, clamp, copy or fill),
+    from the launch counters and from torch.profiler's device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x, qw, bias, a_max = _int8_site_operands(dev, 2, 30, 30, 256, 256, 3, dtype, 0)
+        for case_max, expect in ((a_max, {"int8_conv_fused": 1}),
+                                 (None, {"int8_absmax": 1, "int8_conv_fused": 1})):
+            int8_conv.int8_site(x, qw, case_max, 1, bias, 1, 1)  # built and warm
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                int8_conv.int8_site(x, qw, case_max, 1, bias, 1, 1)
+                torch.cuda.synchronize()
+            assert {kn: n for kn, n in build.launch_counts().items() if n} == expect
+            events = list(prof.events())
+            # every kernel launch the host made (the launch API's events), and what ran on the device
+            launches = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                        and ("LaunchKernel" in e.name or e.name == "cuLaunchKernel")]
+            kernels = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+            assert len(launches) == len(expect), launches
+            assert kernels and all("int8_" in name for name in kernels), kernels
+
+
+def test_int8_scales_divide_as_jax_on_the_card(dev):
+    """The weight and activation scales on the card equal the CPU's (JAX's)
+    bit for bit at maxima where a multiplication by the rounded reciprocal
+    of 127, what PyTorch's CUDA division by a Python number does, misses the
+    quotient by one unit in the last place."""
+    from sgtapose_tpu_torch.models import layers
+
+    m = torch.tensor([6.4589409828186035, 0.7103605270385742, 5.68433952331543])
+    assert not torch.equal((m.to(dev) / 127.0).cpu(), m / 127.0)  # the CUDA division by a number
+    w = torch.eye(3)[:, :, None, None] * m[:, None, None, None]  # (O, C, 1, 1), max|w| of channel o is m[o]
+    for got, ref in zip(layers.weight_quant(w.to(dev)), layers.weight_quant(w)):
+        assert torch.equal(got.cpu(), ref)
+    x = m[:, None, None, None].expand(3, 2, 2, 1).contiguous()
+    assert torch.equal(layers.activation_scale(x.to(dev), groups=3).cpu(), layers.activation_scale(x, groups=3))
+
+
 def test_int8_serving_reaches_the_kernel_at_every_site(dev):
-    """A full-width bf16 forward under int8 (batch 1, 96x96): one int8_conv
-    launch per site (57), the DCN's columns from the bf16 sampler (16), no
-    fused DCN; with min_ch 64 the gated sites run float."""
+    """A full-width bf16 forward under int8 (batch 1, 96x96), dynamic
+    scales: one int8_conv_fused and one int8_absmax launch per site (57),
+    none of PR 14's int8_conv, the DCN's columns from the bf16 sampler (16),
+    no fused DCN; with min_ch 64 the gated sites run float."""
     from sgtapose_tpu_torch.config import ModelConfig
     from sgtapose_tpu_torch.models import layers
     from sgtapose_tpu_torch.models.sgta import create_model
@@ -860,5 +1023,6 @@ def test_int8_serving_reaches_the_kernel_at_every_site(dev):
         torch.cuda.synchronize()
         counts = build.launch_counts()
         assert all(torch.isfinite(v.float()).all() for v in out.values())
-        assert counts["deform_sample_bf16"] == 16 and counts["deform_conv_bf16"] == 0
-        assert counts["int8_conv"] == sites if sites else 16 < counts["int8_conv"] < 57
+        assert counts["deform_sample_bf16"] == 16 and counts["deform_conv_bf16"] == 0 and counts["int8_conv"] == 0
+        assert counts["int8_absmax"] == counts["int8_conv_fused"]
+        assert counts["int8_conv_fused"] == sites if sites else 16 < counts["int8_conv_fused"] < 57
