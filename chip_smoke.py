@@ -18,11 +18,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      clean: the flush read back, so no dirty lines are left to write back) /
      plain / library (F.scaled_dot_product_attention, a yardstick the port
      never calls) times;
-  4. the DCN sampling kernel (off every path since the fused kernel and
-     deform_conv_wgrad: the yardstick of 4c) and the DCN sampling backward
+  4. the DCN columns of the QAT path and of a float32 model's int8 serving
+     (the fused paths launch neither: they are the yardsticks of 4b and 4c):
+     the sampler `deform_sample` and its backward `deform_sample_bwd`
      against their plain versions at every decoder input shape at the
-     training batch of 8, and one ragged shape (the backward no longer
-     launches deform_sample_bwd: it is the yardstick of 4b);
+     training batch of 8 and one ragged shape, the backward with offsets at
+     zero, +-3 and +-12 px, dom the same bit for bit in two runs; cold
+     times at +-3 in turns (yardstick, kernel, kernel, yardstick) against
+     the designs they replaced (`deform_sample_flat`, the warp-per-item
+     `deform_sample_bwd_warp`), plain times;
  4b. the float32 DCN data gradient `deform_conv_dgrad` (the training
      backward's dx and offset/mask gradient in one kernel) against its plain
      version at every decoder node at the training batch of 8 and one ragged
@@ -140,8 +144,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      yardstick: the attention backward at level 2, batch 8, q bf16 and q
      float32, and a ragged (100, 8); `deform_conv_dgrad_bf16` at every
      decoder node at batch 8 with offsets at 0, +-3 and +-12 px and one
-     ragged shape; `deform_sample_bf16` (the yardstick of 4c's bf16 rows)
-     at every decoder input shape; (b)
+     ragged shape; the bf16 DCN columns: `deform_sample_bf16` (also the
+     yardstick of 4c's bf16 rows) at every decoder input shape at batch 8
+     (a QAT step) and 1 (an int8 frame), `deform_sample_bwd_bf16` at batch
+     8 with offsets at 0, +-3 and +-12 px, dom the same bit for bit in two
+     runs, times in turns against the flat bf16 sampler and against the
+     route the backward replaced (x and g widened, the warp kernel, the
+     gradients rounded); (b)
      one 480x480 bf16 gradient, batch 1, BatchNorm in eval mode, the DCN
      offset/mask convs perturbed, card against CPU bf16 (plain versions)
      and against phase 11's CPU float64 (BF16_GRAD_* bars); (c) 5 bf16
@@ -236,7 +245,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches asserted per frame (int8_conv_fused once per ungated site,
      int8_absmax as often with dynamic scales, deform_sample_bf16 16 times,
      deform_conv_bf16 never), fps and ms by stage, and the bf16 exact
-     runner without int8 beside them (trunk and fuse ms); the CUDA launches
+     runner without int8 beside them (trunk and fuse ms); the batched
+     runner under dynamic int8 over MANY_VIDEOS (65) copies of the video
+     for 2 frames (one scale per video at every site; launches asserted),
+     and a dynamic site at `groups` 65 and 130 over 130 samples (a 3x3, the
+     DCN's 1x1 over 9C columns, a 1x1 on a 1x1 map: 64 images a block), bit
+     for bit with its plain version, two launches each; the CUDA launches
      of one network forward (torch.profiler) in bf16, int8 static and
      dynamic, and int8 static through PR 14's route; one static-scale
      int8 forward card against CPU, within
@@ -245,7 +259,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase 12's synthetic set with phase 11's checkpoint (calibration and
      serving launches asserted), `cli/train_demo.main --quant_train` for
      QAT_STEPS steps at batch 8 and its int8 eval (launches asserted per
-     step: the sampler and its backward, no fused DCN kernel), and
+     step: the sampler and its backward, no fused DCN kernel), the same
+     with --bf16 (16 deform_sample_bf16 and 16 deform_sample_bwd_bf16 a
+     step, no float32 network kernel; a 2-frame eval), and
      `cli/train.main` for one epoch of phase 13 (A)'s set plain, with
      --dcn_chunks 4 and with --dcn_remat (its DCN forward launched twice a
      step): losses against (A)'s first epoch, peak memory beside it;
@@ -545,6 +561,7 @@ def main() -> int:
     cfg = Config()
     n_layers = cfg.model.num_decoder_layers
     h = cfg.model.n_heads
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # ---- 3. float32 attention kernel vs plain ----------------------------
     mark("3")
@@ -607,9 +624,12 @@ def main() -> int:
 
     # ---- 4. DCN sampling kernel and its backward vs plain -------------------
     mark("4")
-    # at the training batch: the routes deform_conv_wgrad (4c) and
-    # deform_conv_dgrad (4b) replaced, launched on no path; their per-step
-    # sums are those of the 16 nodes they ran on
+    # at the training batch: the QAT path's DCN columns (16 launches of each
+    # a step) and the routes deform_conv_wgrad (4c) and deform_conv_dgrad
+    # (4b) replaced; the sampler at offsets in [-3, 3], the backward also at
+    # zero and +-12 px (dom the same bit for bit in two runs); times at +-3
+    # against the designs they replaced (the flat sampler, the warp-per-item backward),
+    # in turns: yardstick, kernel, kernel, yardstick
     dcn_shapes = {}
     for H, C, _, nodes in DCN_NODES + [RAGGED_DCN]:
         dcn_shapes[(H, C)] = dcn_shapes.get((H, C), 0) + nodes
@@ -623,37 +643,57 @@ def main() -> int:
         torch.cuda.synchronize()
         ref = deform_conv.plain_deform_sample(feat, offsets, masks)
         err = (out - ref).abs().max().item()
-        if not math.isfinite(err) or err > DCN_TOL:
-            raise AssertionError(f"DCN kernel B={B} H={H} C={C}: max abs err {err} > {DCN_TOL}")
+        flat_err = (deform_conv.deform_sample_flat_cuda(feat, offsets, masks) - ref).abs().max().item()
+        if not all(math.isfinite(e) and e <= DCN_TOL for e in (err, flat_err)):
+            raise AssertionError(f"DCN kernel B={B} H={H} C={C}: max abs err {err} (flat {flat_err}) > {DCN_TOL}")
         M = B * H * W
         b_ms, b_by = bound_ms(4 * M * (C + 18 + 9 + 9 * C), M * 9 * C * 9)
-        row = dict(B=B, H=H, W=W, C=C, per_step=per_step, max_abs_err=err,
-                   ms=cold_ms(lambda: deform_conv.deform_sample_cuda(feat, offsets, masks)),
+        flat_a, new_a, new_b, flat_b = (cold_ms(lambda: f(feat, offsets, masks)) for f in (
+            deform_conv.deform_sample_flat_cuda, deform_conv.deform_sample_cuda, deform_conv.deform_sample_cuda,
+            deform_conv.deform_sample_flat_cuda))
+        row = dict(B=B, H=H, W=W, C=C, per_step=per_step, max_abs_err=err, ms=(new_a + new_b) / 2,
+                   flat_ms=(flat_a + flat_b) / 2, flat_max_abs_err=flat_err,
                    plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample(feat, offsets, masks)),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
         dcn_rows.append(row)
         print("deform_sample " + json.dumps(row))
 
         grad = torch.randn(B, H, W, 9 * C, generator=gen, device=dev)
-        dfeat, dom = deform_conv.deform_sample_bwd_cuda(feat, offsets, masks, grad)
-        torch.cuda.synchronize()
-        rf, roff, rmask = deform_conv.plain_deform_sample_backward(feat, offsets, masks, grad)
-        errs = {name: rel_err(a, r) for name, a, r in (
-            ("dfeat", dfeat, rf), ("doffsets", dom[..., :18], roff),
-            ("dmask_logits", dom[..., 18:], rmask * masks * (1 - masks)))}
-        if not all(math.isfinite(e) and e <= BWD_REL_TOL for e in errs.values()):
-            raise AssertionError(f"deform_sample_bwd B={B} H={H} C={C}: rel errors {errs} > {BWD_REL_TOL}")
-        # read feat, offsets, masks, grad once, write dfeat and dom once; ~34
-        # FLOPs per (pixel, tap, channel) with the 4 atomic adds
-        b_ms, b_by = bound_ms(4 * M * (C + 18 + 9 + 9 * C + C + 27), M * 9 * C * 34)
-        row = dict(B=B, H=H, W=W, C=C, per_step=per_step, rel_err=errs,
-                   max_abs_err=max((dfeat - rf).abs().max().item(), (dom[..., :18] - roff).abs().max().item()),
-                   ms=cold_ms(lambda: deform_conv.deform_sample_bwd_cuda(feat, offsets, masks, grad)),
-                   plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample_backward(feat, offsets, masks, grad)),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        dcn_bwd_rows.append(row)
-        print("deform_sample_bwd " + json.dumps(row))
-        del feat, offsets, masks, grad, out, ref, dfeat, dom, rf, roff, rmask
+        for span in (0.0, 3.0, 12.0):
+            offs = offsets / 3 * span
+            dfeat, dom = deform_conv.deform_sample_bwd_cuda(feat, offs, masks, grad)
+            torch.cuda.synchronize()
+            rf, rdom = deform_conv.plain_deform_sample_bwd(feat, offs, masks, grad)
+            errs = {"dfeat": rel_err(dfeat, rf), "dom": rel_err(dom, rdom)}
+            if not all(math.isfinite(e) and e <= BWD_REL_TOL for e in errs.values()):
+                raise AssertionError(f"deform_sample_bwd B={B} H={H} C={C} offsets +-{span}: rel errors {errs} "
+                                     f"> {BWD_REL_TOL}")
+            if not torch.equal(dom, deform_conv.deform_sample_bwd_cuda(feat, offs, masks, grad)[1]):
+                raise AssertionError(f"deform_sample_bwd H={H} C={C} offsets +-{span}: two runs give another dom")
+            # read feat, offsets, masks, grad once, write dfeat and dom once; ~34
+            # FLOPs per (pixel, tap, channel) with the 4 atomic adds
+            b_ms, b_by = bound_ms(4 * M * (C + 18 + 9 + 9 * C + C + 27), M * 9 * C * 34)
+            row = dict(B=B, H=H, W=W, C=C, offsets=span, per_step=per_step if span == 3.0 else 0, rel_err=errs,
+                       dom_bitwise_rerun=True,
+                       max_abs_err=max((dfeat - rf).abs().max().item(), (dom - rdom).abs().max().item()),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            if span == 3.0:
+                wf, wdom = deform_conv.deform_sample_bwd_warp_cuda(feat, offs, masks, grad)
+                warp_err = max(rel_err(wf, rf), rel_err(wdom, rdom))
+                if not warp_err <= BWD_REL_TOL:
+                    raise AssertionError(f"deform_sample_bwd_warp H={H} C={C}: rel error {warp_err}")
+                row["warp_max_abs_err"] = max((wf - rf).abs().max().item(), (wdom - rdom).abs().max().item())
+                del wf, wdom
+                warp_a, new_a, new_b, warp_b = (cold_ms(lambda: f(feat, offs, masks, grad)) for f in (
+                    deform_conv.deform_sample_bwd_warp_cuda, deform_conv.deform_sample_bwd_cuda,
+                    deform_conv.deform_sample_bwd_cuda, deform_conv.deform_sample_bwd_warp_cuda))
+                row.update(ms=(new_a + new_b) / 2, warp_ms=(warp_a + warp_b) / 2,
+                           plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample_bwd(feat, offs, masks, grad),
+                                            iters=5, warmup=1))
+            dcn_bwd_rows.append(row)
+            print("deform_sample_bwd " + json.dumps(row))
+            del dfeat, dom, rf, rdom
+        del feat, offsets, masks, grad, out, ref
     report["deform_sample_shapes"] = dcn_rows
     report["deform_sample_bwd_shapes"] = dcn_bwd_rows
 
@@ -720,7 +760,6 @@ def main() -> int:
     # times at +-3 against the route it replaced (the sampler, then dY^T A;
     # float32 with TF32 off), that route's product alone and the plain
     # version, the kernel's alone at zero offsets
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     wgrad_rows = {torch.float32: [], bf16: []}
     for dt in (torch.float32, bf16):
         tol = BWD_REL_TOL if dt == torch.float32 else BWD_BF16_REL_TOL
@@ -1221,17 +1260,6 @@ def main() -> int:
                 r["ms"] * n for r in rows if r["offsets"] == 0.0
                 for H_, C_, O_, n in DCN_NODES if (r["H"], r["C"], r["O"]) == (H_, C_, O_))
             entry["offsets_note"] = "ms, pair_ms, plain_ms at offsets in [-3, 3] px"
-        qat = report["int8"]["qat"]["launches_per_step"]
-        if name == "deform_sample_bwd":
-            entry["note"] = ("off the fused training path since deform_conv_dgrad (ms summed over the 16 nodes it "
-                             "ran on); on the QAT path: the DCN's columns' backward")
-            entry["qat_launches_per_step"] = qat["deform_sample_bwd"]
-        if name == "deform_sample":
-            entry["note"] = ("off the fused paths since deform_conv_wgrad (ms summed over the 16 nodes it ran on); "
-                             "on the int8 paths of a float32 model (cli/infer --quant int8) and the QAT path: "
-                             "the DCN's columns")
-            entry["qat_launches_per_step"] = qat["deform_sample"]
-            entry["int8_infer_cli_launches"] = report["int8"]["infer_cli"]["launches"]["deform_sample"]
         if name.startswith("deform"):
             entry["library_ms_note"] = "no single PyTorch call computes this function"
         else:
@@ -1258,11 +1286,7 @@ def main() -> int:
         "shapes_note": "level 2 of a 42-keypoint model at phase 13's --depth batch of 2, per --depth step"})
     bf16_train["deform_conv_wgrad_bf16_shapes"] = wgrad_rows[bf16]
     kernels += bf16_kernel_rows(bf16_train, per_frame)
-    int8_serving = report["int8"]["runners"]["exact_static"]["launches_per_frame"]
-    entry = next(e for e in kernels if e["name"] == "deform_sample_bf16")
-    entry["note"] = ("off the bf16 training path since deform_conv_wgrad_bf16 (ms summed over the 16 nodes it ran "
-                     "on); on the bf16 int8 serving path: the DCN's columns")
-    entry["int8_serving_launches_per_frame"] = int8_serving["deform_sample_bf16"]
+    kernels = column_kernel_rows(kernels, report, bf16_train, per_frame)
     kernels += int8_kernel_rows(report["int8"])
     kernels += zoo_kernel_rows(zoo, per_frame, report["launch_floor"])
     # the bf16 forward's shared-memory kernel at a 42-keypoint level 1,
@@ -1902,6 +1926,80 @@ def train_cli_phase(torch, work, no_launches):
     return out
 
 
+def column_kernel_rows(kernels, report, bf16_train, per_frame):
+    """The kernels-line entries of the DCN columns' kernels (the int8 and
+    QAT paths): launches from phase 18's runs (the float32 and bf16 QAT
+    steps, the bf16 int8 frames, the float32 int8 CLI), the yardsticks'
+    times from the same turns (phase 4: float32; phase 14: bf16), and the
+    yardsticks' own entries (on no path, 0 launches)."""
+    int8 = report["int8"]
+    qat, qat16 = int8["qat"]["launches_per_step"], int8["qat_bf16"]["launches_per_step"]
+    serving = int8["runners"]["exact_static"]["launches_per_frame"]
+    dcn_rows, dcn_bwd_rows = report["deform_sample_shapes"], report["deform_sample_bwd_shapes"]
+    rows16 = bf16_train["deform_sample_bf16_shapes"]
+    bwd16 = bf16_train["deform_sample_bwd_bf16_shapes"]
+    by_name = {e["name"]: e for e in kernels}
+
+    e = by_name["deform_sample"]
+    e.update(launches=QAT_STEPS * qat["deform_sample"], qat_launches_per_step=qat["deform_sample"],
+             fused_launches_per_step=e.pop("launches_per_step"),
+             int8_infer_cli_launches=int8["infer_cli"]["launches"]["deform_sample"],
+             flat_ms=per_frame(dcn_rows, "flat_ms", "per_step"),
+             note="the DCN's columns on the QAT path and the int8 paths of a float32 model (cli/infer --quant "
+                  "int8); off the fused paths; ms per QAT step (16 nodes, batch 8), flat_ms the flat design it "
+                  "replaced, timed in turns")
+    e = by_name["deform_sample_bwd"]
+    e.update(launches=QAT_STEPS * qat["deform_sample_bwd"], qat_launches_per_step=qat["deform_sample_bwd"],
+             fused_launches_per_step=e.pop("launches_per_step"), warp_ms=per_frame(dcn_bwd_rows, "warp_ms", "per_step"),
+             max_abs_err=max(r["max_abs_err"] for r in dcn_bwd_rows),
+             note="the DCN columns' backward on the QAT path; off the fused path (deform_conv_dgrad); ms per QAT "
+                  "step (16 nodes, batch 8, offsets in [-3, 3]), warp_ms the warp-per-item design it replaced, "
+                  "timed in turns; checked at offsets 0, +-3 and +-12 px, dom the same bit for bit in two runs")
+    e = by_name["deform_sample_bf16"]
+    e.update(launches=serving["deform_sample_bf16"] * T_FRAMES, int8_serving_launches_per_frame=serving[
+                 "deform_sample_bf16"], qat_bf16_launches_per_step=qat16["deform_sample_bf16"],
+             flat_ms=per_frame(rows16, "flat_ms", "per_step"),
+             ms_per_int8_frame=per_frame(rows16, "ms", "per_frame"),
+             flat_ms_per_int8_frame=per_frame(rows16, "flat_ms", "per_frame"),
+             plain_ms_per_int8_frame=per_frame(rows16, "plain_ms", "per_frame"),
+             bound_ms_per_int8_frame=per_frame(rows16, "bound_ms", "per_frame"),
+             note="the DCN's columns of bf16 int8 serving (16 a frame) and bf16 QAT (16 a step); ms per QAT step "
+                  "(batch 8), ms_per_int8_frame at batch 1; flat_ms the flat design it replaced, timed in turns")
+    bounds = [r["bound_by"] for r in bwd16 if r["per_step"]]
+    entry16 = {
+        "name": "deform_sample_bwd_bf16", "route": "cuda", "source": "sgtapose_tpu_torch/csrc/deform_sample_bwd.cu",
+        "replaces": "sgtapose_tpu/models/deform_conv.py:130", "launches": QAT_STEPS * qat16["deform_sample_bwd_bf16"],
+        "qat_bf16_launches_per_step": qat16["deform_sample_bwd_bf16"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd16),
+        "ms": per_frame(bwd16, "ms", "per_step"), "plain_ms": per_frame(bwd16, "plain_ms", "per_step"),
+        "bound_ms": per_frame(bwd16, "bound_ms", "per_step"), "bound_by": max(set(bounds), key=bounds.count),
+        "bound_rate": "3.35 TB/s HBM", "library_ms": None,
+        "library_ms_note": "no single PyTorch call computes this function",
+        "widened_route_ms": per_frame(bwd16, "widened_route_ms", "per_step"),
+        "note": "the DCN columns' backward of bf16 QAT (train_demo --quant_train --bf16), per step (16 nodes, batch "
+                "8, offsets in [-3, 3]); widened_route_ms the route it replaced (x and g widened to float32, the "
+                "warp-per-item kernel, the gradients rounded), timed in turns"}
+    yardsticks = []
+    for name, rows, key, source, replaces, note in (
+        ("deform_sample_bwd_warp", [r for r in dcn_bwd_rows if r["offsets"] == 3.0], "warp", "deform_sample_bwd.cu", "sgtapose_tpu/models/deform_conv.py:130",
+         "the yardstick of deform_sample_bwd (one warp per (pixel, tap), scalar atomics), on no path"),
+        ("deform_sample_flat", dcn_rows, "flat", "deform_sample.cu", "sgtapose_tpu/models/deform_conv.py:104",
+         "the yardstick of deform_sample (one thread per 4 channels, coordinates in every thread), on no path"),
+        ("deform_sample_flat_bf16", rows16, "flat", "deform_sample.cu", "sgtapose_tpu/models/deform_conv.py:104",
+         "the yardstick of deform_sample_bf16 (one thread per 4 channels, 8-byte loads and stores), on no path"),
+    ):
+        live = [r for r in rows if r["per_step"]]
+        yardsticks.append({
+            "name": name, "route": "cuda", "source": f"sgtapose_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": 0, "max_abs_err": max(r[f"{key}_max_abs_err"] for r in rows),
+            "ms": per_frame(rows, f"{key}_ms", "per_step"), "plain_ms": per_frame(rows, "plain_ms", "per_step"),
+            "bound_ms": per_frame(rows, "bound_ms", "per_step"), "bound_by": live[0]["bound_by"],
+            "bound_rate": "3.35 TB/s HBM", "library_ms": None,
+            "library_ms_note": "no single PyTorch call computes this function", "note": note + "; ms per QAT step"})
+    i = kernels.index(by_name["deform_sample_bf16"]) + 1
+    return kernels[:i] + [entry16] + kernels[i:] + yardsticks
+
+
 def bf16_kernel_rows(bf16_train, per_step_sum):
     """The kernels-line entries of phase 14's three bf16 backward kernels:
     launches from its train_demo --bf16 run, times and bounds summed over
@@ -1961,6 +2059,53 @@ def _counting_calls(trainer, names, calls):
     for name in names:
         setattr(trainer, name, counted(name))
     return real
+
+
+def _bf16_sample_bwd_rows(torch, deform_conv, cold_ms, gen, dev, feat, offsets, masks, per_step):
+    """Phase 14's rows of `deform_sample_bwd_bf16` at one shape (bf16 feat,
+    offsets in [-3, 3]): offsets at 0, +-3 and +-12 px against the plain
+    bf16 form, dom the same bit for bit in two runs; times at +-3 in turns
+    against the route it replaced (widen, the warp-per-item kernel, round)."""
+    bf = torch.bfloat16
+    B, H, W, C = feat.shape
+    M = B * H * W
+    grad = torch.randn(B, H, W, 9 * C, generator=gen, device=dev).to(bf)
+    rows = []
+    for span in (0.0, 3.0, 12.0):
+        offs = offsets / 3 * span
+        dx, dom = deform_conv.deform_sample_bwd_cuda(feat, offs, masks, grad)
+        torch.cuda.synchronize()
+        rdx, rdom = deform_conv.plain_deform_sample_bwd(feat, offs, masks, grad)
+        errs = {"dx": rel_err(dx.float(), rdx.float()), "dom": rel_err(dom.float(), rdom.float())}
+        if dx.dtype != bf or dom.dtype != bf or not all(
+                math.isfinite(e) and e <= BWD_BF16_REL_TOL for e in errs.values()):
+            raise AssertionError(f"deform_sample_bwd_bf16 B={B} H={H} C={C} offsets +-{span}: rel errors {errs} "
+                                 f"> {BWD_BF16_REL_TOL}")
+        if not torch.equal(dom, deform_conv.deform_sample_bwd_cuda(feat, offs, masks, grad)[1]):
+            raise AssertionError(f"deform_sample_bwd_bf16 H={H} C={C} offsets +-{span}: two runs give another dom")
+        # feat, grad (2 bytes), offsets and masks (float32) read once, dx and
+        # dom (2 bytes) written once; ~34 FLOPs per (pixel, tap, channel)
+        b_ms, b_by = bound_ms(2 * M * (C + 9 * C + C + 27) + 4 * M * 27, M * 9 * C * 34)
+        row = dict(B=B, H=H, W=W, C=C, offsets=span, per_step=per_step if span == 3.0 else 0, rel_err=errs,
+                   dom_bitwise_rerun=True,
+                   max_abs_err=max((dx.float() - rdx.float()).abs().max().item(),
+                                   (dom.float() - rdom.float()).abs().max().item()),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        if span == 3.0:
+            def widened():
+                d32, o32 = deform_conv.deform_sample_bwd_warp_cuda(feat.float(), offs, masks, grad.float())
+                return d32.to(bf), o32.to(bf)
+
+            old_a, new_a, new_b, old_b = (cold_ms(f) for f in (
+                widened, lambda: deform_conv.deform_sample_bwd_cuda(feat, offs, masks, grad),
+                lambda: deform_conv.deform_sample_bwd_cuda(feat, offs, masks, grad), widened))
+            row.update(ms=(new_a + new_b) / 2, widened_route_ms=(old_a + old_b) / 2,
+                       plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample_bwd(feat, offs, masks, grad),
+                                        iters=5, warmup=1))
+        rows.append(row)
+        print("deform_sample_bwd_bf16 " + json.dumps(row))
+        del dx, dom, rdx, rdom
+    return rows
 
 
 def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64):
@@ -2088,38 +2233,57 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
         del x, om, weight, dy, dx, dom, dx2, dom2, rdx, rdom
     out["deform_conv_dgrad_bf16_shapes"] = dgrad_rows
 
-    # the sampler, the route deform_conv_wgrad_bf16 replaced (its yardstick),
-    # at every decoder input shape
+    # the bf16 DCN columns of bf16 QAT and bf16 int8 serving (the sampler
+    # also the route deform_conv_wgrad_bf16 replaced, its yardstick): the
+    # sampler at every decoder input shape at batch 8 (a QAT step) and 1
+    # (an int8 frame), the backward at batch 8 with offsets at 0, +-3 and
+    # +-12 px, each against its plain bf16 form, the same bit for bit in two
+    # runs (dom; the sampler's columns); times at +-3 in turns against the
+    # designs they replaced: the flat sampler, and for the backward the
+    # route it replaced (x and g widened to float32, the warp-per-item kernel, the
+    # gradients rounded)
     sample_shapes = {}
     for H, C, _, nodes in DCN_NODES + [RAGGED_DCN]:
         sample_shapes[(H, C)] = sample_shapes.get((H, C), 0) + nodes
-    sample_rows = []
+    sample_rows, sample_bwd_rows = [], []
     for (H, C), per_step in sample_shapes.items():
-        B, W = (TRAIN_BATCH, H) if per_step else (2, H + 2)
-        feat = torch.randn(B, H, W, C, generator=gen, device=dev).to(bf)
-        offsets = torch.rand(B, H, W, 18, generator=gen, device=dev) * 6 - 3
-        masks = torch.rand(B, H, W, 9, generator=gen, device=dev)
-        cols = deform_conv.deform_sample_cuda(feat, offsets, masks)
-        torch.cuda.synchronize()
-        ref = deform_conv.plain_deform_sample(feat, offsets, masks)
-        err = rel_err(cols.float(), ref.float())
-        if cols.dtype != bf or not math.isfinite(err) or err > DCN_BF16_REL_TOL:
-            raise AssertionError(f"bf16 deform_sample B={B} H={H} C={C}: rel err {err} > {DCN_BF16_REL_TOL}")
-        if not torch.equal(cols, deform_conv.deform_sample_cuda(feat, offsets, masks)):
-            raise AssertionError(f"bf16 deform_sample H={H} C={C}: two runs differ")
-        M = B * H * W
-        # feat (2 bytes), offsets and masks (float32) read once, the columns
-        # written once (2 bytes); ~9 FLOPs per output element
-        b_ms, b_by = bound_ms(2 * M * C + 4 * M * 27 + 2 * M * 9 * C, M * 9 * C * 9)
-        row = dict(B=B, H=H, W=W, C=C, per_step=per_step, rel_err=err, bitwise_equal_rerun=True,
-                   max_abs_err=(cols.float() - ref.float()).abs().max().item(),
-                   ms=cold_ms(lambda: deform_conv.deform_sample_cuda(feat, offsets, masks)),
-                   plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample(feat, offsets, masks)),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        sample_rows.append(row)
-        print("deform_sample_bf16 " + json.dumps(row))
-        del feat, offsets, masks, cols, ref
+        for B in ((TRAIN_BATCH, 1) if per_step else (2,)):
+            W = H if per_step else H + 2
+            feat = torch.randn(B, H, W, C, generator=gen, device=dev).to(bf)
+            offsets = torch.rand(B, H, W, 18, generator=gen, device=dev) * 6 - 3
+            masks = torch.rand(B, H, W, 9, generator=gen, device=dev)
+            cols = deform_conv.deform_sample_cuda(feat, offsets, masks)
+            torch.cuda.synchronize()
+            ref = deform_conv.plain_deform_sample(feat, offsets, masks)
+            err = rel_err(cols.float(), ref.float())
+            if cols.dtype != bf or not math.isfinite(err) or err > DCN_BF16_REL_TOL:
+                raise AssertionError(f"bf16 deform_sample B={B} H={H} C={C}: rel err {err} > {DCN_BF16_REL_TOL}")
+            if not torch.equal(cols, deform_conv.deform_sample_cuda(feat, offsets, masks)):
+                raise AssertionError(f"bf16 deform_sample H={H} C={C}: two runs differ")
+            M = B * H * W
+            # feat (2 bytes), offsets and masks (float32) read once, the columns
+            # written once (2 bytes); ~9 FLOPs per output element
+            b_ms, b_by = bound_ms(2 * M * C + 4 * M * 27 + 2 * M * 9 * C, M * 9 * C * 9)
+            flat_a, new_a, new_b, flat_b = (cold_ms(lambda: f(feat, offsets, masks)) for f in (
+                deform_conv.deform_sample_flat_cuda, deform_conv.deform_sample_cuda, deform_conv.deform_sample_cuda,
+                deform_conv.deform_sample_flat_cuda))
+            flat = deform_conv.deform_sample_flat_cuda(feat, offsets, masks)
+            row = dict(B=B, H=H, W=W, C=C, per_step=per_step if B == TRAIN_BATCH else 0,
+                       per_frame=per_step if B == 1 else 0, rel_err=err, bitwise_equal_rerun=True,
+                       flat_bitwise_equal=bool(torch.equal(cols, flat)),
+                       flat_max_abs_err=(flat.float() - ref.float()).abs().max().item(),
+                       max_abs_err=(cols.float() - ref.float()).abs().max().item(),
+                       ms=(new_a + new_b) / 2, flat_ms=(flat_a + flat_b) / 2,
+                       plain_ms=cold_ms(lambda: deform_conv.plain_deform_sample(feat, offsets, masks)),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            sample_rows.append(row)
+            print("deform_sample_bf16 " + json.dumps(row))
+            if B != 1:
+                sample_bwd_rows += _bf16_sample_bwd_rows(torch, deform_conv, cold_ms, gen, dev, feat, offsets, masks,
+                                                         per_step)
+            del feat, offsets, masks, cols, ref
     out["deform_sample_bf16_shapes"] = sample_rows
+    out["deform_sample_bwd_bf16_shapes"] = sample_bwd_rows
     out["kernel_checks_seconds"] = time.perf_counter() - t_phase
 
     # ---- (b) the 480x480 bf16 gradient: card vs CPU bf16 and CPU float64 ----
@@ -3061,7 +3225,9 @@ def bf16_depth_kernel_rows(depth, per_sum):
 # hm head's int8 gap is itself one bf16 unit at its -4.6 prior bias)
 INT8_OPS_PER_S = 1979e12
 QAT_STEPS = 3
+QAT_BF16_EVAL_FRAMES = 2
 INT8_CARD_VS_CPU = 1.5
+MANY_VIDEOS = 65  # past the 64 per-video scales int8_conv_fused once held in shared memory
 
 
 def quant_sites(torch, model, min_ch: int) -> int:
@@ -3332,6 +3498,54 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
     trunk_fuse["int8_minus_bf16_ms"] = sum(trunk_fuse["exact_static"].values()) - sum(trunk_fuse["bf16_exact"].values())
     out["trunk_fuse_vs_bf16"] = trunk_fuse
     print("int8 static vs bf16, trunk and fuse ms a frame: " + json.dumps(trunk_fuse))
+    # the batched runner over MANY_VIDEOS videos (more than 64) under
+    # dynamic int8: one scale per video at every site (`groups` 65); and a
+    # dynamic site at `groups` 65 and 130 (130 samples) bit for bit with
+    # its plain version, two launches each
+    frames = 2
+    short = slice_frames(video, frames)
+    many = det_lib.VideoFrames(images=short.images[None].expand(MANY_VIDEOS, *short.images.shape).contiguous(),
+                               x3d=short.x3d[None].expand(MANY_VIDEOS, *short.x3d.shape).contiguous(),
+                               init_kps=short.init_kps[None].expand(MANY_VIDEOS, *short.init_kps.shape).contiguous())
+    batched = det_lib.make_batched_video_detector(model16, cfg, K, raw_hw, device=dev, quant="int8")
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = batched(many)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    expect = {kn: n * frames for kn, n in dict(no_launches, biased_attention_bf16=9, deform_sample_bf16=16,
+                                                  int8_conv_fused=57, int8_absmax=57).items()}
+    if counts != expect:
+        raise AssertionError(f"int8 batched runner over {MANY_VIDEOS} videos: launches {counts}, expected {expect}")
+    check_result(res, {k: (MANY_VIDEOS, frames) + v[1:] for k, v in shapes_ok.items()})
+    out["batched_many_videos"] = {"videos": MANY_VIDEOS, "frames": frames, "wall_s": wall,
+                                  "launches_per_frame": {kn: n // frames for kn, n in counts.items() if n}}
+    print("int8 batched runner, dynamic scales: " + json.dumps(out["batched_many_videos"]))
+    gs = torch.Generator(device=dev).manual_seed(65)
+    many_sites = []
+    for kh, C, O, side in ((3, 64, 64, 15), (1, 9 * 64, 64, 8)):
+        N = 2 * MANY_VIDEOS
+        x = (torch.randn(N, side, side, C, generator=gs, device=dev)
+             * (1 + 3 * torch.rand(N, 1, 1, 1, generator=gs, device=dev))).to(bf)
+        w_q = torch.randint(-127, 128, (O, kh, kh, C), generator=gs, device=dev)
+        qw = int8_conv.pack_weight(w_q, torch.rand(O, generator=gs, device=dev) / 100 + 1e-3)
+        bias = (0.1 * torch.randn(O, generator=gs, device=dev)).to(bf)
+        for groups in (MANY_VIDEOS, N):
+            build.reset_launch_counts()
+            got, acc = int8_conv.int8_site_cuda(x, qw, None, groups, bias, 1, kh // 2, return_acc=True)
+            torch.cuda.synchronize()
+            counts = {kn: n for kn, n in build.launch_counts().items() if n}
+            ref, ref_acc = int8_conv.plain_int8_site(x, qw, None, groups, bias, 1, kh // 2, return_acc=True)
+            if counts != {"int8_absmax": 1, "int8_conv_fused": 1} or not (
+                    torch.equal(acc, ref_acc) and torch.equal(got, ref)):
+                raise AssertionError(f"int8 site {kh}x{kh} x {tuple(x.shape)} groups {groups}: launches {counts}, "
+                                     "or accumulators or outputs differ from the plain version")
+            many_sites.append({"x": list(x.shape), "kernel": kh, "O": O, "groups": groups, "bitwise": True,
+                               "launches": counts})
+    out["many_videos_sites"] = many_sites
+    print("int8 dynamic sites beyond 64 videos: " + json.dumps(many_sites))
+    del many, res
     # CUDA launches of one network forward (trunk, fuse, heads) from
     # torch.profiler: bf16, int8 static and dynamic, and int8 static through
     # PR 14's route (PyTorch's quantize ops and its kernel)
@@ -3425,6 +3639,37 @@ def int8_phase(torch, dev, cfg, cold_ms, warm_ms, no_launches, work, ckpt, train
                   "launches_per_step": {kn: n for kn, n in qat_step.items() if n}, "eval_fps": res["fps"],
                   "eval_keypoint_metrics": km, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     print("train_demo --quant_train: " + json.dumps(out["qat"]))
+    del res
+    # bf16 QAT (--quant_train --bf16): the bf16 columns and their bf16
+    # backward, no float32 network kernel; a short int8 eval
+    step_calls.clear()
+    real_calls = _counting_calls(trainer, ("train_step",), step_calls)
+    try:
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_demo.main(["--steps", str(QAT_STEPS), "--batch", str(TRAIN_BATCH), "--eval_videos", "1",
+                               "--eval_frames", str(QAT_BF16_EVAL_FRAMES), "--log_every", "1", "--quant_train",
+                               "--bf16", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in real_calls.items():
+            setattr(trainer, name, fn)
+    counts = build.launch_counts()
+    qat16_step = dict(no_launches, biased_attention_bf16=9, biased_attention_bwd_bf16=3, deform_sample_bf16=16,
+                      deform_sample_bwd_bf16=16)
+    evals = dict(no_launches, biased_attention_bf16=9 * QAT_BF16_EVAL_FRAMES,
+                 deform_sample_bf16=16 * QAT_BF16_EVAL_FRAMES, int8_conv_fused=57 * QAT_BF16_EVAL_FRAMES,
+                 int8_absmax=57 * QAT_BF16_EVAL_FRAMES)
+    if (len(step_calls) != QAT_STEPS or any(launched != qat16_step for _, launched in step_calls)
+            or counts != {kn: evals[kn] + QAT_STEPS * qat16_step[kn] for kn in counts}
+            or not all(math.isfinite(r["tot"]) for r in res["logged"])):
+        raise AssertionError(f"train_demo --quant_train --bf16: step launches {step_calls}, launches {counts}")
+    out["qat_bf16"] = {"steps": QAT_STEPS, "batch": TRAIN_BATCH, "wall_s_with_eval": wall, "logged": res["logged"],
+                       "launches_per_step": {kn: n for kn, n in qat16_step.items() if n},
+                       "eval_frames": QAT_BF16_EVAL_FRAMES, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("train_demo --quant_train --bf16: " + json.dumps(out["qat_bf16"]))
     del res
 
     step_expect = dict(no_launches, biased_attention=9, biased_attention_bwd=3, deform_conv=16,

@@ -11,15 +11,29 @@
 // reference does). The mask is already sigmoided. The output channel order is
 // tap-major (k*C + c), the order the following (9C -> O) contraction expects.
 //
-// What bounds it on an H100: bytes. The output (B,H,W,9C) is the big stream
-// (33.2 MB at 120x120x64, ~11.5 us at 3.35 TB/s with the ~5 MB of inputs);
-// the arithmetic is a few FLOPs per output element. Design: one thread per
-// 4 consecutive output channels (float4) of one (pixel, tap), so consecutive
-// threads write consecutive 16-byte chunks of the output and read consecutive
-// channels of the same corner pixel (both coalesced); the per-(pixel, tap)
-// coordinate math is repeated by the C/4 threads that share it (they read the
-// same offset/mask words, a broadcast), which is cheaper than staging it.
-// A scalar variant handles C % 4 != 0 or unaligned pointers.
+// What bounds it on an H100. The bytes (feat, offsets, masks read once, the
+// (B,H,W,9C) columns written once) take 0.83 ms in float32 and 0.43 ms in
+// bf16 over the 16 decoder nodes at batch 8 (a QAT step); the arithmetic is
+// a few FLOPs per output element. The flat design that preceded this one
+// (kept as the yardstick, deform_sample_flat / _flat_bf16: one thread per 4
+// consecutive channels of a (pixel, tap), every thread forming its item's
+// coordinates) ran 1.56 ms in float32 and 1.53 ms in bf16: in bf16 a thread
+// moved 8 bytes where float32 moves 16 in the same instructions, and each
+// output element's 4 corners are read through the L2 (4x the columns'
+// bytes). Design (the lane layout of dcn_columns.cuh):
+//   * 16 bytes a lane, 4 float32 or 8 bf16 channels: half the load and
+//     store instructions of the flat bf16 kernel;
+//   * L lanes per (pixel, tap), G items a warp (all 32 lanes busy at C = 64
+//     in float32 and at C = 32 in bf16; fewer items a warp where a map has
+//     few of them, so a 15 x 15 x 512 node still fills the card);
+//   * each item's coordinates and corner weights formed once, by one lane,
+//     and shuffled to its L lanes;
+//   * the columns written with evict-first stores, so they do not push the
+//     corners' rows out of the L2.
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py, the yardsticks in turns):
+// 1.27 ms in float32, 0.79 in bf16 a QAT step; the corners' L2 reads keep
+// it above the bytes bound. A one-element-a-lane variant handles C not a
+// multiple of the vector or unaligned pointers.
 //
 // The fused paths do not launch it (the DCN weight gradient forms the same
 // columns inside csrc/deform_conv_wgrad.cu, for which it stays the
@@ -29,57 +43,20 @@
 // (models/deform_conv.py:deform_columns), 16 launches a frame or step.
 //
 // Two instantiations: float32 (deform_sample_fwd) and bf16
-// (deform_sample_bf16_fwd), the columns of bf16 training's weight gradient
-// before deform_conv_wgrad_bf16: bf16 features, the coordinates and the
-// sigmoided masks float32 (the offsets widened exactly from bf16, the mask
-// sigmoid taken in float32, as the bf16 fused forward forms them), each
-// column element formed in float32 and rounded once to bf16 (what the fused
-// forward feeds its product). Bytes bound it as in float32, at half the
-// output stream.
+// (deform_sample_bf16_fwd), the columns of bf16 int8 serving and bf16 QAT:
+// bf16 features, the coordinates and the sigmoided masks float32 (the
+// offsets widened exactly from bf16, the mask sigmoid taken in float32, as
+// the bf16 fused forward forms them), each column element formed in
+// float32 and rounded once to bf16 (what the fused forward feeds its
+// product).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "dcn_columns.cuh"
 
 namespace {
-
-// VEC consecutive channels of T (float, or bf16 held as uint16_t) as floats,
-// and VEC floats stored as T (bf16: rounded once)
-template <typename T, int VEC>
-struct Vec;
-template <>
-struct Vec<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = __ldg(p); }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
-};
-template <>
-struct Vec<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <>
-struct Vec<uint16_t, 1> {
-  static __device__ __forceinline__ void load(const uint16_t* p, float (&v)[1]) { v[0] = bf16f(__ldg(p)); }
-  static __device__ __forceinline__ void store(uint16_t* p, const float (&v)[1]) { *p = to_bf16(v[0]); }
-};
-template <>
-struct Vec<uint16_t, 4> {
-  static __device__ __forceinline__ void load(const uint16_t* p, float (&v)[4]) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = bf_lo(u.x); v[1] = bf_hi(u.x); v[2] = bf_lo(u.y); v[3] = bf_hi(u.y);
-  }
-  static __device__ __forceinline__ void store(uint16_t* p, const float (&v)[4]) {
-    *reinterpret_cast<uint2*>(p) = make_uint2((uint32_t)to_bf16(v[0]) | ((uint32_t)to_bf16(v[1]) << 16),
-                                              (uint32_t)to_bf16(v[2]) | ((uint32_t)to_bf16(v[3]) << 16));
-  }
-};
 
 __device__ __forceinline__ float combine(float v00, float v01, float v10, float v11, float w00,
                                          float w01, float w10, float w11, float mk) {
@@ -91,6 +68,8 @@ __device__ __forceinline__ float combine(float v00, float v01, float v10, float 
   return r * mk;
 }
 
+// The flat design, the yardsticks: one thread per VEC consecutive channels
+// of a (pixel, tap), every thread forming its item's coordinates
 template <typename T, int VEC>
 __device__ __forceinline__ void sample_body(const T* __restrict__ feat, const float* __restrict__ offsets,
                                             const float* __restrict__ masks, T* __restrict__ out, int H,
@@ -128,20 +107,20 @@ __device__ __forceinline__ void sample_body(const T* __restrict__ feat, const fl
 
     const T* fb = feat + (size_t)b * H * W * C + (size_t)cv * VEC;
     float v00[VEC], v01[VEC], v10[VEC], v11[VEC], r[VEC];
-    Vec<T, VEC>::load(fb + ((size_t)yc0 * W + xc0) * C, v00);
-    Vec<T, VEC>::load(fb + ((size_t)yc0 * W + xc1) * C, v01);
-    Vec<T, VEC>::load(fb + ((size_t)yc1 * W + xc0) * C, v10);
-    Vec<T, VEC>::load(fb + ((size_t)yc1 * W + xc1) * C, v11);
+    Chan<T, VEC>::load(fb + ((size_t)yc0 * W + xc0) * C, v00);
+    Chan<T, VEC>::load(fb + ((size_t)yc0 * W + xc1) * C, v01);
+    Chan<T, VEC>::load(fb + ((size_t)yc1 * W + xc0) * C, v10);
+    Chan<T, VEC>::load(fb + ((size_t)yc1 * W + xc1) * C, v11);
 #pragma unroll
     for (int u = 0; u < VEC; ++u) r[u] = combine(v00[u], v01[u], v10[u], v11[u], w00, w01, w10, w11, mk);
-    Vec<T, VEC>::store(out + (size_t)idx * VEC, r);
+    Chan<T, VEC>::put(out + (size_t)idx * VEC, r);
   }
 }
 
 // one kernel name per precision, as profilers list them
 template <int VEC>
 __global__ void __launch_bounds__(256)
-    deform_sample_kernel(const float* __restrict__ feat, const float* __restrict__ offsets,
+    deform_sample_flat_kernel(const float* __restrict__ feat, const float* __restrict__ offsets,
                          const float* __restrict__ masks, float* __restrict__ out, int H, int W,
                          int C, unsigned total) {
   sample_body<float, VEC>(feat, offsets, masks, out, H, W, C, total);
@@ -149,7 +128,7 @@ __global__ void __launch_bounds__(256)
 
 template <int VEC>
 __global__ void __launch_bounds__(256)
-    deform_sample_bf16_kernel(const uint16_t* __restrict__ feat, const float* __restrict__ offsets,
+    deform_sample_flat_bf16_kernel(const uint16_t* __restrict__ feat, const float* __restrict__ offsets,
                               const float* __restrict__ masks, uint16_t* __restrict__ out, int H,
                               int W, int C, unsigned total) {
   sample_body<uint16_t, VEC>(feat, offsets, masks, out, H, W, C, total);
@@ -164,10 +143,10 @@ int launch(const T* feat, const float* offsets, const float* masks, T* out, int 
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   if constexpr (sizeof(T) == 4)
-    deform_sample_kernel<VEC><<<blocks, threads, 0, stream>>>(feat, offsets, masks, out, H, W, C,
+    deform_sample_flat_kernel<VEC><<<blocks, threads, 0, stream>>>(feat, offsets, masks, out, H, W, C,
                                                               (unsigned)total);
   else
-    deform_sample_bf16_kernel<VEC><<<blocks, threads, 0, stream>>>(feat, offsets, masks, out, H, W,
+    deform_sample_flat_bf16_kernel<VEC><<<blocks, threads, 0, stream>>>(feat, offsets, masks, out, H, W,
                                                                    C, (unsigned)total);
   return (int)cudaGetLastError();
 }
@@ -189,16 +168,123 @@ int fwd(const void* feat, const void* offsets, const void* masks, void* out, int
   return launch<T, 1>(f, o, m, dst, B, H, W, C, s);
 }
 
+
+// the lane layout (dcn_columns.cuh): L lanes per (pixel, tap), VEC channels
+// (16 bytes) a lane a step, the coordinates formed once per item and
+// shuffled; the columns written with evict-first stores
+template <typename T, int VEC, int L>
+__device__ __forceinline__ void sample_lanes_body(const T* __restrict__ feat, const float* __restrict__ offsets,
+                                                  const float* __restrict__ masks, T* __restrict__ out, int H,
+                                                  int W, int C, unsigned total, int G) {
+  constexpr int IPW = 32 / L;
+  const int lane = threadIdx.x & 31, seg = lane / L, sl = lane % L;
+  const unsigned warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, warps = (gridDim.x * blockDim.x) >> 5;
+  const unsigned hw = (unsigned)H * W;
+  for (unsigned base = warp * G; base < total; base += warps * G) {
+    const Corners mine = corners_of(min(base + min(lane, G - 1), total - 1), offsets, masks, H, W);
+#pragma unroll 4
+    for (int k = 0; k < G; k += IPW) {
+      const Corners t = shfl_corners(mine, k + seg);
+      const unsigned item = base + k + seg;
+      if (item >= total) continue;
+      float w[4];
+      corner_weights(t, w);
+      const T* fb = feat + (size_t)((item / 9) / hw) * hw * C;
+      T* o = out + (size_t)item * C;
+      for (int c = sl * VEC; c < C; c += L * VEC) {
+        float a[VEC], b[VEC], e[VEC], f[VEC], r[VEC];
+        Chan<T, VEC>::load(fb + (size_t)t.idx[0] * C + c, a);
+        Chan<T, VEC>::load(fb + (size_t)t.idx[1] * C + c, b);
+        Chan<T, VEC>::load(fb + (size_t)t.idx[2] * C + c, e);
+        Chan<T, VEC>::load(fb + (size_t)t.idx[3] * C + c, f);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) r[u] = combine(a[u], b[u], e[u], f[u], w[0], w[1], w[2], w[3], t.mk);
+        Chan<T, VEC>::store(o + c, r);
+      }
+    }
+  }
+}
+
+template <int VEC, int L>
+__global__ void __launch_bounds__(256)
+    deform_sample_kernel(const float* __restrict__ feat, const float* __restrict__ offsets,
+                         const float* __restrict__ masks, float* __restrict__ out, int H, int W, int C,
+                         unsigned total, int G) {
+  sample_lanes_body<float, VEC, L>(feat, offsets, masks, out, H, W, C, total, G);
+}
+
+template <int VEC, int L>
+__global__ void __launch_bounds__(256)
+    deform_sample_bf16_kernel(const uint16_t* __restrict__ feat, const float* __restrict__ offsets,
+                              const float* __restrict__ masks, uint16_t* __restrict__ out, int H, int W, int C,
+                              unsigned total, int G) {
+  sample_lanes_body<uint16_t, VEC, L>(feat, offsets, masks, out, H, W, C, total, G);
+}
+
+template <typename T, int VEC, int L>
+int launch_lanes(const T* feat, const float* offsets, const float* masks, T* out, int H, int W, int C,
+                 unsigned total, cudaStream_t stream) {
+  const int G = items_per_warp(total, L);
+  const unsigned blocks = ((total + G - 1) / G + 7) / 8;  // a warp per G items
+  if constexpr (sizeof(T) == 4)
+    deform_sample_kernel<VEC, L><<<blocks, 256, 0, stream>>>(feat, offsets, masks, out, H, W, C, total, G);
+  else
+    deform_sample_bf16_kernel<VEC, L><<<blocks, 256, 0, stream>>>(feat, offsets, masks, out, H, W, C, total, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_vec(const T* feat, const float* offsets, const float* masks, T* out, int H, int W, int C,
+               unsigned total, cudaStream_t s) {
+  switch (lanes_per_item(C, VEC)) {
+    case 1: return launch_lanes<T, VEC, 1>(feat, offsets, masks, out, H, W, C, total, s);
+    case 2: return launch_lanes<T, VEC, 2>(feat, offsets, masks, out, H, W, C, total, s);
+    case 4: return launch_lanes<T, VEC, 4>(feat, offsets, masks, out, H, W, C, total, s);
+    case 8: return launch_lanes<T, VEC, 8>(feat, offsets, masks, out, H, W, C, total, s);
+    case 16: return launch_lanes<T, VEC, 16>(feat, offsets, masks, out, H, W, C, total, s);
+    default: return launch_lanes<T, VEC, 32>(feat, offsets, masks, out, H, W, C, total, s);
+  }
+}
+
+template <typename T>
+int fwd_lanes(const void* feat, const void* offsets, const void* masks, void* out, int B, int H, int W, int C,
+              void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const uint64_t total = (uint64_t)B * H * W * 9;
+  if (total >= (1ull << 31) - 32 || total * C >= (1ull << 40)) return (int)cudaErrorInvalidValue;
+  const T* f = static_cast<const T*>(feat);
+  const float* o = static_cast<const float*>(offsets);
+  const float* m = static_cast<const float*>(masks);
+  T* dst = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int VEC = 16 / sizeof(T);  // 16 bytes a lane: 4 float32 or 8 bf16 channels
+  const bool aligned = ((reinterpret_cast<uintptr_t>(f) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  if (C % VEC == 0 && aligned) return launch_vec<T, VEC>(f, o, m, dst, H, W, C, (unsigned)total, s);
+  return launch_vec<T, 1>(f, o, m, dst, H, W, C, (unsigned)total, s);
+}
+
 }  // namespace
 
 // float32 feat (B,H,W,C), offsets (B,H,W,18), masks (B,H,W,9) -> out (B,H,W,9C)
 extern "C" int deform_sample_fwd(const void* feat, const void* offsets, const void* masks,
                                  void* out, int B, int H, int W, int C, void* stream) {
-  return fwd<float>(feat, offsets, masks, out, B, H, W, C, stream);
+  return fwd_lanes<float>(feat, offsets, masks, out, B, H, W, C, stream);
 }
 
 // the same with bf16 feat and out; offsets and masks float32
 extern "C" int deform_sample_bf16_fwd(const void* feat, const void* offsets, const void* masks,
                                       void* out, int B, int H, int W, int C, void* stream) {
+  return fwd_lanes<uint16_t>(feat, offsets, masks, out, B, H, W, C, stream);
+}
+
+// the flat design that preceded them, the yardsticks (on no path): the
+// arguments of deform_sample_fwd and deform_sample_bf16_fwd
+extern "C" int deform_sample_flat_fwd(const void* feat, const void* offsets, const void* masks,
+                                      void* out, int B, int H, int W, int C, void* stream) {
+  return fwd<float>(feat, offsets, masks, out, B, H, W, C, stream);
+}
+
+extern "C" int deform_sample_flat_bf16_fwd(const void* feat, const void* offsets, const void* masks,
+                                           void* out, int B, int H, int W, int C, void* stream) {
   return fwd<uint16_t>(feat, offsets, masks, out, B, H, W, C, stream);
 }

@@ -30,9 +30,11 @@
 // The reduction (int8_absmax_kernel): a grid of (slots, N) blocks, each the
 // max of |x| over one contiguous span of its sample, written to its own slot
 // partial[n * slots + s]: no atomics in device memory, so nothing to zero
-// first. The conv kernel reads the N x slots maxima in its prologue and takes
-// each video's max with shared-memory atomicMax on the float bits (|x| >= 0
-// orders as an unsigned int; exact and order-free).
+// first. The conv kernel reads in its prologue the slot maxima of the videos
+// of its own images (a block's 64 pixels span at most 64 images, so any
+// number of videos fits) and takes each video's max with shared-memory
+// atomicMax on the float bits (|x| >= 0 orders as an unsigned int; exact and
+// order-free).
 //
 // What bounds it on an H100: at the flagship's 57 sites, 0.130 ms a frame of
 // bytes (x in bf16, the s8 weight, the bf16 output) against ~0.02 ms of
@@ -90,8 +92,7 @@ namespace {
 constexpr int BM = 64, kThreads = 256;  // two warpgroups
 constexpr int KS = 128;                 // K bytes per stage: 8 chunks of 16
 constexpr int NST = 3;                  // stages in the ring
-constexpr int kMaxSplits = 8;   // portable cluster size
-constexpr int kMaxVideos = 64;  // per-video scales held in shared memory
+constexpr int kMaxSplits = 8;  // portable cluster size
 constexpr int LBO = 144, SBO = 8 * LBO;
 constexpr int A_TILE = (BM / 8) * SBO;  // bytes of one s8 A stage
 constexpr int kReduceThreads = 256;
@@ -123,7 +124,9 @@ struct Smem {
   uint8_t a[2][A_TILE];  // after the K loop, the s32 partial tile
   int row_m[BM];  // the output pixel of each row, -1 past the edge
   float row_scale[BM];
-  float video_scale[kMaxVideos];
+  // the scales of the videos of the block's images n0 .. n0 + 63, video
+  // (n0 + j) % V at j: any V, as a block's 64 pixels span at most 64 images
+  float video_scale[BM];
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -374,27 +377,37 @@ __global__ void __launch_bounds__(kThreads, MODE == PATCH ? (BN == 16 ? 4 : 3)
   }
 
   // ---- the activation scale of each of the block's rows ----
+  // image n's video is n % videos; the block reads only the slot maxima of
+  // the videos of its own images n0 .. n1 (at most 64 of them), so any
+  // number of videos fits its shared memory: slot j holds video (n0 + j) %
+  // videos, and image n takes slot (n - n0) % videos
+  const int n0 = MODE == PATCH ? pn : blockIdx.x * BM / hw;
   if (partial_max != nullptr) {
+    const int n1 = MODE == PATCH ? pn : (min(blockIdx.x * BM + BM, g.M) - 1) / hw;
+    const int nv = min(n1 - n0 + 1, videos), reps = g.N / videos;
     uint32_t* vmax = reinterpret_cast<uint32_t*>(sm.video_scale);
-    for (int v = tid; v < videos; v += kThreads) vmax[v] = 0u;
+    for (int j = tid; j < nv; j += kThreads) vmax[j] = 0u;
     __syncthreads();
-    for (int i = tid; i < g.N * slots; i += kThreads)
-      atomicMax(&vmax[(i / slots) % videos], __float_as_uint(__ldg(partial_max + i)));
+    for (int i = tid; i < nv * reps * slots; i += kThreads) {
+      const int j = i / (reps * slots), r = i - j * (reps * slots), rep = r / slots, s = r - rep * slots;
+      const int n = (n0 + j) % videos + rep * videos;
+      atomicMax(&vmax[j], __float_as_uint(__ldg(partial_max + (size_t)n * slots + s)));
+    }
     __syncthreads();
-    for (int v = tid; v < videos; v += kThreads) {
-      const float mx = __uint_as_float(vmax[v]);
+    for (int j = tid; j < nv; j += kThreads) {
+      const float mx = __uint_as_float(vmax[j]);
       // torch's clamp_min keeps a NaN
-      sm.video_scale[v] = __fdiv_rn(mx != mx ? mx : fmaxf(mx, 1e-12f), 127.f);
+      sm.video_scale[j] = __fdiv_rn(mx != mx ? mx : fmaxf(mx, 1e-12f), 127.f);
     }
     __syncthreads();
   }
   if (tid < BM) {  // the thread that wrote row_m[tid]
     const int m = sm.row_m[tid];
-    sm.row_scale[tid] = partial_max != nullptr ? sm.video_scale[(m < 0 ? 0 : m / hw) % videos] : a_static;
+    sm.row_scale[tid] = partial_max != nullptr ? sm.video_scale[(m < 0 ? 0 : m / hw - n0) % videos] : a_static;
   }
   if constexpr (MODE == PATCH) {
     // the tap table, and the patch quantized once (one sample: one scale)
-    const float sc = partial_max != nullptr ? sm.video_scale[pn % videos] : a_static, sr = __fdiv_rn(1.f, sc);
+    const float sc = partial_max != nullptr ? sm.video_scale[0] : a_static, sr = __fdiv_rn(1.f, sc);
     for (int k = tid; k < g.K; k += kThreads) {
       const int tap = k / g.C, c = k - tap * g.C, ky = tap / g.KW, kx = tap - ky * g.KW;
       tab[k] = (int16_t)((ky * g.PW + kx) * g.C + c);
@@ -651,7 +664,7 @@ extern "C" int int8_conv_fused_fwd(const void* x, const void* w, const void* w_s
                        (mode == VEC && C % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ||
                        (mode == PATCH && K <= kPatchK && PR * PW * C <= kPatchMax);
   if (Kp % 32 != 0 || Kp < K || (tile_n != 16 && tile_n != 64) || !mode_ok || splits < 1 || splits > kMaxSplits ||
-      splits > g.steps || (partial_max != nullptr && (slots < 1 || videos < 1 || videos > kMaxVideos)) ||
+      splits > g.steps || (partial_max != nullptr && (slots < 1 || videos < 1 || N % videos != 0)) ||
       (O + tile_n - 1) / tile_n > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -39,7 +39,10 @@ pixels).
 int8 serving and quantization-aware training (`models/layers.py`) contract
 the sampled columns through the quantizable site instead of the fused
 kernel: `deform_columns` launches the sampler (`deform_sample` /
-`deform_sample_bf16`) forward and `deform_sample_bwd` backward.
+`deform_sample_bf16`) forward and the sampling backward of x's dtype
+(`deform_sample_bwd` / `deform_sample_bwd_bf16`), which share a lane layout
+(`csrc/dcn_columns.cuh`). The designs they replaced stay as yardsticks on
+no path (`deform_sample_flat_cuda`, `deform_sample_bwd_warp_cuda`).
 
 `dcn_chunks` (`DeformConv2d(chunks=)`, JAX's `deform_sample_batch_chunked`)
 forms the columns, their backward and the weight gradient's columns in row
@@ -77,6 +80,13 @@ KERNEL_BF16 = "deform_sample_bf16"
 DGRAD_KERNEL_BF16 = "deform_conv_dgrad_bf16"
 WGRAD_KERNEL = "deform_conv_wgrad"
 WGRAD_KERNEL_BF16 = "deform_conv_wgrad_bf16"
+BWD_KERNEL_BF16 = "deform_sample_bwd_bf16"
+# the designs the columns' kernels replaced, their yardsticks on no path:
+# the flat sampler (one thread per 4 channels of a (pixel, tap)) and the
+# warp-per-item backward (one warp per (pixel, tap), scalar atomics)
+KERNEL_FLAT = "deform_sample_flat"
+KERNEL_FLAT_BF16 = "deform_sample_flat_bf16"
+BWD_KERNEL_WARP = "deform_sample_bwd_warp"
 # the weight-gradient kernel's output and channel tile, and the blocks an SM
 # holds at once (csrc/deform_conv_wgrad.cu: BO, BC; 128 registers a thread)
 WGRAD_TILE, WGRAD_BLOCKS_PER_SM = 64, 2
@@ -169,10 +179,9 @@ def plain_deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.
     return slabs[0] if S == 1 else torch.cat(slabs, dim=1)
 
 
-def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA sampling kernel of feat's dtype on the current stream
-    (CUDA tensors): float32, or bf16 feat and out with float32 offsets and
-    masks."""
+def _launch_sampler(names, feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Launch the sampling kernel names[0] (float32 feat) or names[1] (bf16
+    feat) on the current stream (CUDA tensors, offsets and masks float32)."""
     if feat.dim() != 4:
         raise ValueError(f"feat must be (B,H,W,C), got {tuple(feat.shape)}")
     B, H, W, C = feat.shape
@@ -182,7 +191,7 @@ def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.T
             f"got {tuple(offsets.shape)}/{tuple(masks.shape)}")
     if feat.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"feat must be float32 or bf16, got {feat.dtype}")
-    name = KERNEL if feat.dtype == torch.float32 else KERNEL_BF16
+    name = names[feat.dtype == torch.bfloat16]
     for label, t, dtype in (("feat", feat, feat.dtype), ("offsets", offsets, torch.float32),
                             ("masks", masks, torch.float32)):
         if t.device.type != "cuda" or t.device != feat.device:
@@ -200,6 +209,19 @@ def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.T
     build.check(name, err)
     build.count_launch(name)
     return out
+
+
+def deform_sample_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA sampling kernel of feat's dtype on the current stream
+    (CUDA tensors): float32, or bf16 feat and out with float32 offsets and
+    masks."""
+    return _launch_sampler((KERNEL, KERNEL_BF16), feat, offsets, masks)
+
+
+def deform_sample_flat_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """`deform_sample_cuda` through the flat design the samplers replaced,
+    their yardstick on no path."""
+    return _launch_sampler((KERNEL_FLAT, KERNEL_FLAT_BF16), feat, offsets, masks)
 
 
 def wgrad_step_pixels(dtype: torch.dtype) -> int:
@@ -334,34 +356,72 @@ def plain_deform_sample_backward(feat: torch.Tensor, offsets: torch.Tensor, mask
     return dfeat.reshape(B, H, W, C), torch.cat(doffsets, dim=1), torch.cat(dmask, dim=1)
 
 
-def deform_sample_bwd_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
-                           grad: torch.Tensor):
-    """Launch the CUDA sampling backward on the current stream (CUDA tensors,
-    float32): (dfeat (B,H,W,C), dom (B,H,W,27)), dom being the gradient of the
-    raw offset/mask conv output whose last 9 channels' sigmoid is `masks`."""
+def plain_deform_sample_bwd(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                            grad: torch.Tensor, chunks: int = 1):
+    """The sampling backward in the kernels' form: (dfeat (B,H,W,C), dom
+    (B,H,W,27)) in feat's dtype, dom the gradient of the raw offset/mask conv
+    output whose last 9 channels' sigmoid is `masks`. bf16 feat and grad
+    (offsets and masks float32): the float32 formulas from the widened
+    inputs, each output rounded once to bf16. chunks: row slabs."""
+    f32 = torch.float32
+    dfeat, doffsets, dmask = plain_deform_sample_backward(feat.to(f32), offsets, masks, grad.to(f32), chunks)
+    dom = torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
+    return dfeat.to(feat.dtype), dom.to(feat.dtype)
+
+
+def _launch_sample_bwd(name: str, feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                       grad: torch.Tensor):
+    """Launch the sampling backward `name` on the current stream (CUDA
+    tensors; feat and grad of one dtype, offsets and masks float32)."""
     if feat.dim() != 4:
         raise ValueError(f"feat must be (B,H,W,C), got {tuple(feat.shape)}")
     B, H, W, C = feat.shape
     expect = {"offsets": (B, H, W, 18), "masks": (B, H, W, 9), "grad": (B, H, W, 9 * C)}
-    for name, t in (("feat", feat), ("offsets", offsets), ("masks", masks), ("grad", grad)):
-        if name in expect and tuple(t.shape) != expect[name]:
-            raise ValueError(f"{name} must be {expect[name]} for feat {tuple(feat.shape)}, got {tuple(t.shape)}")
+    for label, t, dtype in (("feat", feat, feat.dtype), ("offsets", offsets, torch.float32),
+                            ("masks", masks, torch.float32), ("grad", grad, feat.dtype)):
+        if label in expect and tuple(t.shape) != expect[label]:
+            raise ValueError(f"{label} must be {expect[label]} for feat {tuple(feat.shape)}, got {tuple(t.shape)}")
         if t.device.type != "cuda" or t.device != feat.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {feat.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+            raise ValueError(f"{label} must be a CUDA tensor on {feat.device}, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{label} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    dfeat = torch.zeros_like(feat)
-    dom = torch.empty((B, H, W, 27), dtype=torch.float32, device=feat.device)
-    fn = build.kernel_fn(BWD_KERNEL)
+            raise ValueError(f"{label} must be contiguous")
+    bf16 = feat.dtype == torch.bfloat16
+    dom = torch.empty((B, H, W, 27), dtype=feat.dtype, device=feat.device)
+    # the scatter adds into dfeat (float32), or, in bf16, into float32 sums
+    # the launch rounds once into dx
+    dfeat = torch.empty_like(feat) if bf16 else torch.zeros_like(feat)
+    sums = [torch.zeros(feat.shape, dtype=torch.float32, device=feat.device)] if bf16 else []
+    fn = build.kernel_fn(name)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(feat.data_ptr(), offsets.data_ptr(), masks.data_ptr(), grad.data_ptr(),
-                 dfeat.data_ptr(), dom.data_ptr(), B, H, W, C, stream)
-    build.check(BWD_KERNEL, err)
-    build.count_launch(BWD_KERNEL)
+        err = fn(*(t.data_ptr() for t in [feat, offsets, masks, grad] + sums + [dfeat, dom]), B, H, W, C, stream)
+    build.check(name, err)
+    build.count_launch(name)
     return dfeat, dom
+
+
+def deform_sample_bwd_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                           grad: torch.Tensor):
+    """Launch the CUDA sampling backward of feat's dtype on the current stream
+    (CUDA tensors): (dfeat (B,H,W,C), dom (B,H,W,27)) of
+    `plain_deform_sample_bwd`, in feat's dtype: float32, or bf16 feat and
+    grad with float32 offsets and masks (bf16 dx and dom, each rounded once
+    from float32)."""
+    if feat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feat must be float32 or bf16, got {feat.dtype}")
+    return _launch_sample_bwd(BWD_KERNEL_BF16 if feat.dtype == torch.bfloat16 else BWD_KERNEL,
+                              feat, offsets, masks, grad)
+
+
+def deform_sample_bwd_warp_cuda(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,
+                                grad: torch.Tensor):
+    """`deform_sample_bwd_cuda` in float32 through the warp-per-item kernel
+    it replaced, its yardstick on no path."""
+    if feat.dtype != torch.float32:
+        raise ValueError(f"feat must be float32, got {feat.dtype}")
+    return _launch_sample_bwd(BWD_KERNEL_WARP, feat, offsets, masks, grad)
 
 
 def deform_sample(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -609,9 +669,10 @@ def deform_conv(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
 class _DeformSample(torch.autograd.Function):
     """The sampled columns (B,H,W,9C) of x and the raw offset/mask conv
     output om, differentiable: CUDA tensors launch the sampler
-    (`deform_sample` / `deform_sample_bf16`) forward and `deform_sample_bwd`
-    backward (float32: a bf16 x and cotangent are widened exactly and the
-    gradients rounded once), CPU tensors the plain versions in `chunks` row
+    (`deform_sample` / `deform_sample_bf16`) forward and the sampling
+    backward of x's dtype (`deform_sample_bwd` / `deform_sample_bwd_bf16`:
+    bf16 x and cotangent read as they are, the gradients formed in float32
+    and rounded once), CPU tensors the plain versions in `chunks` row
     slabs."""
 
     @staticmethod
@@ -626,14 +687,12 @@ class _DeformSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, offsets, masks = ctx.saved_tensors
-        f32 = torch.float32
-        x32, g32 = x.to(f32).contiguous(), g.to(f32).contiguous()
+        g = g.to(x.dtype).contiguous()
         if x.device.type == "cpu":
-            dx, doffsets, dmask = plain_deform_sample_backward(x32, offsets, masks, g32, ctx.chunks)
-            dom = torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
+            dx, dom = plain_deform_sample_bwd(x, offsets, masks, g, ctx.chunks)
         else:
-            dx, dom = deform_sample_bwd_cuda(x32, offsets, masks, g32)
-        return dx.to(x.dtype), dom.to(ctx.om_dtype), None
+            dx, dom = deform_sample_bwd_cuda(x, offsets, masks, g)
+        return dx, dom.to(ctx.om_dtype), None
 
 
 def deform_columns(x: torch.Tensor, om: torch.Tensor, chunks: int = 1) -> torch.Tensor:

@@ -40,7 +40,9 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # yardsticks, "_rowtile" and "_cluster", on no path; int8 serving's site
 # kernels, the convolution that quantizes its activation and the max|x|
 # reduction, share a source, and PR 14's convolution on s8 operands stays
-# in its own as their yardstick, on no path)
+# in its own as their yardstick, on no path; the DCN columns' sampler and
+# its backward, float32 and bf16, share their sources with the designs that
+# preceded them, the yardsticks "_flat" and "_warp", on no path)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -70,6 +72,10 @@ KERNEL_SOURCES = {
     "int8_conv": "int8_conv.cu",
     "int8_conv_fused": "int8_conv_fused.cu",
     "int8_absmax": "int8_conv_fused.cu",
+    "deform_sample_bwd_bf16": "deform_sample_bwd.cu",
+    "deform_sample_bwd_warp": "deform_sample_bwd.cu",
+    "deform_sample_flat": "deform_sample.cu",
+    "deform_sample_flat_bf16": "deform_sample.cu",
 }
 
 NVCC_FLAGS = (
@@ -140,6 +146,14 @@ _SIGNATURES = {
     "int8_conv_fused": ("int8_conv_fused_fwd", [_P] * 4 + [_I, _I, _F] + [_P] * 3 + [_I] * 16 + [_P]),
     # x, partial, N, per_sample, slots, x_bf16, stream
     "int8_absmax": ("int8_absmax", [_P, _P] + [_I] * 4 + [_P]),
+    # feat, grad (bf16), offsets, masks (float32) in the order feat,
+    # offsets, masks, grad; dx32 (scratch), dx, dom, B, H, W, C, stream
+    "deform_sample_bwd_bf16": ("deform_sample_bwd_bf16", [_P] * 7 + [_I] * 4 + [_P]),
+    # the yardsticks: the arguments of deform_sample_bwd, deform_sample and
+    # deform_sample_bf16
+    "deform_sample_bwd_warp": ("deform_sample_bwd_warp", [_P] * 6 + [_I] * 4 + [_P]),
+    "deform_sample_flat": ("deform_sample_flat_fwd", [_P] * 4 + [_I] * 4 + [_P]),
+    "deform_sample_flat_bf16": ("deform_sample_flat_bf16_fwd", [_P] * 4 + [_I] * 4 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -48,7 +48,6 @@ TILE_M = 64
 TILE_N = (16, 64)
 K_STAGE = 128
 MAX_SPLITS = 8
-MAX_VIDEOS = 64  # per-video dynamic scales the kernel holds
 # the A producer's modes (`a_mode`): "vec", x's raw rows by cp.async where
 # C % 16 == 0 (a 16-element chunk is one tap's channels), quantized a stage
 # at a time; "patch", a block's input patch (`patch_tile`, `patch_bytes`)
@@ -330,8 +329,8 @@ def int8_site_cuda(x: torch.Tensor, qw: QuantWeight, a_max: Optional[float], gro
     O, Kp = qw.q.shape
     if qw.c != C or Kp % K_STEP or Kp < qw.kh * qw.kw * C:
         raise ValueError(f"weight (O={O}, {qw.kh}x{qw.kw}x{qw.c}, Kp={Kp}) does not fit x {tuple(x.shape)}")
-    if groups < 1 or N % groups or (a_max is None and groups > MAX_VIDEOS):
-        raise ValueError(f"groups {groups} must divide the batch {N} and be at most {MAX_VIDEOS}")
+    if groups < 1 or N % groups:
+        raise ValueError(f"groups {groups} must divide the batch {N}")
     checks = [("w", qw.q, torch.int8, (O, Kp)), ("w_scale", qw.scale, torch.float32, (O,))]
     if bias is not None:
         checks.append(("bias", bias, x.dtype, (O,)))

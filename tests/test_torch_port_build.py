@@ -79,6 +79,17 @@ KERNEL_MODULES = {
     # and the max|x| reduction of a dynamic scale
     "int8_conv_fused": ("sgtapose_tpu_torch.ops.int8_conv", "plain_int8_site", "int8_site_cuda"),
     "int8_absmax": ("sgtapose_tpu_torch.ops.int8_conv", "plain_int8_absmax", "int8_absmax_cuda"),
+    # the DCN columns' backward launches the float32 or the bf16 kernel by
+    # dtype; the designs the columns' kernels replaced, their yardsticks,
+    # each behind its own wrapper
+    "deform_sample_bwd_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample_bwd",
+                               "deform_sample_bwd_cuda"),
+    "deform_sample_bwd_warp": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample_bwd",
+                               "deform_sample_bwd_warp_cuda"),
+    "deform_sample_flat": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample",
+                           "deform_sample_flat_cuda"),
+    "deform_sample_flat_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample",
+                                "deform_sample_flat_cuda"),
 }
 
 
@@ -108,5 +119,6 @@ def test_every_kernel_has_its_plain_version(name):
                       "WGRAD_KERNEL_BF16", "KERNEL_NOBIAS", "KERNEL_NOBIAS_BF16", "BWD_KERNEL_NOBIAS",
                       "BWD_KERNEL_NOBIAS_BF16", "KERNEL_TILED_BF16", "BWD_KERNEL_ROWS_BF16",
                       "KERNEL_NOBIAS_ROWTILE", "KERNEL_NOBIAS_ROWTILE_BF16", "BWD_KERNEL_NOBIAS_CLUSTER",
-                      "BWD_KERNEL_NOBIAS_CLUSTER_BF16", "KERNEL_FUSED", "KERNEL_ABSMAX")}
+                      "BWD_KERNEL_NOBIAS_CLUSTER_BF16", "KERNEL_FUSED", "KERNEL_ABSMAX", "KERNEL_FLAT",
+                      "KERNEL_FLAT_BF16", "BWD_KERNEL_WARP")}
     assert name in names

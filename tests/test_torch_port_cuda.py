@@ -1026,3 +1026,117 @@ def test_int8_serving_reaches_the_kernel_at_every_site(dev):
         assert counts["deform_sample_bf16"] == 16 and counts["deform_conv_bf16"] == 0 and counts["int8_conv"] == 0
         assert counts["int8_absmax"] == counts["int8_conv_fused"]
         assert counts["int8_conv_fused"] == sites if sites else 16 < counts["int8_conv_fused"] < 57
+
+
+# the DCN columns' kernels: the decoder's input shapes at the training batch
+# of 8 and a ragged one (one channel a lane)
+COLUMN_SHAPES = [(8, 15, 15, 512), (8, 30, 30, 256), (8, 60, 60, 128), (8, 120, 120, 64), (2, 9, 11, 6)]
+BWD_BF16_REL = 2.0 ** -6  # two bf16 units at the top of the range: one rounding, float32 sums in another order
+
+
+@pytest.mark.parametrize("span", [0.0, 3.0, 12.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C", COLUMN_SHAPES)
+def test_deform_sample_bwd_kernels_at_every_offset(dev, B, H, W, C, dtype, span):
+    """Both instantiations of the columns' backward against
+    `plain_deform_sample_bwd` with offsets at zero, +-3 and +-12 px: dx and
+    dom in the input's dtype, dom the same bit for bit in two runs, one
+    launch of the dtype's kernel."""
+    name = "deform_sample_bwd" if dtype == torch.float32 else "deform_sample_bwd_bf16"
+    g = torch.Generator(device=dev).manual_seed(H * C + int(span))
+    feat = torch.randn(B, H, W, C, generator=g, device=dev).to(dtype)
+    offsets = (torch.rand(B, H, W, 18, generator=g, device=dev) * 2 - 1) * span
+    masks = torch.rand(B, H, W, 9, generator=g, device=dev)
+    grad = torch.randn(B, H, W, 9 * C, generator=g, device=dev).to(dtype)
+    build.reset_launch_counts()
+    dx, dom = deform_conv.deform_sample_bwd_cuda(feat, offsets, masks, grad)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in build.launch_counts().items() if n} == {name: 1}
+    rdx, rdom = deform_conv.plain_deform_sample_bwd(feat, offsets, masks, grad)
+    assert dx.dtype == dom.dtype == dtype
+    bar = BWD_REL if dtype == torch.float32 else BWD_BF16_REL
+    assert _rel_err(dx.float(), rdx.float()) <= bar
+    assert _rel_err(dom.float(), rdom.float()) <= bar
+    assert torch.equal(dom, deform_conv.deform_sample_bwd_cuda(feat, offsets, masks, grad)[1])
+
+
+@pytest.mark.parametrize("B,H,W,C", COLUMN_SHAPES)
+def test_deform_sample_bwd_yardstick_matches_plain(dev, B, H, W, C):
+    """The warp-per-item design the columns' backward replaced (on no path)."""
+    g = torch.Generator(device=dev).manual_seed(C)
+    feat = torch.randn(B, H, W, C, generator=g, device=dev)
+    offsets = torch.rand(B, H, W, 18, generator=g, device=dev) * 6 - 3
+    masks = torch.rand(B, H, W, 9, generator=g, device=dev)
+    grad = torch.randn(B, H, W, 9 * C, generator=g, device=dev)
+    build.reset_launch_counts()
+    dx, dom = deform_conv.deform_sample_bwd_warp_cuda(feat, offsets, masks, grad)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in build.launch_counts().items() if n} == {"deform_sample_bwd_warp": 1}
+    rdx, rdom = deform_conv.plain_deform_sample_bwd(feat, offsets, masks, grad)
+    assert _rel_err(dx, rdx) <= BWD_REL and _rel_err(dom, rdom) <= BWD_REL
+    with pytest.raises(ValueError, match="float32"):
+        deform_conv.deform_sample_bwd_warp_cuda(feat.bfloat16(), offsets, masks, grad.bfloat16())
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,W,C", [(15, 15, 512), (30, 30, 256), (60, 60, 128), (120, 120, 64), (9, 11, 6)])
+def test_deform_sample_kernels_and_yardsticks_at_batch_1_and_8(dev, H, W, C, dtype, B):
+    """The sampler at an int8 frame's batch (1) and a QAT step's (8), and the
+    flat design it replaced, against the plain version; the columns the same
+    bit for bit in two runs."""
+    name = "deform_sample" if dtype == torch.float32 else "deform_sample_bf16"
+    g = torch.Generator(device=dev).manual_seed(H * C + B)
+    feat = torch.randn(B, H, W, C, generator=g, device=dev).to(dtype)
+    offsets = torch.rand(B, H, W, 18, generator=g, device=dev) * 6 - 3
+    masks = torch.rand(B, H, W, 9, generator=g, device=dev)
+    ref = deform_conv.plain_deform_sample(feat, offsets, masks)
+    bar = 1e-5 if dtype == torch.float32 else DCN_BF16_REL
+    for sample, launched in ((deform_conv.deform_sample_cuda, name),
+                             (deform_conv.deform_sample_flat_cuda, name.replace("deform_sample", "deform_sample_flat"))):
+        build.reset_launch_counts()
+        out = sample(feat, offsets, masks)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in build.launch_counts().items() if n} == {launched: 1}
+        assert out.dtype == dtype and _rel_err(out.float(), ref.float()) <= bar
+        assert torch.equal(out, sample(feat, offsets, masks))
+
+
+def test_qat_columns_launch_the_bf16_backward(dev):
+    """`deform_columns` under autograd in bf16 on the card: the bf16 sampler
+    and the bf16 backward once each, no float32 kernel, no widened copy; the
+    gradients against the plain bf16 form."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 30, 30, 64, generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+    om = torch.cat([torch.rand(2, 30, 30, 18, generator=g, device=dev) * 6 - 3,
+                    2 * torch.randn(2, 30, 30, 9, generator=g, device=dev)], dim=-1).to(torch.bfloat16)
+    om.requires_grad_()
+    cot = torch.randn(2, 30, 30, 9 * 64, generator=g, device=dev).to(torch.bfloat16)
+    build.reset_launch_counts()
+    deform_conv.deform_columns(x, om).backward(cot)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in build.launch_counts().items() if n} == {"deform_sample_bf16": 1,
+                                                                    "deform_sample_bwd_bf16": 1}
+    offsets, masks = deform_conv.sample_inputs(om.detach())
+    rdx, rdom = deform_conv.plain_deform_sample_bwd(x.detach(), offsets, masks, cot)
+    assert x.grad.dtype == om.grad.dtype == torch.bfloat16
+    assert _rel_err(x.grad.float(), rdx.float()) <= BWD_BF16_REL
+    assert _rel_err(om.grad.float(), rdom.float()) <= BWD_BF16_REL
+
+
+@pytest.mark.parametrize("groups", [65, 130])
+@pytest.mark.parametrize("k,C,O,side", [(3, 64, 64, 15), (1, 576, 64, 8), (1, 64, 32, 1)])
+def test_int8_site_beyond_64_videos(dev, k, C, O, side, groups):
+    """A dynamic-scale site over 130 samples in 65 or 130 videos (one scale
+    each; a 1x1 map puts 64 images in one block) bit for bit against
+    `plain_int8_site`, two launches."""
+    from sgtapose_tpu_torch.ops import int8_conv
+
+    x, qw, bias, _ = _int8_site_operands(dev, 130, side, side, C, O, k, torch.bfloat16, groups + C)
+    x = x * (1 + 3 * torch.rand(130, 1, 1, 1, device=dev)).to(torch.bfloat16)
+    build.reset_launch_counts()
+    out, acc = int8_conv.int8_site_cuda(x, qw, None, groups, bias, 1, k // 2, return_acc=True)
+    torch.cuda.synchronize()
+    assert {kn: n for kn, n in build.launch_counts().items() if n} == {"int8_conv_fused": 1, "int8_absmax": 1}
+    ref, ref_acc = int8_conv.plain_int8_site(x, qw, None, groups, bias, 1, k // 2, return_acc=True)
+    assert torch.equal(acc, ref_acc) and torch.equal(out, ref)
