@@ -142,9 +142,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      added with float atomics before its rounding: reruns counted), with
      cold / plain times, bounds and SDPA's bf16 backward as the attention's
      yardstick: the attention backward at level 2, batch 8, q bf16 and q
-     float32, and a ragged (100, 8); `deform_conv_dgrad_bf16` at every
-     decoder node at batch 8 with offsets at 0, +-3 and +-12 px and one
-     ragged shape; the bf16 DCN columns: `deform_sample_bf16` (also the
+     float32, and a ragged (100, 8); `deform_conv_dgrad_bf16` and its
+     yardstick `deform_conv_dgrad_halo_bf16` (the float32 design's bf16
+     instantiation, on no path) at every decoder node at batch 8 with
+     offsets at 0, +-3 and +-12 px and one ragged shape, timed at +-3 in
+     turns with the yardstick and the bf16 unfused pair (dY W in bf16, then
+     `deform_sample_bwd_bf16`), the sum over the 16 nodes against
+     DGRAD_BF16_TARGET_MS; the bf16 DCN columns: `deform_sample_bf16` (also the
      yardstick of 4c's bf16 rows) at every decoder input shape at batch 8
      (a QAT step) and 1 (an int8 frame), `deform_sample_bwd_bf16` at batch
      8 with offsets at 0, +-3 and +-12 px, dom the same bit for bit in two
@@ -158,7 +162,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      fall; launches asserted per step: 9 biased_attention_bf16, 3
      biased_attention_bwd_bf16, 16 deform_conv_bf16, 16
      deform_conv_dgrad_bf16, 16 deform_conv_wgrad_bf16, no float32 network
-     kernel; everything float32 after) and a profiled step; (d)
+     kernel and no yardstick; everything float32 after) and a profiled
+     step; (d)
      `cli/train_demo.main --bf16` for 20 steps (no eval: phase 11 runs it),
      the same launches asserted per step, stage times, steps/s and peak
      device memory; (e) `cli/train.main --bf16` for 1 epoch on phase 13's (A) set
@@ -353,6 +358,9 @@ EVAL_GRAD_L2_TOL = 1e-4
 # when float32 sums run in another order: two bf16 units in the last place
 # at the top of the range, 2^-6 of max(1, max|ref|) per output
 BWD_BF16_REL_TOL = 2.0 ** -6
+# the bf16 data gradient's target: ms summed over the 16 decoder nodes of a
+# step at batch 8, offsets in [-3, 3] px, cold
+DGRAD_BF16_TARGET_MS = 3.5
 # Kernel B (the bf16 row-split backward) and its plain version round the same
 # float32 values once to bf16, summed in other orders: a rounding that falls
 # on the other side of a boundary moves an output by one bf16 unit in the
@@ -395,9 +403,10 @@ DCN_NODES = [(15, 512, 256, 1), (30, 256, 256, 1), (30, 256, 128, 2), (30, 256, 
 RAGGED_DCN = (9, 6, 5, 0)  # 9x11 map, C % 8 != 0, O below one tile; off the path
 # device functions of each kernel, as the profiler names them (a substring;
 # each bf16 instantiation has a __global__ name of its own, and the bf16
-# data gradient's three launches, weight split, kernel and dx rounding, share
-# the prefix deform_conv_dgrad_bf16_; the weight gradient's two, kernel and
-# split sum, deform_conv_wgrad_ or deform_conv_bf16_wgrad_)
+# data gradient's two launches, kernel and dx rounding, share the prefix
+# deform_conv_dgrad_bf16_, its yardstick's three deform_conv_dgrad_halo_bf16_;
+# the weight gradient's two, kernel and split sum, deform_conv_wgrad_ or
+# deform_conv_bf16_wgrad_)
 DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "deform_conv_kernel",
                 "deform_sample": "deform_sample_kernel",
                 "biased_attention_bf16": "biased_attention_bf16_kernel",
@@ -419,7 +428,8 @@ DEVICE_NAMES = {"biased_attention": "biased_attention_kernel", "deform_conv": "d
                 "biased_attention_bwd_nobias_cluster": "attention_bwd_nobias_kernel",
                 "biased_attention_bwd_nobias_cluster_bf16": "attention_bwd_nobias_bf16_kernel",
                 "biased_attention_tiled_bf16": "biased_attention_tiled_bf16_kernel",
-                "biased_attention_bwd_rows_bf16": "biased_attention_rows_bf16_bwd_kernel"}
+                "biased_attention_bwd_rows_bf16": "biased_attention_rows_bf16_bwd_kernel",
+                "deform_conv_dgrad_halo_bf16": "deform_conv_dgrad_halo_bf16_"}
 
 
 def kernel_device_ms(events, kernel: str) -> float:
@@ -2010,8 +2020,9 @@ def bf16_kernel_rows(bf16_train, per_step_sum):
          "sgtapose_tpu_torch/csrc/biased_attention_bwd.cu", "sgtapose_tpu/ops/attention_kernel.py:145",
          "67 TFLOP/s float32 FMA", "backward of F.scaled_dot_product_attention in bf16 with a float mask"),
         ("deform_conv_dgrad_bf16", bf16_train["deform_conv_dgrad_bf16_shapes"],
-         "sgtapose_tpu_torch/csrc/deform_conv_bwd.cu", "sgtapose_tpu/models/deform_conv.py:188",
-         "989 TFLOP/s dense bf16", "no single PyTorch call computes this function"),
+         "sgtapose_tpu_torch/csrc/deform_conv_dgrad_bf16.cu", "sgtapose_tpu/models/deform_conv.py:188",
+         "989 TFLOP/s dense bf16", "no single PyTorch call computes this function; pair_ms: the bf16 unfused "
+         "pair (dY W in bf16, then deform_sample_bwd_bf16)"),
         ("deform_sample_bf16", bf16_train["deform_sample_bf16_shapes"],
          "sgtapose_tpu_torch/csrc/deform_sample.cu", "sgtapose_tpu/models/deform_conv.py:104",
          "67 TFLOP/s float32 FMA", "no single PyTorch call computes this function"),
@@ -2037,6 +2048,27 @@ def bf16_kernel_rows(bf16_train, per_step_sum):
                            matmul_ms=per_step_sum(rows, "matmul_ms", "per_step"))
         if name == "deform_sample_bf16":
             out[-1]["note"] = "off the path since deform_conv_wgrad_bf16; ms summed over the 16 nodes it ran on"
+        if name == "deform_conv_dgrad_bf16":
+            entry, pair_ms = out[-1], per_step_sum(rows, "pair_ms", "per_step")
+            entry.update(pair_ms=pair_ms, matmul_ms=per_step_sum(rows, "matmul_ms", "per_step"),
+                         halo_ms=per_step_sum(rows, "halo_ms", "per_step"), target_ms=DGRAD_BF16_TARGET_MS,
+                         target_met=entry["ms"] <= DGRAD_BF16_TARGET_MS, beats_pair=entry["ms"] < pair_ms,
+                         ms_zero_offsets=sum(r["ms"] * n for r in rows if r["offsets"] == 0.0
+                                             for H_, C_, O_, n in DCN_NODES if (r["H"], r["C"], r["O"]) == (H_, C_, O_)),
+                         offsets_note="ms, halo_ms, pair_ms, plain_ms at offsets in [-3, 3] px, timed in turns")
+            # the design it replaced, timed in turns with it on the same inputs
+            launches = bf16_train["launches"]["deform_conv_dgrad_halo_bf16"]
+            out.append({
+                "name": "deform_conv_dgrad_halo_bf16", "route": "cuda",
+                "source": "sgtapose_tpu_torch/csrc/deform_conv_bwd.cu",
+                "replaces": "sgtapose_tpu/models/deform_conv.py:188", "launches": launches,
+                "launches_per_step": launches / TRAIN_STEPS,
+                "max_abs_err": max(r["halo_max_abs_err"] for r in rows),
+                "ms": entry["halo_ms"], "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+                "bound_by": entry["bound_by"], "bound_rate": entry["bound_rate"], "library_ms": None,
+                "library_ms_note": "no single PyTorch call computes this function",
+                "note": "the bf16 instantiation of the float32 design (halo tile, weight layout launch), the "
+                        "yardstick of deform_conv_dgrad_bf16 on no path; ms per bf16 step over the 16 nodes"})
     return out
 
 
@@ -2190,8 +2222,11 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
     out["attention_bwd_bf16_shapes"] = attn_rows
 
     # the data gradient at every decoder node at the training batch, offsets
-    # at zero, within the halo tile (+-3) and beyond it (+-12); times at +-3
-    # (and the kernel's at zero offsets)
+    # at zero, +-3 and +-12 px, against its plain version and the design it
+    # replaced (the yardstick deform_conv_dgrad_halo_bf16, on no path); times
+    # at +-3 in turns against the yardstick and the bf16 unfused pair (dY W
+    # in bf16, then deform_sample_bwd_bf16): pair, yardstick, kernel, kernel,
+    # yardstick, pair; the kernel's alone at zero offsets
     dgrad_rows = []
     for (H, C, O, per_step), span in [(node, span) for node in DCN_NODES + [RAGGED_DCN]
                                       for span in (0.0, 3.0, 12.0)]:
@@ -2204,11 +2239,13 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
         dx, dom = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
         torch.cuda.synchronize()
         rdx, rdom = deform_conv.plain_deform_conv_dgrad(x, om, weight, dy)
+        hdx, hdom = deform_conv.deform_conv_dgrad_halo_cuda(x, om, weight, dy)
         errs = {"dx": rel_err(dx.float(), rdx.float()), "dom": rel_err(dom.float(), rdom.float())}
+        halo_errs = {"dx": rel_err(hdx.float(), rdx.float()), "dom": rel_err(hdom.float(), rdom.float())}
         if dx.dtype != bf or dom.dtype != bf or not all(math.isfinite(e) and e <= BWD_BF16_REL_TOL
-                                                          for e in errs.values()):
+                                                          for e in list(errs.values()) + list(halo_errs.values())):
             raise AssertionError(f"bf16 deform_conv_dgrad B={B} H={H} C={C} O={O} offsets +-{span}: "
-                                 f"rel errors {errs} > {BWD_BF16_REL_TOL}")
+                                 f"rel errors {errs} (yardstick {halo_errs}) > {BWD_BF16_REL_TOL}")
         dx2, dom2 = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
         if not torch.equal(dom, dom2):
             raise AssertionError(f"bf16 deform_conv_dgrad H={H} C={C} O={O}: two runs give another dom")
@@ -2221,16 +2258,35 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
                    dx_rerun_elements_differing=int((dx != dx2).sum().item()),
                    max_abs_err=max((dx.float() - rdx.float()).abs().max().item(),
                                    (dom.float() - rdom.float()).abs().max().item()),
+                   halo_rel_err=halo_errs,
+                   halo_max_abs_err=max((hdx.float() - rdx.float()).abs().max().item(),
+                                        (hdom.float() - rdom.float()).abs().max().item()),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
         if span == 0.0:
             row["ms"] = cold_ms(lambda: deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy))
         if span == 3.0:
-            row.update(ms=cold_ms(lambda: deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)),
+            offsets, masks = deform_conv.sample_inputs(om)
+
+            def matmul():
+                return (dy.view(-1, O) @ weight).view(B, H, W, 9 * C)
+
+            def pair():
+                return deform_conv.deform_sample_bwd_cuda(x, offsets, masks, matmul())
+
+            def new():
+                return deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+
+            def halo():
+                return deform_conv.deform_conv_dgrad_halo_cuda(x, om, weight, dy)
+
+            t = [cold_ms(f) for f in (pair, halo, new, new, halo, pair)]
+            row.update(ms=(t[2] + t[3]) / 2, halo_ms=(t[1] + t[4]) / 2, pair_ms=(t[0] + t[5]) / 2,
+                       matmul_ms=cold_ms(matmul),
                        plain_ms=cold_ms(lambda: deform_conv.plain_deform_conv_dgrad(x, om, weight, dy),
                                         iters=5, warmup=1))
         dgrad_rows.append(row)
         print("deform_conv_dgrad_bf16 " + json.dumps(row))
-        del x, om, weight, dy, dx, dom, dx2, dom2, rdx, rdom
+        del x, om, weight, dy, dx, dom, dx2, dom2, rdx, rdom, hdx, hdom
     out["deform_conv_dgrad_bf16_shapes"] = dgrad_rows
 
     # the bf16 DCN columns of bf16 QAT and bf16 int8 serving (the sampler
@@ -2306,7 +2362,8 @@ def bf16_training_phase(torch, dev, gen, cfg, cold_ms, no_launches, work, ref64)
         seconds[where] = time.perf_counter() - t0
         grads[where] = {name: p.grad.double().cpu() for name, p in model.named_parameters() if p.grad is not None}
     step_launches = dict(no_launches, biased_attention_bf16=3 * n_layers, biased_attention_bwd_bf16=n_layers,
-                         deform_conv_bf16=16, deform_conv_dgrad_bf16=16, deform_conv_wgrad_bf16=16)
+                         deform_conv_bf16=16, deform_conv_dgrad_bf16=16, deform_conv_wgrad_bf16=16,
+                         deform_conv_dgrad_halo_bf16=0)
     if launched != step_launches:
         raise AssertionError(f"bf16 gradient launches {launched}, expected {step_launches}")
     ref = ref64["grads"]
@@ -2643,7 +2700,7 @@ def zoo_phase(torch, dev, gen, cfg, cold_ms, warm_ms, no_launches, work, ckpt, r
               ("cat", ["--arch", "dlapacat_34", "--phase", "PlanACAT"], step16),
               ("global_bf16", ["--arch", "dlapa_34", "--phase", "PlanA", "--bf16"],
                dict(biased_attention_nobias_bf16=18, biased_attention_bwd_nobias_bf16=12, deform_conv_bf16=16,
-                    deform_conv_dgrad_bf16=16, deform_conv_wgrad_bf16=16))]
+                    deform_conv_dgrad_bf16=16, deform_conv_wgrad_bf16=16, deform_conv_dgrad_halo_bf16=0))]
     out["train_cli"] = {}
     for name, flags, per_step in trains:
         timer = StageTimer()
@@ -3124,7 +3181,7 @@ def bf16_depth_phase(torch, dev, gen, cfg, cold_ms, warm_ms, no_launches, work, 
     # the train step in bf16; the mosaics' forward on the float32 parameters
     step_expect = dict(no_launches, biased_attention_tiled_bf16=n_layers, biased_attention_bf16=2 * n_layers,
                        biased_attention_bwd_rows_bf16=n_layers, deform_conv_bf16=16, deform_conv_dgrad_bf16=16,
-                       deform_conv_wgrad_bf16=16)
+                       deform_conv_wgrad_bf16=16, deform_conv_dgrad_halo_bf16=0)
     fwd32 = dict(no_launches, biased_attention=n_layers, biased_attention_tiled=2 * n_layers, deform_conv=16)
     expect = {"train_step": step_expect, "predict_step": fwd32}
     by_kind = {}

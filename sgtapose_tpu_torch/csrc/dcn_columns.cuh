@@ -28,17 +28,12 @@ struct Corners {
   unsigned valid;
 };
 
-__device__ __forceinline__ Corners corners_of(unsigned item, const float* __restrict__ offsets,
-                                              const float* __restrict__ masks, int H, int W) {
-  const int tap = item % 9;
-  const unsigned pix = item / 9;  // (b*H + y)*W + x
-  const int x = pix % W, y = (pix / W) % H;
-  const float dy = __ldg(offsets + (size_t)pix * 18 + 2 * tap);
-  const float dx = __ldg(offsets + (size_t)pix * 18 + 2 * tap + 1);
+// the corners of tap `tap` of the pixel at (x, y), offset by (oy, ox)
+__device__ __forceinline__ Corners corners_at(int x, int y, int tap, float oy, float ox, float mk, int H, int W) {
   Corners t;
-  t.mk = __ldg(masks + (size_t)pix * 9 + tap);
-  const float py = (float)(y + tap / 3 - 1) + dy;
-  const float px = (float)(x + tap % 3 - 1) + dx;
+  t.mk = mk;
+  const float py = (float)(y + tap / 3 - 1) + oy;
+  const float px = (float)(x + tap % 3 - 1) + ox;
   const float y0f = floorf(py), x0f = floorf(px);
   t.fy = py - y0f;
   t.fx = px - x0f;
@@ -53,6 +48,14 @@ __device__ __forceinline__ Corners corners_of(unsigned item, const float* __rest
   t.idx[2] = yc1 * W + xc0;
   t.idx[3] = yc1 * W + xc1;
   return t;
+}
+
+__device__ __forceinline__ Corners corners_of(unsigned item, const float* __restrict__ offsets,
+                                              const float* __restrict__ masks, int H, int W) {
+  const int tap = item % 9;
+  const unsigned pix = item / 9;  // (b*H + y)*W + x
+  return corners_at(pix % W, (pix / W) % H, tap, __ldg(offsets + (size_t)pix * 18 + 2 * tap),
+                    __ldg(offsets + (size_t)pix * 18 + 2 * tap + 1), __ldg(masks + (size_t)pix * 9 + tap), H, W);
 }
 
 __device__ __forceinline__ Corners shfl_corners(const Corners& c, int src) {
@@ -169,5 +172,79 @@ struct Chan<uint16_t, 8> {
            make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7])));
   }
 };
+
+// The sampling backward's arithmetic (deform_sample_bwd.cu, deform_conv_dgrad_bf16.cu)
+
+// VEC floats added into p (16-byte aligned when VEC > 1)
+template <int VEC>
+__device__ __forceinline__ void red_add(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    atomicAdd(p, v[0]);
+  } else {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
+// the per-(pixel, tap) factors: bilinear weights and their derivatives
+// along y and x, validity folded in
+struct Factors {
+  float w[4], cy[4], cx[4];
+};
+
+__device__ __forceinline__ Factors factors_of(const Corners& t) {
+  Factors f;
+  corner_weights(t, f.w);
+  const bool v00 = t.valid & 1u, v01 = t.valid & 2u, v10 = t.valid & 4u, v11 = t.valid & 8u;
+  f.cy[0] = v00 ? -(1.f - t.fx) : 0.f;
+  f.cy[1] = v01 ? -t.fx : 0.f;
+  f.cy[2] = v10 ? 1.f - t.fx : 0.f;
+  f.cy[3] = v11 ? t.fx : 0.f;
+  f.cx[0] = v00 ? -(1.f - t.fy) : 0.f;
+  f.cx[1] = v01 ? 1.f - t.fy : 0.f;
+  f.cx[2] = v10 ? -t.fy : 0.f;
+  f.cx[3] = v11 ? t.fy : 0.f;
+  return f;
+}
+
+// VEC channels of one (pixel, tap): the three channel sums (dm = samp . g,
+// gy, gx) and the corners' updates r[q] = g mask w_q
+template <int VEC>
+__device__ __forceinline__ void item_chunk(const float (&gc)[VEC], const float (&v)[4][VEC], const Factors& f,
+                                           float mk, float& dm, float& gy, float& gx, float (&r)[4][VEC]) {
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) {
+    float samp = v[0][u] * f.w[0];
+    samp = samp + v[1][u] * f.w[1];
+    samp = samp + v[2][u] * f.w[2];
+    samp = samp + v[3][u] * f.w[3];
+    dm = fmaf(samp, gc[u], dm);
+    const float ds = gc[u] * mk;
+    gy = fmaf(ds, v[0][u] * f.cy[0] + v[1][u] * f.cy[1] + v[2][u] * f.cy[2] + v[3][u] * f.cy[3], gy);
+    gx = fmaf(ds, v[0][u] * f.cx[0] + v[1][u] * f.cx[1] + v[2][u] * f.cx[2] + v[3][u] * f.cx[3], gx);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) r[q][u] = ds * f.w[q];
+  }
+}
+
+// float32 sums rounded once to bf16 (a grid-stride loop of 256-thread
+// blocks), 4 a thread where n % 4 == 0
+__device__ __forceinline__ void round_body(const float* __restrict__ src, uint16_t* __restrict__ dst, long long n) {
+  const long long stride = (long long)gridDim.x * 256;
+  if (n % 4 == 0) {
+    for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n / 4; i += stride) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(src) + i);
+      reinterpret_cast<uint2*>(dst)[i] = make_uint2((uint32_t)to_bf16(v.x) | ((uint32_t)to_bf16(v.y) << 16),
+                                                    (uint32_t)to_bf16(v.z) | ((uint32_t)to_bf16(v.w) << 16));
+    }
+  } else {
+    for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n; i += stride) dst[i] = to_bf16(src[i]);
+  }
+}
+
+// blocks of round_body for n elements
+inline unsigned round_blocks(long long n) {
+  const long long blocks = ((n % 4 == 0 ? n / 4 : n) + 255) / 256;
+  return (unsigned)(blocks < 8192 ? blocks : 8192);
+}
 
 }  // namespace

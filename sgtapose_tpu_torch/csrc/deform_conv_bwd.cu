@@ -67,17 +67,18 @@
 //     (C or O not a multiple of 4, or unaligned pointers, take a scalar-load
 //     variant).
 //
-// bf16 training (deform_conv_dgrad_bf16): the same design instantiated for
-// bf16 x, om, weight and dY. dY W runs on wgmma m64n72k16 in bf16 with
-// float32 accumulators (one product where float32 issues three, BK = 64
-// outputs a step: half the steps), from a bf16 copy of the weight laid out
-// as the B tiles (no split). Everything after the product stays float32:
-// the x halo tile is widened from bf16 as it is staged, the scatter and the
-// item sums run in float32, dx is added with float atomics into a float32
-// buffer that a second kernel of the same launch rounds once to bf16, and
-// dom is rounded once as it is written (still the same bit for bit in every
-// run). Bound: the product's 2 M O 9C operations at 989 TFLOP/s, or the
-// bytes at 2 per element, whichever is larger.
+// bf16 training's first data gradient (deform_conv_dgrad_halo_bf16, now
+// the yardstick of csrc/deform_conv_dgrad_bf16.cu, on no path): the same
+// design instantiated for bf16 x, om, weight and dY. dY W runs on wgmma
+// m64n72k16 in bf16 with float32 accumulators (one product where float32
+// issues three, BK = 64 outputs a step: half the steps), from a bf16 copy of
+// the weight laid out as the B tiles (no split). Everything after the
+// product stays float32: the x halo tile is widened from bf16 as it is
+// staged, the scatter and the item sums run in float32, dx is added with
+// float atomics into a float32 buffer that a third kernel of the same launch
+// rounds once to bf16, and dom is rounded once as it is written (still the
+// same bit for bit in every run). Bound: the product's 2 M O 9C operations at
+// 989 TFLOP/s, or the bytes at 2 per element, whichever is larger.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -690,8 +691,8 @@ __device__ __forceinline__ void dgrad_body(const E* __restrict__ x, const E* __r
   cluster.sync();  // no block leaves while another reads its sums
 }
 
-// one kernel name per precision, as profilers list them: the bf16 data
-// gradient's three launches share the prefix deform_conv_dgrad_bf16_
+// one kernel name per precision, as profilers list them: the bf16
+// yardstick's three launches share the prefix deform_conv_dgrad_halo_bf16_
 __global__ void __launch_bounds__(256)
     deform_conv_dgrad_split_kernel(const float* __restrict__ wt, uint32_t* __restrict__ wsplit,
                                    int C, int O, int KS, long long total) {
@@ -699,7 +700,7 @@ __global__ void __launch_bounds__(256)
 }
 
 __global__ void __launch_bounds__(256)
-    deform_conv_dgrad_bf16_split_kernel(const uint16_t* __restrict__ wt,
+    deform_conv_dgrad_halo_bf16_split_kernel(const uint16_t* __restrict__ wt,
                                         uint32_t* __restrict__ wsplit, int C, int O, int KS,
                                         long long total) {
   split_body<uint16_t>(wt, wsplit, C, O, KS, total);
@@ -716,7 +717,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
-    deform_conv_dgrad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ om,
+    deform_conv_dgrad_halo_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ om,
                                   const uint32_t* __restrict__ wsplit,
                                   const uint16_t* __restrict__ dy, float* __restrict__ dx,
                                   uint16_t* __restrict__ dom, int H, int W, int C, int O,
@@ -726,7 +727,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // bf16 dx: the float32 sums rounded once
 __global__ void __launch_bounds__(256)
-    deform_conv_dgrad_bf16_round_kernel(const float* __restrict__ src, uint16_t* __restrict__ dst,
+    deform_conv_dgrad_halo_bf16_round_kernel(const float* __restrict__ src, uint16_t* __restrict__ dst,
                                         long long n) {
   for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n; i += (long long)gridDim.x * 256)
     dst[i] = to_bf16(src[i]);
@@ -742,7 +743,7 @@ int launch(const E* x, const E* om, const E* wt, uint32_t* wsplit, const E* dy, 
   if constexpr (sizeof(E) == 4)
     deform_conv_dgrad_split_kernel<<<split_grid, 256, 0, stream>>>(wt, wsplit, C, O, KS, split_total);
   else
-    deform_conv_dgrad_bf16_split_kernel<<<split_grid, 256, 0, stream>>>(wt, wsplit, C, O, KS,
+    deform_conv_dgrad_halo_bf16_split_kernel<<<split_grid, 256, 0, stream>>>(wt, wsplit, C, O, KS,
                                                                         split_total);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -750,7 +751,7 @@ int launch(const E* x, const E* om, const E* wt, uint32_t* wsplit, const E* dy, 
   if constexpr (sizeof(E) == 4)
     kern = deform_conv_dgrad_kernel<VEC>;
   else
-    kern = deform_conv_dgrad_bf16_kernel<VEC>;
+    kern = deform_conv_dgrad_halo_bf16_kernel<VEC>;
   const int smem = (int)sizeof(Smem);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -813,13 +814,13 @@ extern "C" int deform_conv_dgrad(const void* x, const void* om, const void* weig
   return launch<float, false>(xt, omt, wt, ws, dyt, dxt, domt, B, H, W, C, O, s);
 }
 
-// bf16 x, om, weight, dy -> bf16 dx and dom; dx32 is float32 scratch
-// (B,H,W,C) holding zeros (the scatter adds into it before dx is rounded
-// from it); wsplit is 16-byte aligned scratch of ceil(C / CC) * ceil(O / 64)
+// The bf16 yardstick: bf16 x, om, weight, dy -> bf16 dx and dom; dx32 is
+// float32 scratch (B,H,W,C) holding zeros (the scatter adds into it before
+// dx is rounded from it); wsplit is 16-byte aligned scratch of ceil(C / CC) * ceil(O / 64)
 // * B_TILE 32-bit words (models/deform_conv.py: dgrad_scratch_floats)
-extern "C" int deform_conv_dgrad_bf16(const void* x, const void* om, const void* weight, void* wsplit,
-                                      const void* dy, void* dx32, void* dx, void* dom, int B, int H,
-                                      int W, int C, int O, void* stream) {
+extern "C" int deform_conv_dgrad_halo_bf16(const void* x, const void* om, const void* weight, void* wsplit,
+                                           const void* dy, void* dx32, void* dx, void* dom, int B, int H,
+                                           int W, int C, int O, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * H * W;
   if (M >= (1ll << 31) || (long long)O * 9 * C >= (1ll << 31)) return (int)cudaErrorInvalidValue;
@@ -842,7 +843,7 @@ extern "C" int deform_conv_dgrad_bf16(const void* x, const void* om, const void*
   if (err != 0) return err;
   const long long n = M * C;
   const long long blocks = (n + 255) / 256;
-  deform_conv_dgrad_bf16_round_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
+  deform_conv_dgrad_halo_bf16_round_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
       acc, static_cast<bf*>(dx), n);
   return (int)cudaGetLastError();
 }

@@ -163,59 +163,8 @@ __global__ void __launch_bounds__(256)
 }
 
 
-// VEC floats added into p (16-byte aligned when VEC > 1)
-template <int VEC>
-__device__ __forceinline__ void red_add(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    atomicAdd(p, v[0]);
-  } else {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  }
-}
-
 __device__ __forceinline__ void store_dom(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_dom(uint16_t* p, float v) { *p = to_bf16(v); }
-
-// the per-(pixel, tap) factors: bilinear weights and their derivatives
-// along y and x, validity folded in
-struct Factors {
-  float w[4], cy[4], cx[4];
-};
-
-__device__ __forceinline__ Factors factors_of(const Corners& t) {
-  Factors f;
-  corner_weights(t, f.w);
-  const bool v00 = t.valid & 1u, v01 = t.valid & 2u, v10 = t.valid & 4u, v11 = t.valid & 8u;
-  f.cy[0] = v00 ? -(1.f - t.fx) : 0.f;
-  f.cy[1] = v01 ? -t.fx : 0.f;
-  f.cy[2] = v10 ? 1.f - t.fx : 0.f;
-  f.cy[3] = v11 ? t.fx : 0.f;
-  f.cx[0] = v00 ? -(1.f - t.fy) : 0.f;
-  f.cx[1] = v01 ? 1.f - t.fy : 0.f;
-  f.cx[2] = v10 ? -t.fy : 0.f;
-  f.cx[3] = v11 ? t.fy : 0.f;
-  return f;
-}
-
-// VEC channels of one (pixel, tap): the three channel sums (dm = samp . g,
-// gy, gx) and the corners' updates r[q] = g mask w_q
-template <int VEC>
-__device__ __forceinline__ void item_chunk(const float (&gc)[VEC], const float (&v)[4][VEC], const Factors& f,
-                                           float mk, float& dm, float& gy, float& gx, float (&r)[4][VEC]) {
-#pragma unroll
-  for (int u = 0; u < VEC; ++u) {
-    float samp = v[0][u] * f.w[0];
-    samp = samp + v[1][u] * f.w[1];
-    samp = samp + v[2][u] * f.w[2];
-    samp = samp + v[3][u] * f.w[3];
-    dm = fmaf(samp, gc[u], dm);
-    const float ds = gc[u] * mk;
-    gy = fmaf(ds, v[0][u] * f.cy[0] + v[1][u] * f.cy[1] + v[2][u] * f.cy[2] + v[3][u] * f.cy[3], gy);
-    gx = fmaf(ds, v[0][u] * f.cx[0] + v[1][u] * f.cx[1] + v[2][u] * f.cx[2] + v[3][u] * f.cx[3], gx);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) r[q][u] = ds * f.w[q];
-  }
-}
 
 // T: feat and g (float, or bf16 as uint16_t); D: dom (float32, or bf16
 // rounded once); dfeat: float32 sums
@@ -289,19 +238,10 @@ __global__ void __launch_bounds__(256)
   flat_body<uint16_t, uint16_t, VEC, L>(feat, offsets, masks, grad, dfeat, dom, H, W, C, total, G);
 }
 
-// bf16 dx: the float32 sums rounded once, 4 a thread where n % 4 == 0
+// bf16 dx: the float32 sums rounded once
 __global__ void __launch_bounds__(256)
     deform_sample_bwd_bf16_round_kernel(const float* __restrict__ src, uint16_t* __restrict__ dst, long long n) {
-  const long long stride = (long long)gridDim.x * 256;
-  if (n % 4 == 0) {
-    for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n / 4; i += stride) {
-      const float4 v = __ldcs(reinterpret_cast<const float4*>(src) + i);
-      reinterpret_cast<uint2*>(dst)[i] = make_uint2((uint32_t)to_bf16(v.x) | ((uint32_t)to_bf16(v.y) << 16),
-                                                    (uint32_t)to_bf16(v.z) | ((uint32_t)to_bf16(v.w) << 16));
-    }
-  } else {
-    for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n; i += stride) dst[i] = to_bf16(src[i]);
-  }
+  round_body(src, dst, n);
 }
 
 template <typename T, typename D, int VEC, int L>
@@ -371,10 +311,8 @@ extern "C" int deform_sample_bwd_bf16(const void* feat, const void* offsets, con
   const int err = bwd<uint16_t, uint16_t>(feat, offsets, masks, grad, dx32, dom, B, H, W, C, stream);
   if (err != 0) return err;
   const long long n = (long long)B * H * W * C;
-  const long long blocks = ((n % 4 == 0 ? n / 4 : n) + 255) / 256;
-  deform_sample_bwd_bf16_round_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(dx32),
-                                                                             static_cast<uint16_t*>(dx), n);
+  deform_sample_bwd_bf16_round_kernel<<<round_blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dx32), static_cast<uint16_t*>(dx), n);
   return (int)cudaGetLastError();
 }
 

@@ -51,9 +51,13 @@ slabs of `pick_chunks(H, chunks)` where the port forms them with plain ops
 numbers, the (B,H,W,9,C) corner temps cut by the slab count. The kernels
 hold no such temps, so on the card chunks changes nothing.
 
-bf16 backward: dx and d(om) from the bf16 instantiation of the data-gradient
-kernel (dY W on bf16 tensor cores with float32 accumulators, the scatter in
-float32, each output rounded once to bf16); dW = dY^T A from the bf16
+bf16 backward: dx and d(om) from the bf16 data-gradient kernel
+`deform_conv_dgrad_bf16` (`csrc/deform_conv_dgrad_bf16.cu`: dY W per 8x8
+pixel tile and 64-channel chunk on bf16 tensor cores with float32
+accumulators, scattered from shared memory with float4 atomics into float32
+sums, each output rounded once to bf16; the float32 kernel's bf16
+instantiation it replaced stays as the yardstick `deform_conv_dgrad_halo_cuda`,
+on no path); dW = dY^T A from the bf16
 instantiation of the weight-gradient kernel (float32 coordinates and masks,
 each column element formed in float32 and rounded once, as the fused
 forward and the bf16 sampler form them; bf16 tensor cores with float32
@@ -87,6 +91,10 @@ BWD_KERNEL_BF16 = "deform_sample_bwd_bf16"
 KERNEL_FLAT = "deform_sample_flat"
 KERNEL_FLAT_BF16 = "deform_sample_flat_bf16"
 BWD_KERNEL_WARP = "deform_sample_bwd_warp"
+# the design bf16 training's data gradient replaced (the float32 kernel's
+# bf16 instantiation: a halo tile of x, a weight layout launch), its
+# yardstick on no path
+DGRAD_KERNEL_HALO_BF16 = "deform_conv_dgrad_halo_bf16"
 # the weight-gradient kernel's output and channel tile, and the blocks an SM
 # holds at once (csrc/deform_conv_wgrad.cu: BO, BC; 128 registers a thread)
 WGRAD_TILE, WGRAD_BLOCKS_PER_SM = 64, 2
@@ -96,10 +104,11 @@ DGRAD_TILE, DGRAD_HALO = 8, 3
 
 
 def dgrad_scratch_floats(C: int, O: int, bf16: bool = False) -> int:
-    """32-bit words of the data-gradient kernel's pre-tiled weight: float32,
-    a tf32 hi and lo plane of 9 x 16 channels x 32 outputs (4608 words each)
-    per 16-channel chunk and 32-output step; bf16, one plane of 9 x 16
-    channels x 64 outputs (4608 words) per chunk and 64-output step
+    """32-bit words of the float32 data-gradient kernel's pre-tiled weight
+    (and of its bf16 instantiation, the yardstick `deform_conv_dgrad_halo_cuda`):
+    float32, a tf32 hi and lo plane of 9 x 16 channels x 32 outputs (4608
+    words each) per 16-channel chunk and 32-output step; bf16, one plane of
+    9 x 16 channels x 64 outputs (4608 words) per chunk and 64-output step
     (csrc/deform_conv_bwd.cu: CC, bk, B_TILE)."""
     if bf16:
         return -(-C // 16) * -(-O // 64) * 4608
@@ -511,14 +520,15 @@ def plain_deform_conv_dgrad(x: torch.Tensor, om: torch.Tensor, weight: torch.Ten
     return dx, torch.cat([doffsets, dmask * masks * (1 - masks)], dim=-1)
 
 
-def deform_conv_dgrad_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
-                           dy: torch.Tensor):
-    """Launch the fused data-gradient kernel of x's dtype (float32 or bf16;
-    all four tensors share it) on the current stream (CUDA tensors): (dx,
-    dom) of `plain_deform_conv_dgrad`, in x's dtype."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be float32 or bf16, got {x.dtype}")
-    bf16 = x.dtype == torch.bfloat16
+def _launch_dgrad(name: str, x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                  wsplit: bool):
+    """Launch the data-gradient kernel `name` on the current stream: (dx,
+    dom) in x's dtype, after checking that x (B,H,W,C), om (B,H,W,27), weight
+    (O, 9C) and dy (B,H,W,O) are contiguous CUDA tensors of x's dtype on one
+    device within the kernels' 32-bit indices. The scatter adds into dx
+    (float32), or, in bf16, into float32 sums the launch rounds once into
+    dx; wsplit: the float32 design's pre-tiled weight scratch goes before
+    dy."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B,H,W,C), got {tuple(x.shape)}")
     B, H, W, C = x.shape
@@ -526,31 +536,55 @@ def deform_conv_dgrad_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tens
         raise ValueError(f"weight must be (O, 9*C) = (O, {9 * C}), got {tuple(weight.shape)}")
     O = weight.shape[0]
     expect = {"om": (B, H, W, 27), "dy": (B, H, W, O)}
-    for name, t in (("x", x), ("om", om), ("weight", weight), ("dy", dy)):
-        if name in expect and tuple(t.shape) != expect[name]:
-            raise ValueError(f"{name} must be {expect[name]} for x {tuple(x.shape)}, got {tuple(t.shape)}")
+    for label, t in (("x", x), ("om", om), ("weight", weight), ("dy", dy)):
+        if label in expect and tuple(t.shape) != expect[label]:
+            raise ValueError(f"{label} must be {expect[label]} for x {tuple(x.shape)}, got {tuple(t.shape)}")
         if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
+            raise ValueError(f"{label} must be a CUDA tensor on {x.device}, got {t.device}")
         if t.dtype != x.dtype:
-            raise ValueError(f"{name} must be {x.dtype} like x, got {t.dtype}")
+            raise ValueError(f"{label} must be {x.dtype} like x, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     if B * H * W >= 2 ** 31 or O * 9 * C >= 2 ** 31:
         raise ValueError(f"x {tuple(x.shape)} with O={O} exceeds the kernel's 32-bit indices")
-    name = DGRAD_KERNEL_BF16 if bf16 else DGRAD_KERNEL
+    bf16 = x.dtype == torch.bfloat16
     dom = torch.empty((B, H, W, 27), dtype=x.dtype, device=x.device)
-    wsplit = torch.empty(dgrad_scratch_floats(C, O, bf16), dtype=torch.float32, device=x.device)
-    # the scatter adds into dx (float32), or, in bf16, into float32 sums the
-    # kernel rounds once into dx
     dx = torch.empty_like(x) if bf16 else torch.zeros_like(x)
     sums = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)] if bf16 else []
+    scratch = [torch.empty(dgrad_scratch_floats(C, O, bf16), dtype=torch.float32, device=x.device)] if wsplit else []
     fn = build.kernel_fn(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in [x, om, weight, wsplit, dy] + sums + [dx, dom]), B, H, W, C, O, stream)
+        err = fn(*(t.data_ptr() for t in [x, om, weight] + scratch + [dy] + sums + [dx, dom]), B, H, W, C, O, stream)
     build.check(name, err)
     build.count_launch(name)
     return dx, dom
+
+
+def deform_conv_dgrad_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                           dy: torch.Tensor):
+    """Launch the fused data-gradient kernel of x's dtype (float32 or bf16;
+    all four tensors share it) on the current stream (CUDA tensors): (dx,
+    dom) of `plain_deform_conv_dgrad`, in x's dtype. float32:
+    `deform_conv_dgrad` (csrc/deform_conv_bwd.cu); bf16:
+    `deform_conv_dgrad_bf16` (csrc/deform_conv_dgrad_bf16.cu, dcols = dY W on
+    bf16 tensor cores and scattered from shared memory with float4
+    atomics)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bf16, got {x.dtype}")
+    if x.dtype == torch.bfloat16:
+        return _launch_dgrad(DGRAD_KERNEL_BF16, x, om, weight, dy, wsplit=False)
+    return _launch_dgrad(DGRAD_KERNEL, x, om, weight, dy, wsplit=True)
+
+
+def deform_conv_dgrad_halo_cuda(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                                dy: torch.Tensor):
+    """`deform_conv_dgrad_cuda` in bf16 through the design it replaced (the
+    float32 kernel's bf16 instantiation, with its weight layout launch and
+    its halo tile of x), the yardstick on no path."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bf16, got {x.dtype}")
+    return _launch_dgrad(DGRAD_KERNEL_HALO_BF16, x, om, weight, dy, wsplit=True)
 
 
 def tiled_deform_scatter(feat: torch.Tensor, offsets: torch.Tensor, masks: torch.Tensor,

@@ -42,7 +42,10 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # reduction, share a source, and PR 14's convolution on s8 operands stays
 # in its own as their yardstick, on no path; the DCN columns' sampler and
 # its backward, float32 and bf16, share their sources with the designs that
-# preceded them, the yardsticks "_flat" and "_warp", on no path)
+# preceded them, the yardsticks "_flat" and "_warp", on no path; bf16
+# training's data gradient has a source of its own, and the design that
+# preceded it, the float32 data gradient's bf16 instantiation, stays there
+# as its yardstick "deform_conv_dgrad_halo_bf16", on no path)
 KERNEL_SOURCES = {
     "biased_attention": "biased_attention.cu",
     "deform_sample": "deform_sample.cu",
@@ -54,7 +57,7 @@ KERNEL_SOURCES = {
     "deform_conv_dgrad": "deform_conv_bwd.cu",
     "biased_attention_tiled": "biased_attention.cu",
     "biased_attention_bwd_bf16": "biased_attention_bwd.cu",
-    "deform_conv_dgrad_bf16": "deform_conv_bwd.cu",
+    "deform_conv_dgrad_bf16": "deform_conv_dgrad_bf16.cu",
     "deform_sample_bf16": "deform_sample.cu",
     "biased_attention_bwd_rows": "biased_attention_bwd.cu",
     "deform_conv_wgrad": "deform_conv_wgrad.cu",
@@ -76,6 +79,7 @@ KERNEL_SOURCES = {
     "deform_sample_bwd_warp": "deform_sample_bwd.cu",
     "deform_sample_flat": "deform_sample.cu",
     "deform_sample_flat_bf16": "deform_sample.cu",
+    "deform_conv_dgrad_halo_bf16": "deform_conv_bwd.cu",
 }
 
 NVCC_FLAGS = (
@@ -109,8 +113,8 @@ _SIGNATURES = {
     "biased_attention_tiled": ("biased_attention_tiled_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, d, q_bf16, stream
     "biased_attention_bwd_bf16": ("biased_attention_bwd_bf16", [_P] * 10 + [_I, _I, _I, _I, _I, _P]),
-    # x, om, weight, wsplit (scratch), dy, dx32 (scratch), dx, dom, B, H, W, C, O, stream
-    "deform_conv_dgrad_bf16": ("deform_conv_dgrad_bf16", [_P] * 8 + [_I, _I, _I, _I, _I, _P]),
+    # x, om, weight, dy, dx32 (scratch), dx, dom, B, H, W, C, O, stream (all bf16 but dx32)
+    "deform_conv_dgrad_bf16": ("deform_conv_dgrad_bf16", [_P] * 7 + [_I] * 5 + [_P]),
     # feat (bf16), offsets, masks (float32), out (bf16), B, H, W, C, stream
     "deform_sample_bf16": ("deform_sample_bf16_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # q, k, v, bias, out, dout, dq, dk, dv, dbias, B, heads, n, d, stream
@@ -154,6 +158,9 @@ _SIGNATURES = {
     "deform_sample_bwd_warp": ("deform_sample_bwd_warp", [_P] * 6 + [_I] * 4 + [_P]),
     "deform_sample_flat": ("deform_sample_flat_fwd", [_P] * 4 + [_I] * 4 + [_P]),
     "deform_sample_flat_bf16": ("deform_sample_flat_bf16_fwd", [_P] * 4 + [_I] * 4 + [_P]),
+    # the yardstick of deform_conv_dgrad_bf16: x, om, weight, wsplit
+    # (scratch), dy, dx32 (scratch), dx, dom, B, H, W, C, O, stream
+    "deform_conv_dgrad_halo_bf16": ("deform_conv_dgrad_halo_bf16", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -90,6 +90,9 @@ KERNEL_MODULES = {
                            "deform_sample_flat_cuda"),
     "deform_sample_flat_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_sample",
                                 "deform_sample_flat_cuda"),
+    # the design bf16 training's data gradient replaced, its yardstick
+    "deform_conv_dgrad_halo_bf16": ("sgtapose_tpu_torch.models.deform_conv", "plain_deform_conv_dgrad",
+                                    "deform_conv_dgrad_halo_cuda"),
 }
 
 
@@ -120,5 +123,5 @@ def test_every_kernel_has_its_plain_version(name):
                       "BWD_KERNEL_NOBIAS_BF16", "KERNEL_TILED_BF16", "BWD_KERNEL_ROWS_BF16",
                       "KERNEL_NOBIAS_ROWTILE", "KERNEL_NOBIAS_ROWTILE_BF16", "BWD_KERNEL_NOBIAS_CLUSTER",
                       "BWD_KERNEL_NOBIAS_CLUSTER_BF16", "KERNEL_FUSED", "KERNEL_ABSMAX", "KERNEL_FLAT",
-                      "KERNEL_FLAT_BF16", "BWD_KERNEL_WARP")}
+                      "KERNEL_FLAT_BF16", "BWD_KERNEL_WARP", "DGRAD_KERNEL_HALO_BF16")}
     assert name in names

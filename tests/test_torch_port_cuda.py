@@ -557,11 +557,12 @@ def test_deform_sample_bf16_kernel_matches_plain(dev, H, W, C, B):
     assert torch.equal(out, deform_conv.deform_sample(feat, offsets, masks))
 
 
-@pytest.mark.parametrize("B,H,W,C,O,span", DGRAD_SHAPES)
-def test_deform_conv_dgrad_bf16_kernel_matches_plain(dev, B, H, W, C, O, span):
-    """The bf16 data gradient at the float32 kernel's shapes (O = 5 and 36:
-    not whole 8-output chunks, the scalar-load variant); dom the same bit for
-    bit in two runs (dx is added with float atomics before its rounding)."""
+# the bf16 data gradient also at the three decoder nodes DGRAD_SHAPES lacks
+DGRAD_BF16_SHAPES = DGRAD_SHAPES + [(8, 30, 30, 256, 256, 3.0), (8, 30, 30, 256, 64, 3.0),
+                                    (8, 60, 60, 128, 128, 3.0)]
+
+
+def _dgrad_bf16_inputs(dev, B, H, W, C, O, span):
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(H * C + O + 3)
     x = torch.randn(B, H, W, C, generator=g, device=dev).to(bf)
@@ -569,16 +570,49 @@ def test_deform_conv_dgrad_bf16_kernel_matches_plain(dev, B, H, W, C, O, span):
                     2 * torch.randn(B, H, W, 9, generator=g, device=dev)], dim=-1).to(bf)
     weight = (torch.randn(O, 9 * C, generator=g, device=dev) / (9 * C) ** 0.5).to(bf)
     dy = torch.randn(B, H, W, O, generator=g, device=dev).to(bf)
-    before = build.launch_counts()["deform_conv_dgrad_bf16"]
+    return x, om, weight, dy
+
+
+@pytest.mark.parametrize("B,H,W,C,O,span", DGRAD_BF16_SHAPES)
+def test_deform_conv_dgrad_bf16_kernel_matches_plain(dev, B, H, W, C, O, span):
+    """The bf16 data gradient at the float32 kernel's shapes and every
+    decoder node (C = 6 and 20, O = 5 and 36: not whole 8-channel and
+    8-output groups, the scalar variant; 15x15 splits its channels over a
+    cluster; the concat baseline's C up to 1024); dom the same bit for bit in
+    two runs (dx is added with float atomics before its rounding). One
+    launch of the kernel a call, none of its yardstick's."""
+    x, om, weight, dy = _dgrad_bf16_inputs(dev, B, H, W, C, O, span)
+    before = build.launch_counts()
     dx, dom = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
     torch.cuda.synchronize()
-    assert build.launch_counts()["deform_conv_dgrad_bf16"] == before + 1
+    after = build.launch_counts()
+    assert after["deform_conv_dgrad_bf16"] == before["deform_conv_dgrad_bf16"] + 1
+    assert after["deform_conv_dgrad_halo_bf16"] == before["deform_conv_dgrad_halo_bf16"]
     rdx, rdom = deform_conv.plain_deform_conv_dgrad(x, om, weight, dy)
     assert dx.dtype == dom.dtype == torch.bfloat16
     assert _rel_err(dx.float(), rdx.float()) <= BWD_BF16_REL, _rel_err(dx.float(), rdx.float())
     assert _rel_err(dom.float(), rdom.float()) <= BWD_BF16_REL, _rel_err(dom.float(), rdom.float())
     _, again = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
     assert torch.equal(dom, again)
+
+
+@pytest.mark.parametrize("B,H,W,C,O,span", [(8, 15, 15, 512, 256, 3.0), (8, 120, 120, 64, 64, 3.0),
+                                            (2, 9, 11, 6, 5, 3.0), (2, 30, 30, 64, 64, 12.0)])
+def test_deform_conv_dgrad_bf16_yardstick_matches_the_kernel(dev, B, H, W, C, O, span):
+    """The design the bf16 kernel replaced (`deform_conv_dgrad_halo_cuda`,
+    on no path) gives the same dx and dom as the kernel within
+    BWD_BF16_REL: both round float32 sums of the same products once."""
+    x, om, weight, dy = _dgrad_bf16_inputs(dev, B, H, W, C, O, span)
+    before = build.launch_counts()
+    hdx, hdom = deform_conv.deform_conv_dgrad_halo_cuda(x, om, weight, dy)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after["deform_conv_dgrad_halo_bf16"] == before["deform_conv_dgrad_halo_bf16"] + 1
+    assert after["deform_conv_dgrad_bf16"] == before["deform_conv_dgrad_bf16"]
+    dx, dom = deform_conv.deform_conv_dgrad_cuda(x, om, weight, dy)
+    assert hdx.dtype == hdom.dtype == torch.bfloat16
+    assert _rel_err(hdx.float(), dx.float()) <= BWD_BF16_REL, _rel_err(hdx.float(), dx.float())
+    assert _rel_err(hdom.float(), dom.float()) <= BWD_BF16_REL, _rel_err(hdom.float(), dom.float())
 
 
 def test_bf16_training_gradients_on_the_card(dev):
